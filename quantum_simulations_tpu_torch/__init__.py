@@ -1,0 +1,42 @@
+"""quantum_simulations_tpu_torch — the PyTorch and CUDA port of
+``quantum_simulations_tpu`` for an NVIDIA H100.
+
+The JAX package stays the reference; this package imports nothing of it
+and nothing of JAX.  The state is a pair of flat float planes (re, im) of
+2^n amplitudes, index bit q is qubit q, and every panel pass runs as a
+CUDA kernel written for Hopper (``csrc/``, built with ``nvcc`` at first
+use).  Entry points run on the card unless the caller passes
+``device="cpu"``, which runs each kernel's plain torch twin.
+
+So far the port covers window-mode ``simulate`` of circuits whose window
+schedule holds only panels (``WindowPanelOp`` / ``DualPanelOp``), such
+as ``library.non_stabilizer(28)``; see ROADMAP.md for what follows.
+"""
+from .circuit.contract import (
+    ENDIANNESS,
+    levelize,
+    validate_circuit_dict,
+)
+from .circuit import gates, library
+from .utils.config import SimulatorConfig
+
+__version__ = "0.1.0"
+
+
+def simulate(circuit_dict, config=None, **kw):
+    """Top-level convenience: see :func:`quantum_simulations_tpu_torch.api.simulate`."""
+    from . import api
+
+    return api.simulate(circuit_dict, config, **kw)
+
+
+__all__ = [
+    "ENDIANNESS",
+    "validate_circuit_dict",
+    "levelize",
+    "gates",
+    "library",
+    "simulate",
+    "SimulatorConfig",
+    "__version__",
+]

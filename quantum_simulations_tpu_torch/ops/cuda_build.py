@@ -1,0 +1,104 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them through ctypes.
+
+Each ``csrc/<name>.cu`` becomes ``build/torch_kernels/lib<name>-<hash>.so``
+at first use: a plain C interface, no PyTorch headers, so a build takes
+seconds.  The hash covers the source and the flags, so an edited source
+is rebuilt and a stale library is never loaded.  ``QST_TORCH_BUILD_DIR``
+moves the build directory; ``QST_NVCC`` names the compiler.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("QST_TORCH_BUILD_DIR")
+    if env:
+        return Path(env)
+    return CSRC.parent.parent / "build" / "torch_kernels"
+
+
+def nvcc() -> str:
+    cands = [os.environ.get("QST_NVCC"), shutil.which("nvcc")]
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home:
+            cands.append(str(Path(home) / "bin" / "nvcc"))
+    for c in cands:
+        if c and Path(c).is_file():
+            return c
+    raise RuntimeError("nvcc not found: the port's kernels are built from "
+                       "csrc/*.cu on a machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(ARCH + FLAGS).encode())
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def _start(name: str, verbose: bool):
+    """Start nvcc for one source (None if its library is already built).
+
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills
+    of each kernel); it does not change the code, so not the hash.
+    """
+    out = library_path(name)
+    if out.exists():
+        return None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *ARCH, *FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(name: str, job, verbose: bool) -> None:
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+    if verbose and log:
+        print(log, file=sys.stderr)
+    os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+
+
+def build_all(verbose: bool = False) -> list[Path]:
+    """Build every ``csrc/*.cu``, one nvcc per source, all started together."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    jobs = {name: _start(name, verbose) for name in names}
+    for name, job in jobs.items():
+        if job is not None:
+            _finish(name, job, verbose)
+    return [library_path(name) for name in names]
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The built library of ``csrc/<name>.cu`` with its entries typed.
+
+    ``signatures`` maps each C entry to ``(restype, [argtypes])``.
+    """
+    lib = _LOADED.get(name)
+    if lib is None:
+        job = _start(name, False)
+        if job is not None:
+            _finish(name, job, False)
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, (restype, argtypes) in signatures.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _LOADED[name] = lib
+    return lib
