@@ -18,16 +18,20 @@ Phases (any failure exits non-zero):
    Fails on ||diff||_2 > 1e-5.
 3. The main path: ``api.simulate(non_stabilizer(28, depth=4, seed=7),
    SimulatorConfig(mode="window"))`` on the card, launch counters
-   (dual_panel 2, positioned_panel 3, no plain twin), |norm2 - 1| <= 1e-5
-   and ||psi - psi_f64||_2 <= 1e-5 against the plain twins in float64
-   on the card; then a second request, ``hadamard_wall(28)`` with
-   ``QST_PANEL_PAIR_FUSE=0``, whose unpaired pos-0 panel runs
-   ``lane_panel`` (every amplitude must equal 2^-14).
+   (dual_panel 2, positioned_panel 3, lane_panel 0, no plain twin),
+   |norm2 - 1| <= 1e-5 and ||psi - psi_f64||_2 <= 1e-5 against the
+   plain twins in float64 on the card; then a second request,
+   ``hadamard_wall(28)`` with ``QST_PANEL_PAIR_FUSE=0``, whose unpaired
+   pos-0 panel runs ``lane_panel`` (lane_panel 1, positioned_panel 3;
+   every amplitude must equal 2^-14).  The counters are set to 0 just
+   before each request and read just after it.
 4. Times at n = 28: per kernel the median CUDA-event ms, the plain
    twin's ms, one torch library call computing the same function
    (timed here, never used by the port), and the bound: the larger of
    bytes / 3.35 TB/s and flop / 67 TFLOP/s (H100 SXM data sheet,
-   float32 outside the tensor cores).  Then the end-to-end time of
+   float32 outside the tensor cores), with the flop the function needs
+   (6 per complex multiply-add, none for a select straddler).  Then
+   the end-to-end time of
    nonstab28 by the two-point estimator (t(2R) - t(R)) / R and
    amplitude-updates/s = 223 * 2^28 / t.
 
@@ -55,6 +59,12 @@ PALLAS = "quantum_simulations_tpu/ops/pallas_kernels.py"
 REPLACES = {"lane_panel": f"{PALLAS}:93",
             "positioned_panel": f"{PALLAS}:605",
             "dual_panel": f"{PALLAS}:343"}
+# The request whose launches each kernel reports: nonstab28 launches no
+# lane panel (its pos-0 panels are all paired), hadamard_wall28 with
+# QST_PANEL_PAIR_FUSE=0 does.  Each request has counts of its own.
+PATH = {"lane_panel": "hadamard_wall28",
+        "positioned_panel": "nonstab28",
+        "dual_panel": "nonstab28"}
 TOL_L2 = 1e-5
 
 RECORD: dict = {"cases": [], "times": []}
@@ -128,13 +138,56 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(ts)
 
 
-def bound(N: int, dims: list[int], extra_flop_per_amp: float = 0.0):
-    """(bound_ms, bound_by): both planes read + written once, each W read
-    once; 8 flop per complex multiply-add, dim of them per amplitude."""
-    nbytes = 4 * N * 4 + sum(2 * d * d * 4 for d in dims)
-    flop = N * (8 * sum(dims) + extra_flop_per_amp)
+def straddle_flop(s) -> int:
+    """flop per amplitude of a (6, qb) straddler by the reference's term
+    plan: a select (CNOT) only moves data; a unit / real / complex term
+    costs 2 / 4 / 8 (a general complex U: 32)."""
+    import numpy as np
+
+    from quantum_simulations_tpu_torch.ops import panel_kernels as pk
+
+    kinds = pk._straddle_plan(s.qb, s.U, np.float32)[2][2]
+    return sum({"select": 0, "unit": 2, "real": 4, "complex": 8}[k]
+               for k in kinds)
+
+
+def bound(N: int, dims: list[int], straddles=()):
+    """(bound_ms, bound_by) of the work the function needs.  Bytes: both
+    planes read and written once, each W and straddler U read once.
+    Operations: a complex contraction of width dim costs 6 * dim flop per
+    amplitude by Gauss's three real products (the reference's default,
+    ``_cmul_planes`` in pallas_kernels.py), plus 4 adds; a straddler
+    costs :func:`straddle_flop`."""
+    nbytes = 4 * N * 4 + sum(2 * d * d * 4 for d in dims) + 32 * 4 * len(straddles)
+    flop = N * (sum(6 * d + 4 for d in dims)
+                + sum(straddle_flop(s) for s in straddles))
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flop / FP32_FLOP_PER_S
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def dual_library(xc, op, cw):
+    """One torch call computing a (0, 7) dual pass on the complex state
+    ``xc``, straddler included: an einsum of the lane W, the row W and,
+    with a pre-straddler on (lane bit 6, row bit qb - 7), its U as
+    (2, 2, 2, 2) in (bit 6, qb) order over the (A, 2^(6-dbit), 2,
+    2^dbit, 2, 64) view.  The two panels commute (they act on different
+    axes); the straddler comes first."""
+    import torch
+
+    lane, row = (op.first, op.second) if op.first.pos == 0 else (op.second, op.first)
+    Wl, Wr = cw(lane.W), cw(row.W)
+    if op.post_straddle is not None:
+        raise ValueError("dual_library: no post-straddler on the main path")
+    if op.pre_straddle is None:
+        xv = xc.view(-1, 128, 128)
+        return lambda: torch.einsum("ij,ajm,lm->ail", Wr, xv, Wl)
+    _, qb, U = op.pre_straddle
+    dbit = qb - 7
+    H, L = 1 << (6 - dbit), 1 << dbit
+    xv = xc.view(-1, H, 2, L, 2, 64)
+    U4 = cw(U).view(2, 2, 2, 2)
+    return lambda: torch.einsum("SRsr,ahrosm,lSm,ihRo->ail", U4, xv,
+                                Wl.view(128, 2, 64), Wr.view(128, H, 2, L))
 
 
 # ---------------------------------------------------------------------------
@@ -232,36 +285,41 @@ def main_path(dev) -> dict:
     from quantum_simulations_tpu_torch.runtime import simulator
 
     cd = library.non_stabilizer(28, depth=4, seed=7)
+    counts: dict = {}
     pk.reset_counts()
     t0 = time.perf_counter()
     psi = api.simulate(cd, SimulatorConfig(mode="window"), device=dev)
     wall = time.perf_counter() - t0
-    after_nonstab = dict(pk.LAUNCHES)
+    counts["nonstab28"] = dict(pk.LAUNCHES)
     log(f"main nonstab28 api.simulate: {wall:.3f} s (first call: schedule, "
-        f"W upload, host copy of 2^28 amplitudes) launches={after_nonstab} "
-        f"plain_calls={dict(pk.PLAIN_CALLS)}")
+        f"W upload, host copy of 2^28 amplitudes) "
+        f"launches={counts['nonstab28']} plain_calls={dict(pk.PLAIN_CALLS)}")
     want = {"dual_panel": 2, "positioned_panel": 3, "lane_panel": 0}
-    if after_nonstab != want or any(pk.PLAIN_CALLS.values()):
-        raise AssertionError(f"launch counts {after_nonstab} / plain "
-                             f"{pk.PLAIN_CALLS}, want {want} and no plain call")
+    if counts["nonstab28"] != want or any(pk.PLAIN_CALLS.values()):
+        raise AssertionError(f"nonstab28 launch counts {counts['nonstab28']} / "
+                             f"plain {pk.PLAIN_CALLS}, want {want} and no plain call")
 
     # Second request: the unpaired-panel schedule, whose pos-0 panel
     # runs lane_panel.  H on every qubit: every amplitude is 2^-14.
     os.environ["QST_PANEL_PAIR_FUSE"] = "0"
+    pk.reset_counts()
     try:
         wall_psi = api.simulate(library.hadamard_wall(28),
                                 SimulatorConfig(mode="window"), device=dev)
     finally:
         del os.environ["QST_PANEL_PAIR_FUSE"]
-    launches = dict(pk.LAUNCHES)
+    counts["hadamard_wall28"] = dict(pk.LAUNCHES)
     hw_err = float(np.max(np.abs(wall_psi - 2.0 ** -14)))
     log(f"main hadamard_wall28 (QST_PANEL_PAIR_FUSE=0): max |psi - 2^-14| = "
-        f"{hw_err:.3e} launches={launches} plain_calls={dict(pk.PLAIN_CALLS)}")
+        f"{hw_err:.3e} launches={counts['hadamard_wall28']} "
+        f"plain_calls={dict(pk.PLAIN_CALLS)}")
     del wall_psi
-    if (launches["lane_panel"] != 1 or launches["positioned_panel"] != 6
-            or any(pk.PLAIN_CALLS.values()) or not hw_err <= 1e-6):
-        raise AssertionError("hadamard_wall28 did not run 1 lane + 3 "
-                             "positioned launches to the exact state")
+    want = {"dual_panel": 0, "positioned_panel": 3, "lane_panel": 1}
+    if (counts["hadamard_wall28"] != want or any(pk.PLAIN_CALLS.values())
+            or not hw_err <= 1e-6):
+        raise AssertionError(f"hadamard_wall28 launch counts "
+                             f"{counts['hadamard_wall28']}, want {want}, no plain "
+                             f"call and the exact state")
 
     got = torch.from_numpy(psi).to(dev).to(torch.complex128)
     del psi
@@ -278,10 +336,10 @@ def main_path(dev) -> dict:
         f"max_abs={mx:.3e}")
     if not (finite and abs(nrm2 - 1) <= 1e-5 and l2 <= 1e-5):
         raise AssertionError("nonstab28 output is off the float64 reference")
-    RECORD["main"] = dict(launches=launches, after_nonstab28=after_nonstab,
-                          norm2=nrm2, l2_vs_f64=l2, max_abs_vs_f64=mx,
-                          hadamard_wall_max_err=hw_err, first_call_s=wall)
-    return launches
+    RECORD["main"] = dict(launches=counts, norm2=nrm2, l2_vs_f64=l2,
+                          max_abs_vs_f64=mx, hadamard_wall_max_err=hw_err,
+                          first_call_s=wall)
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -308,14 +366,13 @@ def times(dev, ops) -> dict:
 
     rows: dict = {}
 
-    def row(name, label, kern, twin, lib, dims, extra=0.0):
+    def row(name, label, kern, twin, lib, dims, straddles=()):
         ms = cuda_ms(kern, reps=10)
         plain_ms = cuda_ms(twin, reps=3)
-        lib_ms = None if lib is None else cuda_ms(lib, reps=5)
-        b_ms, b_by = bound(N, dims, extra)
-        lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.3f}"
+        lib_ms = cuda_ms(lib, reps=5)
+        b_ms, b_by = bound(N, dims, straddles)
         log(f"time {label:<26} ms={ms:.3f} plain_ms={plain_ms:.3f} "
-            f"library_ms={lib_txt} bound_ms={b_ms:.3f} ({b_by}) "
+            f"library_ms={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by}) "
             f"bound/ms={b_ms / ms:.3f}")
         rec = dict(kernel=name, case=label, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
@@ -338,16 +395,12 @@ def times(dev, ops) -> dict:
         w1 = pk.w_planes(op.first.W, dev, torch.float32)
         w2 = pk.w_planes(op.second.W, dev, torch.float32)
         s = pk.Straddle.of(op.pre_straddle)
-        lib = None
-        if s is None and op.first.pos == 0:
-            W1c, W2c, xv = cw(op.first.W), cw(op.second.W), xc.view(-1, 128, 128)
-            lib = lambda: torch.einsum("ij,ajm,lm->ail", W2c, xv, W1c)  # noqa: E731
         row("dual_panel", "dual" + (" +pre" if s else ""),
             lambda w1=w1, w2=w2, op=op, s=s: pk.dual_panel(
                 *x, w1, op.first.pos, w2, op.second.pos, straddle=s),
             lambda w1=w1, w2=w2, op=op, s=s: pk.dual_panel_plain(
                 *x, w1, op.first.pos, w2, op.second.pos, straddle=s),
-            lib, [128, 128], 32.0 if s else 0.0)
+            dual_library(xc, op, cw), [128, 128], [s] if s else [])
     w0 = pk.w_planes(ops[0].first.W, dev, torch.float32)
     W0t, xl = cw(ops[0].first.W).T.contiguous(), xc.view(-1, 128)
     row("lane_panel", "lane (2^21, 128)",
@@ -428,7 +481,7 @@ def main() -> int:
     if quick:
         log("quick: build and kernel checks passed")
         return 0
-    launches = main_path(dev)
+    counts = main_path(dev)
     rows = times(dev, ops)
 
     kernels = []
@@ -436,7 +489,9 @@ def main() -> int:
         r = rows[name]
         kernels.append(dict(
             name=name, route="cuda", source=SRC, replaces=REPLACES[name],
-            launches=launches[name], max_abs_err=worst[name], ms=r["ms"],
+            launches=counts[PATH[name]][name], path=PATH[name],
+            launches_by_path={p: c[name] for p, c in counts.items()},
+            max_abs_err=worst[name], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     RECORD["kernels"] = kernels

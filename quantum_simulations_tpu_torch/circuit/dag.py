@@ -1,120 +1,34 @@
-"""Circuit dependency DAG and the ``locality`` partition used by
+"""The ``locality`` partition used by
 ``runtime.simulator.simulate(segment_gates=...)``.
 
-The part of ``quantum_simulations_tpu/circuit/dag.py`` that the window
-path needs, copied: the port imports nothing of the JAX package.
+The one strategy of ``quantum_simulations_tpu/circuit/dag.py``'s
+``partition`` that the window path calls, copied: the port imports
+nothing of the JAX package.
 """
 from __future__ import annotations
-
-from collections import defaultdict
-from dataclasses import dataclass, field
 
 from .contract import validate_circuit_dict
 
 
-@dataclass
-class CircuitGraph:
-    """Dependency DAG: gate i -> gate j if they share a qubit and i < j
-    with no intervening gate on that qubit (direct dependency edges)."""
-
-    n_qubits: int
-    gates: list = field(default_factory=list)
-    edges: list = field(default_factory=list)          # (i, j)
-    preds: dict = field(default_factory=dict)          # j -> [i]
-    succs: dict = field(default_factory=dict)          # i -> [j]
-
-    @classmethod
-    def from_circuit(cls, circuit_dict: dict) -> "CircuitGraph":
-        cd = validate_circuit_dict(circuit_dict)
-        g = cls(n_qubits=cd["number_of_qubits"], gates=cd["gates"])
-        g.preds = defaultdict(list)
-        g.succs = defaultdict(list)
-        last_on: dict[int, int] = {}
-        for j, gate in enumerate(g.gates):
-            for q in gate["qubits"]:
-                if q in last_on:
-                    i = last_on[q]
-                    if j not in g.succs[i]:
-                        g.edges.append((i, j))
-                        g.succs[i].append(j)
-                        g.preds[j].append(i)
-                last_on[q] = j
-        return g
-
-    def topological_levels(self) -> list[list[int]]:
-        """ASAP levels of gate indices (level = longest path depth)."""
-        depth = [0] * len(self.gates)
-        for i, gate in enumerate(self.gates):
-            for p in self.preds.get(i, ()):
-                depth[i] = max(depth[i], depth[p] + 1)
-        levels: list[list[int]] = [[] for _ in range(max(depth, default=-1) + 1)]
-        for i, d in enumerate(depth):
-            levels[d].append(i)
-        return levels
-
-
-def partition(
-    circuit_dict: dict,
-    n_partitions: int,
-    strategy: str = "level_based",
-) -> list[list[int]]:
-    """Split gate indices into ``n_partitions`` dependency-respecting groups.
-
-    Strategies (reference parity):
-      * ``level_based``  — contiguous runs of whole topological levels
-      * ``greedy``       — fill partitions to equal gate counts in order
-      * ``balanced``     — like greedy but weighting 2q gates double
-      * ``locality``     — cut where consecutive gates share no qubits
-                           (minimises cross-partition qubit traffic)
-    """
-    graph = CircuitGraph.from_circuit(circuit_dict)
-    n_gates = len(graph.gates)
+def partition(circuit_dict: dict, n_partitions: int) -> list[list[int]]:
+    """Split gate indices into ``n_partitions`` contiguous groups, cut at
+    the n-1 boundaries where neighbouring gates share the fewest qubits
+    (ties -> earlier): the reference's ``strategy='locality'``."""
+    gates = validate_circuit_dict(circuit_dict)["gates"]
+    n_gates = len(gates)
     if n_gates == 0:
         return [[] for _ in range(n_partitions)]
     n_partitions = max(1, min(n_partitions, n_gates))
-
-    if strategy == "level_based":
-        levels = graph.topological_levels()
-        per = max(1, (len(levels) + n_partitions - 1) // n_partitions)
-        parts = [
-            [g for lv in levels[i:i + per] for g in lv]
-            for i in range(0, len(levels), per)
-        ]
-        parts += [[] for _ in range(n_partitions - len(parts))]
-        return parts
-
-    if strategy in ("greedy", "balanced"):
-        def weight(i: int) -> int:
-            return len(graph.gates[i]["qubits"]) if strategy == "balanced" else 1
-        total = sum(weight(i) for i in range(n_gates))
-        target = total / n_partitions
-        parts, cur, acc = [], [], 0.0
-        for i in range(n_gates):
-            cur.append(i)
-            acc += weight(i)
-            if acc >= target and len(parts) < n_partitions - 1:
-                parts.append(cur)
-                cur, acc = [], 0.0
-        parts.append(cur)
-        while len(parts) < n_partitions:
-            parts.append([])
-        return parts
-
-    if strategy == "locality":
-        # Score cut points by qubit-set overlap between neighbours; cut
-        # at the n-1 lowest-overlap boundaries (ties -> earlier).
-        overlaps = []
-        for i in range(1, n_gates):
-            a = set(graph.gates[i - 1]["qubits"])
-            b = set(graph.gates[i]["qubits"])
-            overlaps.append((len(a & b), i))
-        cuts = sorted(i for _, i in sorted(overlaps)[: n_partitions - 1])
-        parts = []
-        prev = 0
-        for c in cuts:
-            parts.append(list(range(prev, c)))
-            prev = c
-        parts.append(list(range(prev, n_gates)))
-        return parts
-
-    raise ValueError(f"unknown strategy {strategy!r}")
+    overlaps = []
+    for i in range(1, n_gates):
+        a = set(gates[i - 1]["qubits"])
+        b = set(gates[i]["qubits"])
+        overlaps.append((len(a & b), i))
+    cuts = sorted(i for _, i in sorted(overlaps)[: n_partitions - 1])
+    parts = []
+    prev = 0
+    for c in cuts:
+        parts.append(list(range(prev, c)))
+        prev = c
+    parts.append(list(range(prev, n_gates)))
+    return parts

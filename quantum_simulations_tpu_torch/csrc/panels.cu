@@ -23,9 +23,10 @@
 //                     _straddle_prologue (:229, :278).
 //
 // Bound on an H100 SXM.  One pass over n = 28 moves 2^28 x 16 B = 4.3 GB
-// (1.28 ms at 3.35 TB/s) and does 2^28 x dim complex multiply-adds:
-// 2^28 x 1024 = 2.7e11 flop for dim = 128 (twice that for dual_panel).
-// At the 67 TFLOP/s float32 rate outside the tensor cores that is 4.1 ms,
+// (1.28 ms at 3.35 TB/s) and does 2^28 x dim complex multiply-adds.  By
+// Gauss's three real products each needs 6 flop: 2^28 x 772 = 2.1e11 flop
+// for dim = 128 (twice that for dual_panel; a CNOT straddler adds none).
+// At the 67 TFLOP/s float32 rate outside the tensor cores that is 3.1 ms,
 // so every kernel here is bound by operations, not bytes.
 //
 // What the simple design does about it.  A block of 512 threads owns one

@@ -218,7 +218,8 @@ def simulate(
 
     ``segment_gates``: run the circuit as several sub-circuits of at
     most ~``segment_gates`` gates, cut at the lowest-qubit-locality
-    boundaries (``circuit.dag.partition(strategy='locality')``).  As in
+    boundaries (``circuit.dag.partition``, the reference's
+    ``strategy='locality'``).  As in
     the reference, the recursive call does not pass ``segment_gates``
     on, so each part runs as one schedule.  ``donate_input`` keeps the
     reference's meaning (the caller will not touch ``initial_state``
@@ -232,7 +233,7 @@ def simulate(
         from ..circuit.dag import partition
 
         n_seg = -(-len(cd["gates"]) // segment_gates)
-        parts = partition(cd, n_seg, strategy="locality")
+        parts = partition(cd, n_seg)
         psi = _as_state(initial_state, n, cdtype, dev)
         first = True
         for part in parts:

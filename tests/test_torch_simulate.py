@@ -105,6 +105,17 @@ def test_segment_gates_matches_reference():
     np.testing.assert_allclose(want, _ref(cd), atol=1e-10)
 
 
+@pytest.mark.parametrize("name,n_parts", [
+    ("non_stabilizer", 1), ("non_stabilizer", 5), ("qft", 3), ("ghz", 40)])
+def test_partition_matches_reference_locality(name, n_parts):
+    from quantum_simulations_tpu.circuit.dag import partition as rpartition
+    from quantum_simulations_tpu_torch.circuit.dag import partition
+
+    cd = getattr(rlib, name)(12)
+    assert partition(cd, n_parts) == rpartition(cd, n_parts,
+                                                strategy="locality")
+
+
 def test_auto_mode_resolves_to_window():
     cd = rlib.non_stabilizer(16)
     got = api.simulate(cd, SimulatorConfig(mode="auto", dtype="complex128"),
