@@ -10,30 +10,44 @@ Phases (any failure exits non-zero):
    then the build of every ``quantum_simulations_tpu_torch/csrc/*.cu``
    (one nvcc per source, started together; ptxas register report).
 2. Each kernel against its plain torch twin on the card, on seeded
-   unit-norm states: at n = 28 with the W's of nonstab28's schedule
-   (positioned pos 11 / 14 / 21, dual with and without its
-   pre-straddler, the lane panel on the (2^21, 128) view), and at n = 20
-   (positioned pos 7 / 8 / 9, a ragged 64-wide top window, dual in
-   (7, 0) order, dual with general complex pre- and post-straddlers).
-   Fails on ||diff||_2 > 1e-5.
-3. The main path: ``api.simulate(non_stabilizer(28, depth=4, seed=7),
-   SimulatorConfig(mode="window"))`` on the card, launch counters
-   (dual_panel 2, positioned_panel 3, lane_panel 0, no plain twin),
-   |norm2 - 1| <= 1e-5 and ||psi - psi_f64||_2 <= 1e-5 against the
-   plain twins in float64 on the card; then a second request,
-   ``hadamard_wall(28)`` with ``QST_PANEL_PAIR_FUSE=0``, whose unpaired
-   pos-0 panel runs ``lane_panel`` (lane_panel 1, positioned_panel 3;
-   every amplitude must equal 2^-14).  The counters are set to 0 just
-   before each request and read just after it.
+   unit-norm states.  At n = 28 with the operands of the three requests:
+   nonstab28's W's (positioned pos 11 / 14 / 21, dual with and without
+   its pre-straddler, the lane panel on the (2^21, 128) view), qaoa28's
+   43-term diag run through ``fused_diag``, qft28's pos-21 panel with its
+   147-term run as the diag epilogue, and qft28's ``bitperm_swap`` and
+   ``bitperm_transpose``.  At n = 20 with random operands: positioned
+   pos 7 / 8 / 9, a ragged 64-wide top window, dual in (7, 0) order,
+   dual with general complex pre- and post-straddlers, ``fused_diag``,
+   the lane / positioned / dual diag epilogues (order <= 3 terms, sum
+   |coeff| > 100 rad), and both bit permutations.  Fails on
+   ||diff||_2 > 1e-5, or on any difference for a bit permutation.
+3. The main path, five requests through the entry points, the counters
+   set to 0 just before each request and read just after it, no plain
+   twin called: ``api.simulate(non_stabilizer(28, depth=4, seed=7),
+   SimulatorConfig(mode="window"))`` (dual_panel 2, positioned_panel 3),
+   ``hadamard_wall(28)`` with ``QST_PANEL_PAIR_FUSE=0`` (lane_panel 1,
+   positioned_panel 3; every amplitude 2^-14), ``qft(28)``
+   (positioned_panel 1, positioned_panel+diag 3, lane_panel 1,
+   bitperm_swap 1, bitperm_transpose 1; every amplitude 2^-14 within
+   1e-6), ``qaoa_maxcut(28)`` (dual_panel 3, positioned_panel 8,
+   positioned_panel+diag 2, fused_diag 2), and qft28 once more through
+   ``simulator.simulate`` from a seeded random unit-norm state (from |0>
+   a wrong phase on a control still 0 can hide).  Each but the wall:
+   |norm2 - 1| <= 1e-5 and ||psi - psi_f64||_2 <= 1e-5 against the plain
+   twins in float64 on the card, from the same state.
 4. Times at n = 28: per kernel the median CUDA-event ms, the plain
    twin's ms, one torch library call computing the same function
-   (timed here, never used by the port), and the bound: the larger of
-   bytes / 3.35 TB/s and flop / 67 TFLOP/s (H100 SXM data sheet,
-   float32 outside the tensor cores), with the flop the function needs
-   (6 per complex multiply-add, none for a select straddler).  Then
-   the end-to-end time of
-   nonstab28 by the two-point estimator (t(2R) - t(R)) / R and
-   amplitude-updates/s = 223 * 2^28 / t.
+   (timed here, never used by the port; for a diag run, with or without
+   a panel, an elementwise product with its 2^28 phase table, built
+   outside the timing), and the bound: the larger of bytes / 3.35 TB/s and
+   flop / 67 TFLOP/s (H100 SXM data sheet, float32 outside the tensor
+   cores), with the flop the function needs (6 per complex multiply-add,
+   none for a select straddler, 6 per amplitude for a diag rotation,
+   none for a bit permutation).  Each epilogue row also times the same
+   panel without it.  Then the kernel time of every pass of qft28 and
+   qaoa28, and the end-to-end time of nonstab28, qft28 and qaoa28 by the
+   two-point estimator (t(2R) - t(R)) / R with
+   amplitude-updates/s = gates * 2^28 / t.
 
 The last lines: the card line as nvidia-smi prints it, one JSON object
 ``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.  The
@@ -54,17 +68,38 @@ from pathlib import Path
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # float32 outside the tensor cores
 SEED = 7
-SRC = "quantum_simulations_tpu_torch/csrc/panels.cu"
+NQ = 28                        # the requests' width: full size, not cut
+CSRC = "quantum_simulations_tpu_torch/csrc"
+SRC = {"lane_panel": f"{CSRC}/panels.cu",
+       "positioned_panel": f"{CSRC}/panels.cu",
+       "dual_panel": f"{CSRC}/panels.cu",
+       "fused_diag": f"{CSRC}/diag.cu",
+       "bitperm_swap": f"{CSRC}/bitperm.cu",
+       "bitperm_transpose": f"{CSRC}/bitperm.cu"}
+KERNELS = list(SRC)
 PALLAS = "quantum_simulations_tpu/ops/pallas_kernels.py"
 REPLACES = {"lane_panel": f"{PALLAS}:93",
             "positioned_panel": f"{PALLAS}:605",
-            "dual_panel": f"{PALLAS}:343"}
-# The request whose launches each kernel reports: nonstab28 launches no
-# lane panel (its pos-0 panels are all paired), hadamard_wall28 with
-# QST_PANEL_PAIR_FUSE=0 does.  Each request has counts of its own.
-PATH = {"lane_panel": "hadamard_wall28",
-        "positioned_panel": "nonstab28",
-        "dual_panel": "nonstab28"}
+            "dual_panel": f"{PALLAS}:343",
+            "fused_diag": f"{PALLAS}:1297",
+            "bitperm_swap": f"{PALLAS}:1977",
+            "bitperm_transpose": f"{PALLAS}:2155"}
+# The request whose launches each kernel reports; each request has
+# counts of its own.  A panel's launches count its "+diag" key too.
+PATH = {"lane_panel": "qft28",
+        "positioned_panel": "qaoa28",
+        "dual_panel": "qaoa28",
+        "fused_diag": "qaoa28",
+        "bitperm_swap": "qft28",
+        "bitperm_transpose": "qft28"}
+# Launches of each request, by counter key (keys not listed: 0).
+WANT = {"nonstab28": {"dual_panel": 2, "positioned_panel": 3},
+        "hadamard_wall28": {"lane_panel": 1, "positioned_panel": 3},
+        "qft28": {"positioned_panel": 1, "positioned_panel+diag": 3,
+                  "lane_panel": 1, "bitperm_swap": 1, "bitperm_transpose": 1},
+        "qaoa28": {"dual_panel": 3, "positioned_panel": 8,
+                   "positioned_panel+diag": 2, "fused_diag": 2}}
+WANT["qft28 random state"] = WANT["qft28"]
 TOL_L2 = 1e-5
 
 RECORD: dict = {"cases": [], "times": []}
@@ -72,6 +107,42 @@ RECORD: dict = {"cases": [], "times": []}
 
 def log(*a):
     print(*a, flush=True)
+
+
+def circuits() -> dict:
+    """The requests' circuits at width NQ."""
+    from quantum_simulations_tpu_torch.circuit import library
+
+    return {"nonstab28": library.non_stabilizer(NQ, depth=4, seed=7),
+            "hadamard_wall28": library.hadamard_wall(NQ),
+            "qft28": library.qft(NQ),
+            "qaoa28": library.qaoa_maxcut(NQ)}
+
+
+def count_modules():
+    from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
+    from quantum_simulations_tpu_torch.ops import diag_kernels as dk
+    from quantum_simulations_tpu_torch.ops import panel_kernels as pk
+
+    return pk, dk, bk
+
+
+def reset_counts() -> None:
+    for m in count_modules():
+        m.reset_counts()
+
+
+def launches() -> dict:
+    """Launch counts by key, those that are not 0."""
+    return {k: v for m in count_modules() for k, v in m.LAUNCHES.items() if v}
+
+
+def plain_calls() -> dict:
+    return {k: v for m in count_modules() for k, v in m.PLAIN_CALLS.items() if v}
+
+
+def kernel_of(key: str) -> str:
+    return key.removesuffix("+diag")
 
 
 def card_line() -> str:
@@ -151,27 +222,69 @@ def straddle_flop(s) -> int:
                for k in kinds)
 
 
-def bound(N: int, dims: list[int], straddles=()):
+def bound(N: int, dims: list[int], straddles=(), diag=None):
     """(bound_ms, bound_by) of the work the function needs.  Bytes: both
-    planes read and written once, each W and straddler U read once.
-    Operations: a complex contraction of width dim costs 6 * dim flop per
-    amplitude by Gauss's three real products (the reference's default,
-    ``_cmul_planes`` in pallas_kernels.py), plus 4 adds; a straddler
-    costs :func:`straddle_flop`."""
-    nbytes = 4 * N * 4 + sum(2 * d * d * 4 for d in dims) + 32 * 4 * len(straddles)
+    planes read and written once, each W and straddler U read once, a
+    diag run's packed operand read once.  Operations: a complex
+    contraction of width dim costs 6 * dim flop per amplitude by Gauss's
+    three real products (the reference's default, ``_cmul_planes`` in
+    pallas_kernels.py), plus 4 adds; a straddler costs
+    :func:`straddle_flop`; a diag run's rotation 6 per amplitude (its
+    angle sums are integer adds and its cos / sin one sincos, not
+    counted); a bit permutation none."""
+    nbytes = (4 * N * 4 + sum(2 * d * d * 4 for d in dims)
+              + 32 * 4 * len(straddles)
+              + (0 if diag is None else 4 * diag.words.size))
     flop = N * (sum(6 * d + 4 for d in dims)
-                + sum(straddle_flop(s) for s in straddles))
+                + sum(straddle_flop(s) for s in straddles)
+                + (0 if diag is None else 6))
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flop / FP32_FLOP_PER_S
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
-def dual_library(xc, op, cw):
+def phase_table(N: int, dterms, dev, fdtype=None):
+    """exp(i theta) of a diag run over all N amplitudes, theta summed in
+    float64, as a complex tensor of ``fdtype`` (float32): the operand of
+    the library calls that apply a diag run.  It is a 2^28 table that the
+    kernels never read, so those calls move more bytes than the function
+    needs."""
+    import torch
+
+    from quantum_simulations_tpu_torch.ops import diag_kernels as dk
+
+    th = dk.terms_theta(N, dterms.terms, torch.float64, dev)
+    fdtype = torch.float32 if fdtype is None else fdtype
+    return torch.complex(torch.cos(th).to(fdtype), torch.sin(th).to(fdtype))
+
+
+def panel_library(xc, W, pos: int, ph=None):
+    """One torch call computing a single-window panel at ``pos`` on the
+    complex state ``xc`` (the lane panel at pos 0) and, with ``ph``
+    (:func:`phase_table`), its diag epilogue in the same call."""
+    import torch
+
+    if pos == 0:
+        xl = xc.view(-1, 128)
+        if ph is None:
+            Wt = W.T.contiguous()
+            return lambda: xl @ Wt
+        pv = ph.view(xl.shape)
+        return lambda: torch.einsum("aj,ij,ai->ai", xl, W, pv)
+    xv = xc.view(-1, W.shape[0], 1 << pos)
+    if ph is None:
+        return lambda: torch.einsum("ij,ajc->aic", W, xv)
+    pv = ph.view(xv.shape)
+    return lambda: torch.einsum("ij,ajc,aic->aic", W, xv, pv)
+
+
+def dual_library(xc, op, cw, ph=None):
     """One torch call computing a (0, 7) dual pass on the complex state
     ``xc``, straddler included: an einsum of the lane W, the row W and,
     with a pre-straddler on (lane bit 6, row bit qb - 7), its U as
     (2, 2, 2, 2) in (bit 6, qb) order over the (A, 2^(6-dbit), 2,
     2^dbit, 2, 64) view.  The two panels commute (they act on different
-    axes); the straddler comes first."""
+    axes); the straddler comes first.  With ``ph`` (:func:`phase_table`)
+    the diag epilogue rides the same einsum (no pre-straddler then)."""
     import torch
 
     lane, row = (op.first, op.second) if op.first.pos == 0 else (op.second, op.first)
@@ -180,7 +293,12 @@ def dual_library(xc, op, cw):
         raise ValueError("dual_library: no post-straddler on the main path")
     if op.pre_straddle is None:
         xv = xc.view(-1, 128, 128)
+        if ph is not None:
+            pv = ph.view(xv.shape)
+            return lambda: torch.einsum("ij,ajm,lm,ail->ail", Wr, xv, Wl, pv)
         return lambda: torch.einsum("ij,ajm,lm->ail", Wr, xv, Wl)
+    if ph is not None:
+        raise ValueError("dual_library: no diag epilogue after a pre-straddler")
     _, qb, U = op.pre_straddle
     dbit = qb - 7
     H, L = 1 << (6 - dbit), 1 << dbit
@@ -194,77 +312,153 @@ def dual_library(xc, op, cw):
 # Phase 2: every kernel against its plain twin
 # ---------------------------------------------------------------------------
 
-def kernel_cases(n: int, ops, rng):
-    """(label, kernel name, kernel call, twin call) at size n."""
+def rand_terms(n: int, count: int, rng, scale: float = 5.0):
+    """Random Möbius terms of order <= 3 (and the global term) on n
+    qubits; with scale 5, sum |coeff| is about 2.5 * count rad."""
+    terms = {(): float(rng.uniform(-scale, scale))}
+    while len(terms) < count:
+        qs = sorted(rng.choice(n, rng.integers(1, 4), replace=False))
+        terms[tuple(int(q) for q in qs)] = float(rng.uniform(-scale, scale))
+    return tuple(terms.items())
+
+
+def case(label, kernel, kern, twin, exact=False):
+    return dict(label=label, kernel=kernel, kern=kern, twin=twin, exact=exact)
+
+
+def find(paired, kind, *, pos=None, diag=None):
+    """The first (op, diag_terms) of a schedule with that op class name,
+    position and (with diag=True) a diag epilogue."""
+    for op, dt in paired:
+        if (type(op).__name__ == kind and (pos is None or op.pos == pos)
+                and (diag is None or (dt is not None) == diag)):
+            return op, dt
+    raise LookupError(f"no {kind} pos={pos} diag={diag} in the schedule")
+
+
+def kernel_cases(n: int, scheds, rng):
+    """The phase-2 cases at size n."""
     from quantum_simulations_tpu_torch.circuit.panelize import (
         DualPanelOp, WindowPanelOp,
     )
+    from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
+    from quantum_simulations_tpu_torch.ops import diag_kernels as dk
     from quantum_simulations_tpu_torch.ops import panel_kernels as pk
 
     cases = []
-    if n == 28:
+    if n == NQ:
+        ops = [op for op, _ in scheds["nonstab28"]]
         for op in ops:
             if isinstance(op, WindowPanelOp):
-                cases.append((f"positioned pos{op.pos}", "positioned_panel",
-                              lambda x, op=op: pk.positioned_panel(*x, op.W, op.pos),
-                              lambda x, op=op: pk.positioned_panel_plain(*x, op.W, op.pos)))
+                cases.append(case(
+                    f"positioned pos{op.pos}", "positioned_panel",
+                    lambda x, op=op: pk.positioned_panel(*x, op.W, op.pos),
+                    lambda x, op=op: pk.positioned_panel_plain(*x, op.W, op.pos)))
             elif isinstance(op, DualPanelOp):
                 tag = "dual" + (" +pre" if op.pre_straddle else "") + (
                     " +post" if op.post_straddle else "")
                 args = (op.first.W, op.first.pos, op.second.W, op.second.pos)
                 kw = dict(straddle=op.pre_straddle, post_straddle=op.post_straddle)
-                cases.append((tag, "dual_panel",
-                              lambda x, a=args, k=kw: pk.dual_panel(*x, *a, **k),
-                              lambda x, a=args, k=kw: pk.dual_panel_plain(*x, *a, **k)))
+                cases.append(case(
+                    tag, "dual_panel",
+                    lambda x, a=args, k=kw: pk.dual_panel(*x, *a, **k),
+                    lambda x, a=args, k=kw: pk.dual_panel_plain(*x, *a, **k)))
         W0 = ops[0].first.W
-        cases.append(("lane (2^21, 128)", "lane_panel",
-                      lambda x: pk.lane_panel(*x, W0),
-                      lambda x: pk.lane_panel_plain(*x, W0)))
+        cases.append(case("lane (2^21, 128)", "lane_panel",
+                          lambda x: pk.lane_panel(*x, W0),
+                          lambda x: pk.lane_panel_plain(*x, W0)))
+        diag43 = next(op.terms for op, _ in scheds["qaoa28"]
+                      if type(op).__name__ == "DiagOp")
+        cases.append(case(f"fused_diag qaoa28 run ({len(diag43)} terms)",
+                          "fused_diag",
+                          lambda x: dk.fused_diag(*x, diag43),
+                          lambda x: dk.fused_diag_plain(*x, diag43)))
+        op, dt = find(scheds["qft28"], "WindowPanelOp", diag=True)
+        cases.append(case(
+            f"positioned pos{op.pos} +diag{len(dt)} (qft28)", "positioned_panel",
+            lambda x: pk.positioned_panel(*x, op.W, op.pos, diag_terms=dt),
+            lambda x: pk.positioned_panel_plain(*x, op.W, op.pos, diag_terms=dt)))
+        swap, _ = find(scheds["qft28"], "BitPermGridOp")
+        gm = dict(swap.grid_map)
+        cases.append(case("bitperm_swap qft28", "bitperm_swap",
+                          lambda x: bk.bitperm_swap(*x, swap.pairs, gm),
+                          lambda x: bk.bitperm_swap_plain(*x, swap.pairs, gm),
+                          exact=True))
+        cases.append(case("bitperm_transpose", "bitperm_transpose",
+                          lambda x: bk.bitperm_transpose(*x),
+                          lambda x: bk.bitperm_transpose_plain(*x),
+                          exact=True))
         return cases
     for pos in (7, 8, 9):
         W = rand_unitary(128, rng)
-        cases.append((f"positioned pos{pos}", "positioned_panel",
-                      lambda x, W=W, p=pos: pk.positioned_panel(*x, W, p),
-                      lambda x, W=W, p=pos: pk.positioned_panel_plain(*x, W, p)))
+        cases.append(case(f"positioned pos{pos}", "positioned_panel",
+                          lambda x, W=W, p=pos: pk.positioned_panel(*x, W, p),
+                          lambda x, W=W, p=pos: pk.positioned_panel_plain(*x, W, p)))
     W64 = rand_unitary(64, rng)
-    cases.append(("positioned ragged dim64 pos14", "positioned_panel",
-                  lambda x: pk.positioned_panel(*x, W64, n - 6),
-                  lambda x: pk.positioned_panel_plain(*x, W64, n - 6)))
+    cases.append(case("positioned ragged dim64 pos14", "positioned_panel",
+                      lambda x: pk.positioned_panel(*x, W64, n - 6),
+                      lambda x: pk.positioned_panel_plain(*x, W64, n - 6)))
     Wa, Wb = rand_unitary(128, rng), rand_unitary(128, rng)
-    cases.append(("dual (7,0)", "dual_panel",
-                  lambda x: pk.dual_panel(*x, Wa, 7, Wb, 0),
-                  lambda x: pk.dual_panel_plain(*x, Wa, 7, Wb, 0)))
+    cases.append(case("dual (7,0)", "dual_panel",
+                      lambda x: pk.dual_panel(*x, Wa, 7, Wb, 0),
+                      lambda x: pk.dual_panel_plain(*x, Wa, 7, Wb, 0)))
     pre, post = (6, 10, rand_unitary(4, rng)), (6, 13, rand_unitary(4, rng))
-    cases.append(("dual (0,7) complex pre qb10 + post qb13", "dual_panel",
-                  lambda x: pk.dual_panel(*x, Wb, 0, Wa, 7, straddle=pre,
-                                          post_straddle=post),
-                  lambda x: pk.dual_panel_plain(*x, Wb, 0, Wa, 7, straddle=pre,
-                                                post_straddle=post)))
+    strad = dict(straddle=pre, post_straddle=post)
+    cases.append(case("dual (0,7) complex pre qb10 + post qb13", "dual_panel",
+                      lambda x: pk.dual_panel(*x, Wb, 0, Wa, 7, **strad),
+                      lambda x: pk.dual_panel_plain(*x, Wb, 0, Wa, 7, **strad)))
+    terms = rand_terms(n, 60, rng)
+    cases.append(case(f"fused_diag random ({len(terms)} terms)", "fused_diag",
+                      lambda x: dk.fused_diag(*x, terms),
+                      lambda x: dk.fused_diag_plain(*x, terms)))
+    for pos in (7, 13):
+        cases.append(case(
+            f"positioned pos{pos} +diag random", "positioned_panel",
+            lambda x, p=pos: pk.positioned_panel(*x, Wa, p, diag_terms=terms),
+            lambda x, p=pos: pk.positioned_panel_plain(*x, Wa, p, diag_terms=terms)))
+    cases.append(case("lane +diag random", "lane_panel",
+                      lambda x: pk.lane_panel(*x, Wb, diag_terms=terms),
+                      lambda x: pk.lane_panel_plain(*x, Wb, diag_terms=terms)))
+    dkw = dict(strad, diag_terms=terms)
+    cases.append(case("dual (0,7) pre + post +diag random", "dual_panel",
+                      lambda x: pk.dual_panel(*x, Wb, 0, Wa, 7, **dkw),
+                      lambda x: pk.dual_panel_plain(*x, Wb, 0, Wa, 7, **dkw)))
+    pairs, gm = ((7, 19), (8, 18), (9, 17), (10, 16)), {11: 13, 13: 15, 15: 11}
+    cases.append(case("bitperm_swap pairs + 3-cycle", "bitperm_swap",
+                      lambda x: bk.bitperm_swap(*x, pairs, gm),
+                      lambda x: bk.bitperm_swap_plain(*x, pairs, gm), exact=True))
+    cases.append(case("bitperm_transpose", "bitperm_transpose",
+                      lambda x: bk.bitperm_transpose(*x),
+                      lambda x: bk.bitperm_transpose_plain(*x), exact=True))
     return cases
 
 
-def check_kernels(dev, nonstab_ops) -> dict:
+def check_kernels(dev, scheds) -> dict:
     import numpy as np
     import torch
 
     worst: dict = {}
     rng = np.random.default_rng(SEED)
-    for n in (20, 28):
+    for n in (20, NQ):
         x = unit_state(n, SEED + n, dev)
-        for label, name, kern, twin in kernel_cases(n, nonstab_ops, rng):
-            got = kern(x)
+        for c in kernel_cases(n, scheds, rng):
+            got = c["kern"](x)
             torch.cuda.synchronize()
-            want = twin(x)
+            want = c["twin"](x)
             mx, l2 = diff(got, want)
             ok = l2 <= TOL_L2 and bool(torch.isfinite(got[0]).all())
-            log(f"check n={n} {label:<42} max_abs_err={mx:.3e} "
-                f"l2_diff={l2:.3e} {'ok' if ok else 'FAIL'}")
-            RECORD["cases"].append(dict(n=n, case=label, kernel=name,
+            if c["exact"]:
+                ok = ok and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            log(f"check n={n} {c['label']:<42} max_abs_err={mx:.3e} "
+                f"l2_diff={l2:.3e}{' exact' if c['exact'] else ''} "
+                f"{'ok' if ok else 'FAIL'}")
+            RECORD["cases"].append(dict(n=n, case=c["label"], kernel=c["kernel"],
                                         max_abs_err=mx, l2_diff=l2))
             if not ok:
-                raise AssertionError(f"{name} ({label}, n={n}) disagrees with "
-                                     f"its plain twin: ||diff||_2 = {l2:.3e}")
-            worst[name] = max(worst.get(name, 0.0), mx)
+                raise AssertionError(f"{c['kernel']} ({c['label']}, n={n}) "
+                                     f"disagrees with its plain twin: "
+                                     f"||diff||_2 = {l2:.3e}")
+            worst[c["kernel"]] = max(worst.get(c["kernel"], 0.0), mx)
             del got, want
         del x
         torch.cuda.empty_cache()
@@ -275,70 +469,118 @@ def check_kernels(dev, nonstab_ops) -> dict:
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
+def request(label: str, run) -> tuple:
+    """Run one request with the counters set to 0 just before it; check
+    its launches against WANT and that no plain twin ran."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run()
+    wall = time.perf_counter() - t0
+    got, plain = launches(), plain_calls()
+    log(f"main {label}: {wall:.3f} s (first call: schedule, operand upload, "
+        f"host copy) launches={got} plain_calls={plain}")
+    if got != WANT[label] or plain:
+        raise AssertionError(f"{label} launch counts {got} / plain {plain}, "
+                             f"want {WANT[label]} and no plain call")
+    return out, got, wall
+
+
+def against_f64(label: str, psi, cd, dev, initial_state=None) -> dict:
+    """|norm2 - 1| and ||psi - psi_f64||_2 against the plain twins in
+    float64 on the card, from the same initial state."""
+    import numpy as np
+    import torch
+
+    from quantum_simulations_tpu_torch.runtime import simulator
+
+    if isinstance(psi, np.ndarray):
+        psi = torch.from_numpy(psi)
+    got = psi.to(dev).to(torch.complex128)
+    del psi
+    nrm2 = norm2(got.real, got.imag)
+    finite = bool(torch.isfinite(torch.view_as_real(got)).all())
+    ref = simulator.simulate(cd, dtype="complex128", mode="window",
+                             device=dev, plain=True, initial_state=initial_state)
+    l2 = float(torch.linalg.vector_norm(got - ref))
+    mx = float((got - ref).abs().max())
+    del got, ref
+    torch.cuda.empty_cache()
+    log(f"main {label} vs plain float64 twins on the card: norm2={nrm2:.9f} "
+        f"|norm2-1|={abs(nrm2 - 1):.3e} ||psi-psi_f64||_2={l2:.3e} "
+        f"max_abs={mx:.3e}")
+    if not (finite and abs(nrm2 - 1) <= 1e-5 and l2 <= 1e-5):
+        raise AssertionError(f"{label} output is off the float64 reference")
+    return dict(norm2=nrm2, l2_vs_f64=l2, max_abs_vs_f64=mx)
+
+
 def main_path(dev) -> dict:
     import numpy as np
     import torch
 
     from quantum_simulations_tpu_torch import SimulatorConfig, api
-    from quantum_simulations_tpu_torch.circuit import library
-    from quantum_simulations_tpu_torch.ops import panel_kernels as pk
     from quantum_simulations_tpu_torch.runtime import simulator
 
-    cd = library.non_stabilizer(28, depth=4, seed=7)
+    cfg = SimulatorConfig(mode="window")
     counts: dict = {}
-    pk.reset_counts()
-    t0 = time.perf_counter()
-    psi = api.simulate(cd, SimulatorConfig(mode="window"), device=dev)
-    wall = time.perf_counter() - t0
-    counts["nonstab28"] = dict(pk.LAUNCHES)
-    log(f"main nonstab28 api.simulate: {wall:.3f} s (first call: schedule, "
-        f"W upload, host copy of 2^28 amplitudes) "
-        f"launches={counts['nonstab28']} plain_calls={dict(pk.PLAIN_CALLS)}")
-    want = {"dual_panel": 2, "positioned_panel": 3, "lane_panel": 0}
-    if counts["nonstab28"] != want or any(pk.PLAIN_CALLS.values()):
-        raise AssertionError(f"nonstab28 launch counts {counts['nonstab28']} / "
-                             f"plain {pk.PLAIN_CALLS}, want {want} and no plain call")
+    main: dict = {}
+    cds = circuits()
 
-    # Second request: the unpaired-panel schedule, whose pos-0 panel
-    # runs lane_panel.  H on every qubit: every amplitude is 2^-14.
+    cd = cds["nonstab28"]
+    psi, counts["nonstab28"], wall = request(
+        "nonstab28", lambda: api.simulate(cd, cfg, device=dev))
+    main["nonstab28"] = dict(first_call_s=wall, **against_f64(
+        "nonstab28", psi, cd, dev))
+    del psi
+
+    # The unpaired-panel schedule, whose pos-0 panel runs lane_panel.
+    # H on every qubit: every amplitude is 2^-14.
     os.environ["QST_PANEL_PAIR_FUSE"] = "0"
-    pk.reset_counts()
     try:
-        wall_psi = api.simulate(library.hadamard_wall(28),
-                                SimulatorConfig(mode="window"), device=dev)
+        wall_psi, counts["hadamard_wall28"], wall = request(
+            "hadamard_wall28",
+            lambda: api.simulate(cds["hadamard_wall28"], cfg, device=dev))
     finally:
         del os.environ["QST_PANEL_PAIR_FUSE"]
-    counts["hadamard_wall28"] = dict(pk.LAUNCHES)
-    hw_err = float(np.max(np.abs(wall_psi - 2.0 ** -14)))
-    log(f"main hadamard_wall28 (QST_PANEL_PAIR_FUSE=0): max |psi - 2^-14| = "
-        f"{hw_err:.3e} launches={counts['hadamard_wall28']} "
-        f"plain_calls={dict(pk.PLAIN_CALLS)}")
+    exact = 2.0 ** (-NQ / 2)
+    hw_err = float(np.max(np.abs(wall_psi - exact)))
     del wall_psi
-    want = {"dual_panel": 0, "positioned_panel": 3, "lane_panel": 1}
-    if (counts["hadamard_wall28"] != want or any(pk.PLAIN_CALLS.values())
-            or not hw_err <= 1e-6):
-        raise AssertionError(f"hadamard_wall28 launch counts "
-                             f"{counts['hadamard_wall28']}, want {want}, no plain "
-                             f"call and the exact state")
+    log(f"main hadamard_wall28 (QST_PANEL_PAIR_FUSE=0): max |psi - 2^-14| = "
+        f"{hw_err:.3e}")
+    if not hw_err <= 1e-6:
+        raise AssertionError("hadamard_wall28 is off the exact state")
+    main["hadamard_wall28"] = dict(first_call_s=wall, max_err_vs_exact=hw_err)
 
-    got = torch.from_numpy(psi).to(dev).to(torch.complex128)
+    # QFT|0> is uniform: every amplitude 2^-14.
+    qft = cds["qft28"]
+    psi, counts["qft28"], wall = request(
+        "qft28", lambda: api.simulate(qft, cfg, device=dev))
+    qft_err = float(np.max(np.abs(psi - exact)))
+    log(f"main qft28: max |psi - 2^-14| = {qft_err:.3e}")
+    if not qft_err <= 1e-6:
+        raise AssertionError("qft28 of |0> is off the uniform state")
+    main["qft28"] = dict(first_call_s=wall, max_err_vs_exact=qft_err,
+                         **against_f64("qft28", psi, qft, dev))
     del psi
-    nrm2 = norm2(got.real, got.imag)
-    ref = simulator.simulate(cd, dtype="complex128", mode="window",
-                             device=dev, plain=True)
-    l2 = float(torch.linalg.vector_norm(got - ref))
-    mx = float((got - ref).abs().max())
-    finite = bool(torch.isfinite(torch.view_as_real(got)).all())
-    del got, ref
+
+    qaoa = cds["qaoa28"]
+    psi, counts["qaoa28"], wall = request(
+        "qaoa28", lambda: api.simulate(qaoa, cfg, device=dev))
+    main["qaoa28"] = dict(first_call_s=wall, **against_f64(
+        "qaoa28", psi, qaoa, dev))
+    del psi
+
+    re0, im0 = unit_state(NQ, SEED + 1, dev)
+    psi0 = torch.complex(re0, im0)
+    del re0, im0
+    psi, counts["qft28 random state"], wall = request(
+        "qft28 random state",
+        lambda: simulator.simulate(qft, mode="window", device=dev,
+                                   initial_state=psi0))
+    main["qft28 random state"] = dict(first_call_s=wall, **against_f64(
+        "qft28 random state", psi, qft, dev, initial_state=psi0))
+    del psi, psi0
     torch.cuda.empty_cache()
-    log(f"main nonstab28 vs plain float64 twins on the card: norm2={nrm2:.9f} "
-        f"|norm2-1|={abs(nrm2 - 1):.3e} ||psi-psi_f64||_2={l2:.3e} "
-        f"max_abs={mx:.3e}")
-    if not (finite and abs(nrm2 - 1) <= 1e-5 and l2 <= 1e-5):
-        raise AssertionError("nonstab28 output is off the float64 reference")
-    RECORD["main"] = dict(launches=counts, norm2=nrm2, l2_vs_f64=l2,
-                          max_abs_vs_f64=mx, hadamard_wall_max_err=hw_err,
-                          first_call_s=wall)
+    RECORD["main"] = dict(launches=counts, **main)
     return counts
 
 
@@ -346,18 +588,18 @@ def main_path(dev) -> dict:
 # Phase 4: times
 # ---------------------------------------------------------------------------
 
-def times(dev, ops) -> dict:
+def times(dev, scheds) -> dict:
     import torch
 
-    from quantum_simulations_tpu_torch.circuit import library
     from quantum_simulations_tpu_torch.circuit.panelize import (
         DualPanelOp, WindowPanelOp,
     )
-    from quantum_simulations_tpu_torch.ops import dense
+    from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
+    from quantum_simulations_tpu_torch.ops import diag_kernels as dk
     from quantum_simulations_tpu_torch.ops import panel_kernels as pk
     from quantum_simulations_tpu_torch.runtime import simulator
 
-    n, N = 28, 1 << 28
+    n, N = NQ, 1 << NQ
     x = unit_state(n, SEED, dev)
     xc = torch.complex(*x)
 
@@ -366,28 +608,34 @@ def times(dev, ops) -> dict:
 
     rows: dict = {}
 
-    def row(name, label, kern, twin, lib, dims, straddles=()):
+    def row(name, label, kern, twin, lib, dims, straddles=(), diag=None,
+            panel=None):
+        """One timed row; ``panel``: the same panel without its diag
+        epilogue, timed beside it."""
         ms = cuda_ms(kern, reps=10)
         plain_ms = cuda_ms(twin, reps=3)
-        lib_ms = cuda_ms(lib, reps=5)
-        b_ms, b_by = bound(N, dims, straddles)
-        log(f"time {label:<26} ms={ms:.3f} plain_ms={plain_ms:.3f} "
-            f"library_ms={lib_ms:.3f} bound_ms={b_ms:.3f} ({b_by}) "
-            f"bound/ms={b_ms / ms:.3f}")
+        lib_ms = None if lib is None else cuda_ms(lib, reps=5)
+        panel_ms = None if panel is None else cuda_ms(panel, reps=10)
+        b_ms, b_by = bound(N, dims, straddles, diag)
+        log(f"time {label:<30} ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            f"library_ms={'none' if lib_ms is None else f'{lib_ms:.3f}'} "
+            + ("" if panel_ms is None else f"panel_ms={panel_ms:.3f} ")
+            + f"bound_ms={b_ms:.3f} ({b_by}) bound/ms={b_ms / ms:.3f}")
         rec = dict(kernel=name, case=label, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+        if panel_ms is not None:
+            rec["panel_ms"] = panel_ms
         RECORD["times"].append(rec)
         rows.setdefault(name, rec)
 
+    ops = [op for op, _ in scheds["nonstab28"]]
     for op in ops:
         if isinstance(op, WindowPanelOp):
             wr, wi = pk.w_planes(op.W, dev, torch.float32)
-            Wc, C = cw(op.W), 1 << op.pos
-            xv = xc.view(-1, 128, C)
             row("positioned_panel", f"positioned pos{op.pos}",
                 lambda op=op, w=(wr, wi): pk.positioned_panel(*x, w, op.pos),
                 lambda op=op, w=(wr, wi): pk.positioned_panel_plain(*x, w, op.pos),
-                lambda Wc=Wc, xv=xv: torch.einsum("ij,ajc->aic", Wc, xv), [128])
+                panel_library(xc, cw(op.W), op.pos), [128])
     # The dual rows: op 0 (no straddler) first, so it is the JSON row.
     duals = sorted((op for op in ops if isinstance(op, DualPanelOp)),
                    key=lambda o: o.pre_straddle is not None)
@@ -402,15 +650,104 @@ def times(dev, ops) -> dict:
                 *x, w1, op.first.pos, w2, op.second.pos, straddle=s),
             dual_library(xc, op, cw), [128, 128], [s] if s else [])
     w0 = pk.w_planes(ops[0].first.W, dev, torch.float32)
-    W0t, xl = cw(ops[0].first.W).T.contiguous(), xc.view(-1, 128)
     row("lane_panel", "lane (2^21, 128)",
         lambda: pk.lane_panel(*x, w0), lambda: pk.lane_panel_plain(*x, w0),
-        lambda: xl @ W0t, [128])
-    del x, xc
+        panel_library(xc, cw(ops[0].first.W), 0), [128])
+
+    # fused_diag on qaoa28's 43-term run.  Its library call multiplies by
+    # a 2^28 complex64 phase table built outside the timing: that reads
+    # 50% more bytes than the function needs.
+    diag43 = dk.DiagTerms.of(next(op.terms for op, _ in scheds["qaoa28"]
+                                  if type(op).__name__ == "DiagOp"))
+    diag43.operand(dev)
+    ph = phase_table(N, diag43, dev)
+    row("fused_diag", f"fused_diag qaoa28 ({len(diag43.terms)} terms)",
+        lambda: dk.fused_diag(*x, diag43),
+        lambda: dk.fused_diag_plain(*x, diag43),
+        lambda: xc * ph, [], diag=diag43)
+
+    # The three diag epilogues with qft28's 147-term run, each beside the
+    # same panel without it.  Their library call is one einsum of the
+    # panel and the run's 2^28 phase table (built outside the timing):
+    # it reads that table on top of what the function needs.
+    opd, d147 = find(scheds["qft28"], "WindowPanelOp", diag=True)
+    d147 = dk.DiagTerms.of(d147)
+    d147.operand(dev)
+    ph = phase_table(N, d147, dev)
+    wd, pd = pk.w_planes(opd.W, dev, torch.float32), opd.pos
+    row("positioned_panel+diag", f"positioned pos{pd} +diag{len(d147.terms)} (qft28)",
+        lambda: pk.positioned_panel(*x, wd, pd, diag_terms=d147),
+        lambda: pk.positioned_panel_plain(*x, wd, pd, diag_terms=d147),
+        panel_library(xc, cw(opd.W), pd, ph), [128], diag=d147,
+        panel=lambda: pk.positioned_panel(*x, wd, pd))
+    op0, _ = find(scheds["qft28"], "WindowPanelOp", pos=0)
+    wq0 = pk.w_planes(op0.W, dev, torch.float32)
+    row("lane_panel+diag", f"lane +diag{len(d147.terms)} (qft28 @0 W)",
+        lambda: pk.lane_panel(*x, wq0, diag_terms=d147),
+        lambda: pk.lane_panel_plain(*x, wq0, diag_terms=d147),
+        panel_library(xc, cw(op0.W), 0, ph), [128], diag=d147,
+        panel=lambda: pk.lane_panel(*x, wq0))
+    dop = duals[0]
+    dw1 = pk.w_planes(dop.first.W, dev, torch.float32)
+    dw2 = pk.w_planes(dop.second.W, dev, torch.float32)
+    dargs = (dw1, dop.first.pos, dw2, dop.second.pos)
+    row("dual_panel+diag", f"dual +diag{len(d147.terms)} (nonstab28 W)",
+        lambda: pk.dual_panel(*x, *dargs, diag_terms=d147),
+        lambda: pk.dual_panel_plain(*x, *dargs, diag_terms=d147),
+        dual_library(xc, dop, cw, ph), [128, 128], diag=d147,
+        panel=lambda: pk.dual_panel(*x, *dargs))
+    del ph
+
+    # The bit permutations of qft28.
+    swap, _ = find(scheds["qft28"], "BitPermGridOp")
+    gm = dict(swap.grid_map)
+    shape, dims = bk.permute_view(n, bk.bit_sources(n, swap.pairs, gm))
+    xs = xc.view(shape)
+    row("bitperm_swap", "bitperm_swap qft28",
+        lambda: bk.bitperm_swap(*x, swap.pairs, gm),
+        lambda: bk.bitperm_swap_plain(*x, swap.pairs, gm),
+        lambda: xs.permute(dims).contiguous(), [])
+    xt = xc.view(128, -1, 128)
+    row("bitperm_transpose", "bitperm_transpose",
+        lambda: bk.bitperm_transpose(*x), lambda: bk.bitperm_transpose_plain(*x),
+        lambda: xt.transpose(0, 2).contiguous(), [])
+    del xs, xt, xc
+
+    # Every pass of qft28 and qaoa28, operands already on the card.
+    RECORD["passes"] = {}
+    for label in ("qft28", "qaoa28"):
+        prepared = simulator.prepare_schedule(scheds[label], dev, torch.float32)
+        recs = []
+        for i, (op, dt) in enumerate(prepared):
+            ms = cuda_ms(lambda op=op, dt=dt: simulator.apply_window_op(
+                *x, op, dt), reps=5)
+            name = type(op).__name__ + (f"@{op.pos}" if hasattr(op, "pos") else "")
+            if dt is not None:
+                name += f"+diag{len(dt.terms)}"
+            elif type(op).__name__ == "DiagOp":
+                name += f"({len(op.terms.terms)} terms)"
+            recs.append(dict(op=name, ms=ms))
+            log(f"pass {label} {i + 1:>2} {name:<28} ms={ms:.3f}")
+        total = sum(r["ms"] for r in recs)
+        log(f"pass {label} sum of {len(recs)} pass medians: {total:.3f} ms")
+        RECORD["passes"][label] = dict(passes=recs, sum_ms=total)
+    del x
     torch.cuda.empty_cache()
 
-    # End to end, two-point estimator: fixed per-call cost cancels.
-    cd = library.non_stabilizer(28, depth=4, seed=7)
+    RECORD["e2e"] = {label: e2e(label, cd, dev)
+                     for label, cd in circuits().items() if label in scheds}
+    return rows
+
+
+def e2e(label: str, cd: dict, dev) -> dict:
+    """Two-point estimator: the fixed per-call cost cancels."""
+    import torch
+
+    from quantum_simulations_tpu_torch.ops import dense
+    from quantum_simulations_tpu_torch.runtime import simulator
+
+    n = cd["number_of_qubits"]
+    N = 1 << n
     fn = simulator.build_window_circuit_fn(cd, planar_io=True, device=dev)
 
     def chain(k: int) -> float:
@@ -427,13 +764,32 @@ def times(dev, ops) -> dict:
     t1 = min(chain(R) for _ in range(3))
     t2 = min(chain(2 * R) for _ in range(3))
     dt = (t2 - t1) / R
-    rate = len(cd["gates"]) * N / dt
-    log(f"e2e nonstab28 window: {dt * 1e3:.3f} ms per run "
+    gates = len(cd["gates"])
+    rate = gates * N / dt
+    log(f"e2e {label} window: {dt * 1e3:.3f} ms per run "
         f"(t({R})={t1:.4f} s, t({2 * R})={t2:.4f} s), "
-        f"{rate:.4e} amp-updates/s ({len(cd['gates'])} gates x 2^28 / t)")
-    RECORD["e2e"] = dict(ms=dt * 1e3, t_R=t1, t_2R=t2, R=R,
-                         amp_updates_per_s=rate, gates=len(cd["gates"]))
-    return rows
+        f"{rate:.4e} amp-updates/s ({gates} gates x 2^{n} / t)")
+    return dict(ms=dt * 1e3, t_R=t1, t_2R=t2, R=R, amp_updates_per_s=rate,
+                gates=gates)
+
+
+def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
+    """One record per kernel: its launches in the request that runs it
+    (a panel's "+diag" launches included), its worst error in phase 2
+    and its phase-4 row."""
+    kernels = []
+    for name in KERNELS:
+        r = rows[name]
+        by_path = {p: {k: v for k, v in c.items() if kernel_of(k) == name}
+                   for p, c in counts.items()}
+        kernels.append(dict(
+            name=name, route="cuda", source=SRC[name], replaces=REPLACES[name],
+            launches=sum(by_path[PATH[name]].values()), path=PATH[name],
+            launches_by_path=by_path, max_abs_err=worst[name], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    RECORD["kernels"] = kernels
+    return kernels
 
 
 # ---------------------------------------------------------------------------
@@ -446,12 +802,8 @@ def main() -> int:
         log("FAIL: torch.cuda.is_available() is False: chip_smoke.py needs a card")
         return 2
     try:
-        from quantum_simulations_tpu_torch.circuit import library
-        from quantum_simulations_tpu_torch.circuit.panelize import (
-            compile_window_schedule,
-        )
         from quantum_simulations_tpu_torch.ops import cuda_build
-        from quantum_simulations_tpu_torch.runtime.simulator import pair_panel_diag
+        from quantum_simulations_tpu_torch.runtime.simulator import schedule
     except ImportError as e:
         log(f"FAIL: the port is not beside this script ({e})")
         return 2
@@ -470,31 +822,21 @@ def main() -> int:
     log(f"build {[p.name for p in libs]} in {build_s:.1f} s")
     RECORD["build_s"] = build_s
 
-    cd = library.non_stabilizer(28, depth=4, seed=7)
-    paired = pair_panel_diag(compile_window_schedule(cd, diag_terms_only=True))
-    ops = [op for op, _ in paired]
-    log("nonstab28 schedule: " + ", ".join(
-        type(o).__name__ + (f"@{o.pos}" if hasattr(o, "pos") else "")
-        + (" +pre" if getattr(o, "pre_straddle", None) else "") for o in ops))
+    scheds = {label: schedule(cd) for label, cd in circuits().items()
+              if label != "hadamard_wall28"}
+    for label, paired in scheds.items():
+        log(f"{label} schedule: " + ", ".join(
+            type(o).__name__ + (f"@{o.pos}" if hasattr(o, "pos") else "")
+            + (" +pre" if getattr(o, "pre_straddle", None) else "")
+            + ("" if dt is None else f" +diag{len(dt)}") for o, dt in paired))
 
-    worst = check_kernels(dev, ops)
+    worst = check_kernels(dev, scheds)
     if quick:
         log("quick: build and kernel checks passed")
         return 0
     counts = main_path(dev)
-    rows = times(dev, ops)
-
-    kernels = []
-    for name in ("lane_panel", "positioned_panel", "dual_panel"):
-        r = rows[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=SRC, replaces=REPLACES[name],
-            launches=counts[PATH[name]][name], path=PATH[name],
-            launches_by_path={p: c[name] for p, c in counts.items()},
-            max_abs_err=worst[name], ms=r["ms"],
-            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
-    RECORD["kernels"] = kernels
+    rows = times(dev, scheds)
+    kernels = kernels_line(counts, rows, worst)
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(RECORD, indent=1))

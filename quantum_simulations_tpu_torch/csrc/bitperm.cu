@@ -1,0 +1,155 @@
+// Bit permutations of the statevector's index, for Hopper (sm_90a): the
+// two passes of QFT's terminal bit reversal on (re, im) float32 planes.
+//
+//   bitperm_swap       out[i] = in[sigma(i)], sigma a permutation of the
+//                      bits >= 7 (the row bits of the (2^n / 128, 128)
+//                      view).  Replaces bitperm_swap_planar
+//                      (quantum_simulations_tpu/ops/pallas_kernels.py
+//                      :1989) with _bitperm_swap_kernel (:1977) and
+//                      _bitperm_swap_one_kernel (:2147).  The TPU splits
+//                      sigma into pairs on the sublane bits 7..9
+//                      (exchanged in VMEM) and a grid_map on bits >= 10
+//                      (free in the block index maps).  Here both compose
+//                      into one map of the row index: out row r = in row
+//                      rho(r), so the pass is a row gather, one warp per
+//                      row of 128 floats, float4 loads and stores.
+//   bitperm_transpose  lane bit l <-> bit n - 7 + l: on the (128, M, 128)
+//                      view, out[x, m, y] = in[y, m, x].  Replaces
+//                      bitperm_transpose_planar (:2163) with
+//                      _transpose_cross_kernel (:2155).  A block
+//                      transposes one 128 x 128 tile of each plane through
+//                      padded shared memory; rows are read and written 128
+//                      floats at a time.
+//
+// Bound on an H100 SXM: bytes.  Both planes are read and written once,
+// 4.3 GB at n = 28, 1.28 ms at 3.35 TB/s; there is no arithmetic.  Both
+// are out of place and exact (they only move floats).
+//
+// Each entry point launches on the given stream, allocates nothing and
+// returns cudaGetLastError(); the Python wrapper raises if that is not 0.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int LANES = 128;
+constexpr int MAX_ROW_BITS = 56;
+
+// rho(r): bit b of the input row is bit src[b] of the output row.
+struct RowPerm {
+  unsigned char src[MAX_ROW_BITS];
+  int nbits;
+};
+
+// ---- bitperm_swap: 8 warps a block, 4 rows a warp. ----
+constexpr int SWAP_NT = 256;
+constexpr int SWAP_RPW = 4;
+constexpr int SWAP_ROWS = SWAP_NT / 32 * SWAP_RPW;
+
+__device__ __forceinline__ long long gather_row(long long r, const RowPerm& p) {
+  long long in = 0;
+  for (int b = 0; b < p.nbits; ++b) in |= ((r >> p.src[b]) & 1LL) << b;
+  return in;
+}
+
+__global__ void __launch_bounds__(SWAP_NT)
+bitperm_swap_kernel(const float4* __restrict__ re, const float4* __restrict__ im,
+                    float4* __restrict__ ore, float4* __restrict__ oim,
+                    long long rows, RowPerm perm) {
+  const int lane = threadIdx.x % 32;
+  const long long r0 =
+      ((long long)blockIdx.x * (SWAP_NT / 32) + threadIdx.x / 32) * SWAP_RPW;
+  float4 xr[SWAP_RPW], xi[SWAP_RPW];
+#pragma unroll
+  for (int k = 0; k < SWAP_RPW; ++k) {
+    if (r0 + k < rows) {
+      const long long src = gather_row(r0 + k, perm) * (LANES / 4) + lane;
+      xr[k] = re[src];
+      xi[k] = im[src];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < SWAP_RPW; ++k) {
+    if (r0 + k < rows) {
+      const long long dst = (r0 + k) * (LANES / 4) + lane;
+      ore[dst] = xr[k];
+      oim[dst] = xi[k];
+    }
+  }
+}
+
+// ---- bitperm_transpose: one block per m, the planes one after the other.
+constexpr int TR_NT = 512;
+constexpr int TR_LD = LANES + 1;  // padded: both passes conflict-free
+constexpr size_t TR_SMEM = sizeof(float) * LANES * TR_LD;  // 66,048 B
+
+__global__ void __launch_bounds__(TR_NT)
+bitperm_transpose_kernel(const float* __restrict__ re,
+                         const float* __restrict__ im,
+                         float* __restrict__ ore, float* __restrict__ oim,
+                         long long M) {
+  extern __shared__ float tile[];  // [y][x], LANES x TR_LD
+  const long long m = blockIdx.x;
+  for (int p = 0; p < 2; ++p) {
+    const float* __restrict__ x = p ? im : re;
+    float* __restrict__ o = p ? oim : ore;
+#pragma unroll 8
+    for (int e = threadIdx.x; e < LANES * LANES; e += TR_NT) {
+      const int y = e / LANES, c = e % LANES;
+      tile[y * TR_LD + c] = x[((long long)y * M + m) * LANES + c];
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int e = threadIdx.x; e < LANES * LANES; e += TR_NT) {
+      const int r = e / LANES, y = e % LANES;
+      o[((long long)r * M + m) * LANES + y] = tile[y * TR_LD + r];
+    }
+    __syncthreads();
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* qst_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+// rows = 2^n / 128; src[b] (b < nbits = n - 7): the output row bit that
+// input row bit b is read from.  The planes must be 16-byte aligned.
+int qst_bitperm_swap(const float* re, const float* im, float* ore, float* oim,
+                     long long rows, const int* src, int nbits, int device,
+                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (nbits < 0 || nbits > MAX_ROW_BITS || rows != (1LL << nbits))
+    return (int)cudaErrorInvalidValue;
+  RowPerm perm{};
+  perm.nbits = nbits;
+  for (int b = 0; b < nbits; ++b) {
+    if (src[b] < 0 || src[b] >= nbits) return (int)cudaErrorInvalidValue;
+    perm.src[b] = (unsigned char)src[b];
+  }
+  const long long blocks = (rows + SWAP_ROWS - 1) / SWAP_ROWS;
+  bitperm_swap_kernel<<<(unsigned)blocks, SWAP_NT, 0, (cudaStream_t)stream>>>(
+      (const float4*)re, (const float4*)im, (float4*)ore, (float4*)oim, rows,
+      perm);
+  return (int)cudaGetLastError();
+}
+
+// The (128, M, 128) view, M = 2^(n - 14).
+int qst_bitperm_transpose(const float* re, const float* im, float* ore,
+                          float* oim, long long M, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(bitperm_transpose_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)TR_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  bitperm_transpose_kernel<<<(unsigned)M, TR_NT, TR_SMEM, (cudaStream_t)stream>>>(
+      re, im, ore, oim, M);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -9,7 +9,7 @@
 //                     out[r, i] = sum_k W[i, k] x[r, k].
 //                     Replaces panel_apply_planar / _panel_kernel
 //                     (quantum_simulations_tpu/ops/pallas_kernels.py:93,
-//                     :137), rotate=False, without the diag epilogue.
+//                     :137), rotate=False.
 //   positioned_panel  pos >= 7 (any pos works): the view (A, dim, C).
 //                     Replaces positioned_panel_planar (:636) and its
 //                     three Pallas bodies: _positioned_row_kernel (:553,
@@ -40,10 +40,19 @@
 // to the same resident tile, so the pair costs one pass of traffic.
 // Making it fast (split-precision wgmma, TMA, a tile ring) is later work.
 //
+// Diag epilogue (the reference's diag_terms option, pallas_kernels.py
+// :171-188, :462-503, :676-682, :725-818).  A 128-wide panel whose tile
+// rows are whole state rows of 128 lanes (lane panel, positioned pos >= 7,
+// dual) can apply the merged diagonal run that follows it to the resident
+// tile after its last contraction (and post-straddler), before the store:
+// phase.cuh, with the freed W chunk as scratch.  It adds no traffic.
+//
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises if that is not 0.
 
 #include <cuda_runtime.h>
+
+#include "phase.cuh"
 
 namespace {
 
@@ -179,13 +188,35 @@ __device__ void straddle(const float* __restrict__ u, int qb, const Smem& s) {
   __syncthreads();
 }
 
+// The diag epilogue on a resident 128 x 128 tile: element (t, lane) at
+// shared offset t * LD + lane lies in state row row0 + t * row_step.  The W
+// chunk is free after the last contraction and holds the phase scratch.
+static_assert(qst::phase_scratch_words(TILE) <= 2 * TILE * LDW,
+              "the phase scratch must fit the W chunk");
+
+__device__ void diag_epilogue(const qst::Phase& ph, unsigned long long row0,
+                              unsigned long long row_step, const Smem& s) {
+  constexpr int TSTEP = NT / TILE;
+  constexpr int J = TILE / TSTEP;
+  const int lane = threadIdx.x % TILE, t0 = threadIdx.x / TILE;
+  uint32_t acc[J];
+  qst::phase_angles<J, TSTEP>(ph, row0, row_step, lane, t0,
+                              reinterpret_cast<uint32_t*>(s.wr), acc);
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int o = (t0 + TSTEP * j) * LD + lane;
+    qst::phase_rotate(s.tr[o], s.ti[o], acc[j]);
+  }
+  __syncthreads();
+}
+
 // ---- lane_panel: view (R, DIM); tile = 128 rows (c) x DIM lanes (k). ----
 template <int DIM>
 __global__ void __launch_bounds__(NT, 1)
 lane_panel_kernel(const float* __restrict__ re, const float* __restrict__ im,
                   const float* __restrict__ wr, const float* __restrict__ wi,
                   float* __restrict__ ore, float* __restrict__ oim,
-                  long long rows) {
+                  long long rows, qst::Phase ph) {
   const Smem s = smem_parts();
   const long long r0 = (long long)blockIdx.x * TILE;
   const int nr = (int)min((long long)TILE, rows - r0);
@@ -197,6 +228,9 @@ lane_panel_kernel(const float* __restrict__ re, const float* __restrict__ im,
     s.ti[r * LD + k] = ok ? im[base + e] : 0.f;
   }
   contract<DIM, 1, LD>(wr, wi, s);
+  if constexpr (DIM == TILE) {
+    if (ph.words != nullptr) diag_epilogue(ph, r0, 1, s);
+  }
   for (int e = threadIdx.x; e < nr * DIM; e += NT) {
     const int r = e / DIM, k = e % DIM;
     ore[base + e] = s.tr[r * LD + k];
@@ -212,7 +246,7 @@ positioned_panel_kernel(const float* __restrict__ re,
                         const float* __restrict__ wr,
                         const float* __restrict__ wi, float* __restrict__ ore,
                         float* __restrict__ oim, long long C,
-                        long long tiles_per_a) {
+                        long long tiles_per_a, qst::Phase ph) {
   const Smem s = smem_parts();
   const long long a = blockIdx.x / tiles_per_a;
   const long long c0 = (blockIdx.x % tiles_per_a) * TILE;
@@ -225,6 +259,9 @@ positioned_panel_kernel(const float* __restrict__ re,
     s.ti[k * LD + c] = ok ? im[base + k * C + c] : 0.f;
   }
   contract<DIM, LD, 1>(wr, wi, s);
+  if constexpr (DIM == TILE) {  // the host asks for it only with C >= 128
+    if (ph.words != nullptr) diag_epilogue(ph, base / TILE, C / TILE, s);
+  }
   for (int e = threadIdx.x; e < DIM * TILE; e += NT) {
     const int k = e / TILE, c = e % TILE;
     if (c < nc) {
@@ -251,7 +288,8 @@ dual_panel_kernel(const float* __restrict__ re, const float* __restrict__ im,
                   const float* __restrict__ w2i, int mode2,
                   const float* __restrict__ u_pre, int qb_pre,
                   const float* __restrict__ u_post, int qb_post,
-                  float* __restrict__ ore, float* __restrict__ oim) {
+                  float* __restrict__ ore, float* __restrict__ oim,
+                  qst::Phase ph) {
   const Smem s = smem_parts();
   const long long base = (long long)blockIdx.x * TILE * TILE;
   for (int e = threadIdx.x; e < TILE * TILE; e += NT) {
@@ -264,6 +302,7 @@ dual_panel_kernel(const float* __restrict__ re, const float* __restrict__ im,
   contract_mode(mode1, w1r, w1i, s);
   contract_mode(mode2, w2r, w2i, s);
   if (u_post != nullptr) straddle(u_post, qb_post, s);
+  if (ph.words != nullptr) diag_epilogue(ph, (long long)blockIdx.x * TILE, 1, s);
   for (int e = threadIdx.x; e < TILE * TILE; e += NT) {
     const int d = e / TILE, l = e % TILE;
     ore[base + e] = s.tr[d * LD + l];
@@ -280,12 +319,12 @@ cudaError_t allow_smem(K kernel) {
 template <int DIM>
 cudaError_t launch_lane(const float* re, const float* im, const float* wr,
                         const float* wi, float* ore, float* oim,
-                        long long rows, cudaStream_t st) {
+                        long long rows, const qst::Phase& ph, cudaStream_t st) {
   cudaError_t err = allow_smem(lane_panel_kernel<DIM>);
   if (err != cudaSuccess) return err;
   const long long blocks = (rows + TILE - 1) / TILE;
   lane_panel_kernel<DIM><<<(unsigned)blocks, NT, SMEM_BYTES, st>>>(
-      re, im, wr, wi, ore, oim, rows);
+      re, im, wr, wi, ore, oim, rows, ph);
   return cudaGetLastError();
 }
 
@@ -293,12 +332,12 @@ template <int DIM>
 cudaError_t launch_positioned(const float* re, const float* im,
                               const float* wr, const float* wi, float* ore,
                               float* oim, long long A, long long C,
-                              cudaStream_t st) {
+                              const qst::Phase& ph, cudaStream_t st) {
   cudaError_t err = allow_smem(positioned_panel_kernel<DIM>);
   if (err != cudaSuccess) return err;
   const long long tpa = (C + TILE - 1) / TILE;
   positioned_panel_kernel<DIM><<<(unsigned)(A * tpa), NT, SMEM_BYTES, st>>>(
-      re, im, wr, wi, ore, oim, C, tpa);
+      re, im, wr, wi, ore, oim, C, tpa, ph);
   return cudaGetLastError();
 }
 
@@ -310,22 +349,27 @@ const char* qst_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// Every entry takes an optional diag epilogue: phase, the packed
+// DiagTerms operand (phase.cuh) with G groups and T row-side terms, or
+// null.  The lane and positioned panels take it only at dim 128 (and the
+// positioned one only with C >= 128): their tile rows must be state rows.
+
 // dim in {1, 2, 4, ..., 128}; rows = 2^n / dim.  Returns a cudaError_t.
 int qst_lane_panel(const float* re, const float* im, const float* wr,
                    const float* wi, float* ore, float* oim, long long rows,
-                   int dim, int device, void* stream) {
+                   int dim, const void* phase, int G, int T, int device,
+                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (phase != nullptr && dim != TILE) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const qst::Phase ph{(const uint32_t*)phase, G, T};
   switch (dim) {
-    case 1: return (int)launch_lane<1>(re, im, wr, wi, ore, oim, rows, st);
-    case 2: return (int)launch_lane<2>(re, im, wr, wi, ore, oim, rows, st);
-    case 4: return (int)launch_lane<4>(re, im, wr, wi, ore, oim, rows, st);
-    case 8: return (int)launch_lane<8>(re, im, wr, wi, ore, oim, rows, st);
-    case 16: return (int)launch_lane<16>(re, im, wr, wi, ore, oim, rows, st);
-    case 32: return (int)launch_lane<32>(re, im, wr, wi, ore, oim, rows, st);
-    case 64: return (int)launch_lane<64>(re, im, wr, wi, ore, oim, rows, st);
-    case 128: return (int)launch_lane<128>(re, im, wr, wi, ore, oim, rows, st);
+#define QST_LANE(D) \
+    case D: return (int)launch_lane<D>(re, im, wr, wi, ore, oim, rows, ph, st);
+    QST_LANE(1) QST_LANE(2) QST_LANE(4) QST_LANE(8)
+    QST_LANE(16) QST_LANE(32) QST_LANE(64) QST_LANE(128)
+#undef QST_LANE
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -333,13 +377,17 @@ int qst_lane_panel(const float* re, const float* im, const float* wr,
 // The view (A, dim, C): C = 2^pos, dim in {1, ..., 128}.
 int qst_positioned_panel(const float* re, const float* im, const float* wr,
                          const float* wi, float* ore, float* oim, long long A,
-                         int dim, long long C, int device, void* stream) {
+                         int dim, long long C, const void* phase, int G,
+                         int T, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (phase != nullptr && (dim != TILE || C % TILE != 0))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  const qst::Phase ph{(const uint32_t*)phase, G, T};
   switch (dim) {
 #define QST_POS(D) \
-    case D: return (int)launch_positioned<D>(re, im, wr, wi, ore, oim, A, C, st);
+    case D: return (int)launch_positioned<D>(re, im, wr, wi, ore, oim, A, C, ph, st);
     QST_POS(1) QST_POS(2) QST_POS(4) QST_POS(8)
     QST_POS(16) QST_POS(32) QST_POS(64) QST_POS(128)
 #undef QST_POS
@@ -353,14 +401,16 @@ int qst_dual_panel(const float* re, const float* im, const float* w1r,
                    const float* w1i, int mode1, const float* w2r,
                    const float* w2i, int mode2, const float* u_pre,
                    int qb_pre, const float* u_post, int qb_post, float* ore,
-                   float* oim, long long A, int device, void* stream) {
+                   float* oim, long long A, const void* phase, int G, int T,
+                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   err = allow_smem(dual_panel_kernel);
   if (err != cudaSuccess) return (int)err;
+  const qst::Phase ph{(const uint32_t*)phase, G, T};
   dual_panel_kernel<<<(unsigned)A, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
       re, im, w1r, w1i, mode1, w2r, w2i, mode2, u_pre, qb_pre, u_post,
-      qb_post, ore, oim);
+      qb_post, ore, oim, ph);
   return (int)cudaGetLastError();
 }
 

@@ -2,9 +2,16 @@
 
 Each ``csrc/<name>.cu`` becomes ``build/torch_kernels/lib<name>-<hash>.so``
 at first use: a plain C interface, no PyTorch headers, so a build takes
-seconds.  The hash covers the source and the flags, so an edited source
-is rebuilt and a stale library is never loaded.  ``QST_TORCH_BUILD_DIR``
-moves the build directory; ``QST_NVCC`` names the compiler.
+seconds.  The hash covers the source, every ``csrc/*.cuh`` header (a
+header such as ``phase.cuh`` is shared by several sources) and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.  ``QST_TORCH_BUILD_DIR`` moves the build directory;
+``QST_NVCC`` names the compiler.
+
+``on_card`` and ``launch`` are the wrappers' shared halves: the first
+decides kernel (CUDA planes) or plain twin (CPU planes) and raises on
+planes no kernel takes, the second calls a C entry on the current stream
+and raises on a CUDA error.
 """
 from __future__ import annotations
 
@@ -15,6 +22,8 @@ import shutil
 import subprocess
 import sys
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -43,8 +52,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(ARCH + FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(ARCH + FLAGS).encode())
     return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -102,3 +113,34 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             getattr(lib, fn).argtypes = argtypes
         _LOADED[name] = lib
     return lib
+
+
+def on_card(name: str, re: torch.Tensor, im: torch.Tensor) -> bool:
+    """True: launch the kernel.  False: the planes lie on the CPU."""
+    if re.shape != im.shape or re.dim() != 1 or re.device != im.device:
+        raise ValueError(f"{name}: planes must be two flat tensors of one "
+                         f"shape on one device")
+    if re.device.type == "cpu":
+        return False
+    if re.device.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {re.device}")
+    if re.dtype != torch.float32 or im.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel takes float32 planes, got "
+                        f"{re.dtype}; float64 runs through the plain twin "
+                        f"(plain=True)")
+    if not (re.is_contiguous() and im.is_contiguous()):
+        raise ValueError(f"{name}: planes must be contiguous")
+    return True
+
+
+def launch(source: str, signatures: dict, entry: str,
+           device: torch.device, *args) -> None:
+    """Call ``entry`` of ``csrc/<source>.cu`` with ``args``, the device
+    index and ``device``'s current stream; raise on a CUDA error."""
+    lib = load(source, signatures)
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, entry)(*args, index, stream)
+    if err != 0:
+        msg = lib.qst_error_string(err).decode()
+        raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")

@@ -4,6 +4,8 @@ torch state construction.
 The counterparts of ``quantum_simulations_tpu/ops/dense.py``'s
 ``expand_to_low_block``, ``compose_low_panel``, ``_SWAP4``,
 ``zero_state``, ``zero_state_planar`` and ``apply_gate_planar``.
+The reference's diagonal helpers have no copy here: every ``DiagOp``
+carries its Möbius terms, so ``ops/diag_kernels.fused_diag`` serves it.
 
 Endianness: little — qubit 0 is bit 0 of the flat index.
 Gate matrices are big-endian in the gate subspace (qubits[0] = MSB).
@@ -87,3 +89,4 @@ def apply_gate_planar(re: torch.Tensor, im: torch.Tensor,
 
     xr, xi = gather(re), gather(im)
     return scatter(ur @ xr - ui @ xi), scatter(ur @ xi + ui @ xr)
+

@@ -10,12 +10,21 @@ Counterpart of the three panel entries of
 ``dual_panel``         ``dual_panel_planar`` with its straddler gates
 =====================  ====================================================
 
+Each takes the reference's ``diag_terms``: the merged diagonal run that
+follows the panel (``runtime/simulator.pair_panel_diag``), applied to the
+panel's output in the same pass (the kernel's diag epilogue,
+``csrc/phase.cuh``).  A panel whose tile rows are not whole state rows
+(width below 128, or a positioned panel below pos 7) runs the reference's
+two passes instead: the panel kernel, then ``fused_diag``.
+
 Each wrapper runs its CUDA kernel (``csrc/panels.cu``) on a CUDA tensor
 and its plain twin on a CPU tensor, and nothing else: on the card it
 launches or raises, with no fallback.  ``plain=True`` asks for the twin
 on any device (the float64 reference run on the card).  Every launch
-adds one to ``LAUNCHES[name]``; every twin call adds one to
-``PLAIN_CALLS[name]``.
+adds one to ``LAUNCHES[name]``, ``name + "+diag"`` with an epilogue;
+every twin call adds one to ``PLAIN_CALLS`` under the same key.  A twin
+with ``diag_terms`` runs the panel and then the diag twin's arithmetic
+(``ops/diag_kernels.apply_diag_plain``).
 
 The kernels take float32 planes only (the TPU kernels never ran float64
 on the chip); the twins take any float type.  A W is a numpy complex
@@ -29,6 +38,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from .cuda_build import launch, on_card
+from .diag_kernels import DiagTerms, apply_diag_plain, fused_diag, phase_args
+
 # The reference holds panels to full float32 precision (HIGHEST); a
 # single-pass TF32 product loses 13 mantissa bits.  The twins' matmuls
 # and the timed library calls must not use it either.
@@ -38,8 +50,10 @@ torch.backends.cudnn.allow_tf32 = False
 LANES = 128
 TILE_ELEMS = LANES * LANES
 
-LAUNCHES = {"lane_panel": 0, "positioned_panel": 0, "dual_panel": 0}
-PLAIN_CALLS = {"lane_panel": 0, "positioned_panel": 0, "dual_panel": 0}
+_KEYS = ("lane_panel", "lane_panel+diag", "positioned_panel",
+         "positioned_panel+diag", "dual_panel", "dual_panel+diag")
+LAUNCHES = dict.fromkeys(_KEYS, 0)
+PLAIN_CALLS = dict.fromkeys(_KEYS, 0)
 
 
 def reset_counts() -> None:
@@ -156,23 +170,35 @@ def _cmm(ar, ai, br, bi):
     return ar @ br - ai @ bi, ar @ bi + ai @ br
 
 
-def lane_panel_plain(re, im, W):
-    """out[r, i] = sum_k W[i, k] x[r, k] over the view (R, dim)."""
-    PLAIN_CALLS["lane_panel"] += 1
+def _key(name: str, diag_terms) -> str:
+    return name if diag_terms is None else name + "+diag"
+
+
+def _epilogue_plain(re, im, diag_terms):
+    if diag_terms is None:
+        return re, im
+    return apply_diag_plain(re, im, diag_terms)
+
+
+def lane_panel_plain(re, im, W, diag_terms=None):
+    """out[r, i] = sum_k W[i, k] x[r, k] over the view (R, dim), then the
+    diag run ``diag_terms`` if given."""
+    PLAIN_CALLS[_key("lane_panel", diag_terms)] += 1
     wr, wi = w_planes(W, re.device, re.dtype)
     dim = wr.shape[0]
     o_re, o_im = _cmm(re.reshape(-1, dim), im.reshape(-1, dim), wr.T, wi.T)
-    return o_re.reshape(-1), o_im.reshape(-1)
+    return _epilogue_plain(o_re.reshape(-1), o_im.reshape(-1), diag_terms)
 
 
-def positioned_panel_plain(re, im, W, pos: int):
-    """out[a, i, c] = sum_k W[i, k] x[a, k, c] over the view (A, dim, 2^pos)."""
-    PLAIN_CALLS["positioned_panel"] += 1
+def positioned_panel_plain(re, im, W, pos: int, diag_terms=None):
+    """out[a, i, c] = sum_k W[i, k] x[a, k, c] over the view (A, dim, 2^pos),
+    then the diag run ``diag_terms`` if given."""
+    PLAIN_CALLS[_key("positioned_panel", diag_terms)] += 1
     wr, wi = w_planes(W, re.device, re.dtype)
     dim = wr.shape[0]
     shape = (-1, dim, 1 << pos)
     o_re, o_im = _cmm(wr, wi, re.reshape(shape), im.reshape(shape))
-    return o_re.reshape(-1), o_im.reshape(-1)
+    return _epilogue_plain(o_re.reshape(-1), o_im.reshape(-1), diag_terms)
 
 
 def _straddle_plain(xr, xi, s: Straddle):
@@ -216,13 +242,14 @@ def _straddle_plain(xr, xi, s: Straddle):
 
 
 def dual_panel_plain(re, im, W1, p1, W2, p2, straddle=None,
-                     post_straddle=None):
-    """[pre] W1@p1, W2@p2 [post] on the (A, 128, 128) view, in op order.
+                     post_straddle=None, diag_terms=None):
+    """[pre] W1@p1, W2@p2 [post] [diag] on the (A, 128, 128) view, in op
+    order.
 
     Mode "lane" (pos 0): out[a, d, l] = sum_m W[l, m] x[a, d, m];
     mode "full" (pos 7): out[a, i, k] = sum_j W[i, j] x[a, j, k].
     """
-    PLAIN_CALLS["dual_panel"] += 1
+    PLAIN_CALLS[_key("dual_panel", diag_terms)] += 1
     xr = re.reshape(-1, LANES, LANES)
     xi = im.reshape(-1, LANES, LANES)
     if straddle is not None:
@@ -235,7 +262,7 @@ def dual_panel_plain(re, im, W1, p1, W2, p2, straddle=None,
             xr, xi = _cmm(wr, wi, xr, xi)
     if post_straddle is not None:
         xr, xi = _straddle_plain(xr, xi, Straddle.of(post_straddle))
-    return xr.reshape(-1), xi.reshape(-1)
+    return _epilogue_plain(xr.reshape(-1), xi.reshape(-1), diag_terms)
 
 
 # ---------------------------------------------------------------------------
@@ -243,44 +270,16 @@ def dual_panel_plain(re, im, W1, p1, W2, p2, straddle=None,
 # ---------------------------------------------------------------------------
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PHASE = [_P, _I, _I]  # the packed DiagTerms operand (or null), G, T
 _SIGNATURES = {
     "qst_error_string": (ctypes.c_char_p, [_I]),
-    "qst_lane_panel": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _P]),
+    "qst_lane_panel": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, *_PHASE, _I,
+                            _P]),
     "qst_positioned_panel": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _LL,
-                                  _I, _P]),
+                                  *_PHASE, _I, _P]),
     "qst_dual_panel": (_I, [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P,
-                            _I, _P, _P, _LL, _I, _P]),
+                            _I, _P, _P, _LL, *_PHASE, _I, _P]),
 }
-
-
-def _on_card(name: str, re: torch.Tensor, im: torch.Tensor) -> bool:
-    """True: launch the kernel.  False: the planes lie on the CPU."""
-    if re.shape != im.shape or re.dim() != 1 or re.device != im.device:
-        raise ValueError(f"{name}: planes must be two flat tensors of one "
-                         f"shape on one device")
-    if re.device.type == "cpu":
-        return False
-    if re.device.type != "cuda":
-        raise RuntimeError(f"{name}: no kernel for device {re.device}")
-    if re.dtype != torch.float32 or im.dtype != torch.float32:
-        raise TypeError(f"{name}: the CUDA kernel takes float32 planes, got "
-                        f"{re.dtype}; float64 runs through the plain twin "
-                        f"(plain=True)")
-    if not (re.is_contiguous() and im.is_contiguous()):
-        raise ValueError(f"{name}: planes must be contiguous")
-    return True
-
-
-def _launch(entry: str, device: torch.device, *args) -> None:
-    from . import cuda_build
-
-    lib = cuda_build.load("panels", _SIGNATURES)
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, entry)(*args, index, stream)
-    if err != 0:
-        msg = lib.qst_error_string(err).decode()
-        raise RuntimeError(f"{entry}: CUDA error {err} ({msg})")
 
 
 def _check_dim(name: str, dim: int, N: int, view: int) -> None:
@@ -288,49 +287,64 @@ def _check_dim(name: str, dim: int, N: int, view: int) -> None:
         raise ValueError(f"{name}: W of width {dim} does not fit 2^n = {N}")
 
 
-def lane_panel(re, im, W, *, plain: bool = False):
-    """W on the low bits: out[r, i] = sum_k W[i, k] x[r, k], view (R, dim)."""
-    if plain or not _on_card("lane_panel", re, im):
-        return lane_panel_plain(re, im, W)
+def lane_panel(re, im, W, *, diag_terms=None, plain: bool = False):
+    """W on the low bits: out[r, i] = sum_k W[i, k] x[r, k], view (R, dim),
+    then the merged diag run ``diag_terms`` if given."""
+    diag_terms = DiagTerms.of(diag_terms)
+    if plain or not on_card("lane_panel", re, im):
+        return lane_panel_plain(re, im, W, diag_terms)
     wr, wi = w_planes(W, re.device, re.dtype)
     dim, N = wr.shape[0], re.numel()
     _check_dim("lane_panel", dim, N, dim)
+    fuse = diag_terms if dim == LANES else None
     ore, oim = torch.empty_like(re), torch.empty_like(im)
-    _launch("qst_lane_panel", re.device, re.data_ptr(), im.data_ptr(),
-            wr.data_ptr(), wi.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-            N // dim, dim)
-    LAUNCHES["lane_panel"] += 1
+    launch("panels", _SIGNATURES, "qst_lane_panel", re.device,
+           re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+           ore.data_ptr(), oim.data_ptr(), N // dim, dim,
+           *phase_args(fuse, re.device))
+    LAUNCHES[_key("lane_panel", fuse)] += 1
+    if diag_terms is not None and fuse is None:
+        return fused_diag(ore, oim, diag_terms)
     return ore, oim
 
 
-def positioned_panel(re, im, W, pos: int, *, plain: bool = False):
-    """W on the bit window [pos, pos + w): view (A, dim, C = 2^pos)."""
-    if plain or not _on_card("positioned_panel", re, im):
-        return positioned_panel_plain(re, im, W, pos)
+def positioned_panel(re, im, W, pos: int, *, diag_terms=None,
+                     plain: bool = False):
+    """W on the bit window [pos, pos + w): view (A, dim, C = 2^pos), then
+    the merged diag run ``diag_terms`` if given."""
+    diag_terms = DiagTerms.of(diag_terms)
+    if plain or not on_card("positioned_panel", re, im):
+        return positioned_panel_plain(re, im, W, pos, diag_terms)
     wr, wi = w_planes(W, re.device, re.dtype)
     dim, N, C = wr.shape[0], re.numel(), 1 << pos
     _check_dim("positioned_panel", dim, N, dim * C)
+    fuse = diag_terms if dim == LANES and C >= LANES else None
     ore, oim = torch.empty_like(re), torch.empty_like(im)
-    _launch("qst_positioned_panel", re.device, re.data_ptr(), im.data_ptr(),
-            wr.data_ptr(), wi.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-            N // (dim * C), dim, C)
-    LAUNCHES["positioned_panel"] += 1
+    launch("panels", _SIGNATURES, "qst_positioned_panel", re.device,
+           re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
+           ore.data_ptr(), oim.data_ptr(), N // (dim * C), dim, C,
+           *phase_args(fuse, re.device))
+    LAUNCHES[_key("positioned_panel", fuse)] += 1
+    if diag_terms is not None and fuse is None:
+        return fused_diag(ore, oim, diag_terms)
     return ore, oim
 
 
 def dual_panel(re, im, W1, p1: int, W2, p2: int, *, straddle=None,
-               post_straddle=None, plain: bool = False):
+               post_straddle=None, diag_terms=None, plain: bool = False):
     """W1@p1 then W2@p2 ((p1, p2) a permutation of (0, 7)) in one pass,
-    with an optional (6, qb) straddler gate before and after."""
+    with an optional (6, qb) straddler gate before and after, then the
+    merged diag run ``diag_terms`` if given."""
     if not dual_panel_supported(p1, p2):
         raise ValueError(f"dual_panel takes positions (0, 7), not {(p1, p2)}")
     straddle, post_straddle = Straddle.of(straddle), Straddle.of(post_straddle)
+    diag_terms = DiagTerms.of(diag_terms)
     if re.numel() < TILE_ELEMS:
         return _dual_small(re, im, W1, p1, W2, p2, straddle, post_straddle,
-                           plain)
-    if plain or not _on_card("dual_panel", re, im):
+                           diag_terms, plain)
+    if plain or not on_card("dual_panel", re, im):
         return dual_panel_plain(re, im, W1, p1, W2, p2, straddle,
-                                post_straddle)
+                                post_straddle, diag_terms)
     dev = re.device
     w1r, w1i = w_planes(W1, dev, re.dtype)
     w2r, w2i = w_planes(W2, dev, re.dtype)
@@ -342,33 +356,40 @@ def dual_panel(re, im, W1, p1: int, W2, p2: int, *, straddle=None,
 
     pre, post = strad(straddle), strad(post_straddle)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
-    _launch("qst_dual_panel", dev, re.data_ptr(), im.data_ptr(),
-            w1r.data_ptr(), w1i.data_ptr(), int(p1 != 0),
-            w2r.data_ptr(), w2i.data_ptr(), int(p2 != 0),
-            pre[0], pre[1], post[0], post[1],
-            ore.data_ptr(), oim.data_ptr(), re.numel() // TILE_ELEMS)
-    LAUNCHES["dual_panel"] += 1
+    launch("panels", _SIGNATURES, "qst_dual_panel", dev,
+           re.data_ptr(), im.data_ptr(),
+           w1r.data_ptr(), w1i.data_ptr(), int(p1 != 0),
+           w2r.data_ptr(), w2i.data_ptr(), int(p2 != 0),
+           pre[0], pre[1], post[0], post[1],
+           ore.data_ptr(), oim.data_ptr(), re.numel() // TILE_ELEMS,
+           *phase_args(diag_terms, dev))
+    LAUNCHES[_key("dual_panel", diag_terms)] += 1
     return ore, oim
 
 
-def _dual_small(re, im, W1, p1, W2, p2, straddle, post_straddle, plain):
+def _dual_small(re, im, W1, p1, W2, p2, straddle, post_straddle, diag_terms,
+                plain):
     """States below one (128, 128) tile (n < 14): the reference's
-    two-pass branch, panels through their own wrappers and the
+    two-pass branch, panels through their own wrappers (the second one
+    with the diag run, unless a post-straddler follows it) and the
     straddlers in plain torch."""
     from . import dense
 
     def strad(re, im, s):
         return dense.apply_gate_planar(re, im, (6, s.qb), s.U)
 
-    def one(re, im, W, p):
+    def one(re, im, W, p, dt=None):
         if p == 0:
-            return lane_panel(re, im, W, plain=plain)
-        return positioned_panel(re, im, W, p, plain=plain)
+            return lane_panel(re, im, W, diag_terms=dt, plain=plain)
+        return positioned_panel(re, im, W, p, diag_terms=dt, plain=plain)
 
     if straddle is not None:
         re, im = strad(re, im, straddle)
     re, im = one(re, im, W1, p1)
+    if post_straddle is None:
+        return one(re, im, W2, p2, diag_terms)
     re, im = one(re, im, W2, p2)
-    if post_straddle is not None:
-        re, im = strad(re, im, post_straddle)
+    re, im = strad(re, im, post_straddle)
+    if diag_terms is not None:
+        re, im = fused_diag(re, im, diag_terms, plain=plain)
     return re, im

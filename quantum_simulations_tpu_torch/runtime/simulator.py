@@ -3,13 +3,17 @@
 Port of the window half of ``quantum_simulations_tpu/runtime/simulator.py``:
 the circuit compiles to a fixed-window schedule
 (``circuit/panelize.compile_window_schedule``) and each op runs as one
-pass of a panel kernel (``ops/panel_kernels.py``).  The state is split
-once into two float planes and stays planar for the whole run.
+pass of a kernel: a panel (``ops/panel_kernels.py``, with the merged diag
+run that follows it as its epilogue), a merged diag run
+(``ops/diag_kernels.py``) or a bit permutation
+(``ops/bitperm_kernels.py``).  The state is split once into two float
+planes and stays planar for the whole run.
 
 Execution is out of place: each pass writes fresh planes, so the card
 holds input and output of one pass (4 planes, 16 GiB in float32 at
 n = 30).  Compiled schedules, with their W planes already on the device,
-are cached by circuit hash, dtype, device and the ``QST_*`` switches.
+and diag operands already on the device, are cached by circuit hash,
+dtype, device and the ``QST_*`` switches.
 """
 from __future__ import annotations
 
@@ -21,9 +25,12 @@ import torch
 
 from ..circuit.contract import circuit_hash, validate_circuit_dict
 from ..circuit.panelize import (
-    DiagOp, DualPanelOp, WindowPanelOp, compile_window_schedule,
+    BitPermGridOp, DiagOp, DualPanelOp, TransposeCrossOp, WindowPanelOp,
+    compile_window_schedule,
 )
+from ..ops import bitperm_kernels as bk
 from ..ops import dense
+from ..ops import diag_kernels as dk
 from ..ops import panel_kernels as pk
 from ..utils.device import complex_dtype, float_dtype, resolve_device
 
@@ -34,11 +41,8 @@ _COMPILE_CACHE: dict = {}
 _WAITS_FOR = {
     "PhysGateOp": "pair_update_planar / mixed_pair_planar / midpair_planar"
                   " / mixed_low_pair_planar (or dense.apply_gate_planar)",
-    "DiagOp": "fused_diag_planar",
     "MultiSwapOp": "apply_multiswap_planar (pair_update_planar in place)",
     "BitPermOp": "bitperm_cross_planar",
-    "BitPermGridOp": "bitperm_swap_planar",
-    "TransposeCrossOp": "bitperm_transpose_planar",
 }
 
 
@@ -49,31 +53,48 @@ def _unported(op) -> NotImplementedError:
         f"{_WAITS_FOR.get(name, 'its reference kernel')}")
 
 
-def _no_epilogue(op) -> NotImplementedError:
-    return NotImplementedError(
-        f"{type(op).__name__} with a fused diag epilogue: waits for the "
-        f"port of _theta_matmul / fused_diag_planar (ops/diag_plan.py)")
+def _diag_terms(op):
+    if op.terms is None:
+        raise ValueError("a DiagOp runs from its Möbius terms; this one has "
+                         "only its phase vector d")
+    return op.terms
 
 
 def apply_window_op(re, im, op, diag_terms=None, *, plain: bool = False):
     """Dispatch ONE window-schedule op on (re, im) planes.
 
-    Panels at pos 0 go to ``lane_panel``, at pos >= 7 to
-    ``positioned_panel``, (0, 7) pairs to ``dual_panel``.  Every other op
-    type, and a fused diag epilogue, raises ``NotImplementedError``.
-    ``plain=True`` runs the plain torch twins on any device.
+    As the reference dispatches (its ``apply_window_op``): panels at pos
+    0 go to ``lane_panel``, at pos >= 7 to ``positioned_panel``, (0, 7)
+    pairs to ``dual_panel``, each with ``diag_terms`` (the merged diag
+    run paired with it) as its epilogue.  A ``DiagOp`` goes to
+    ``fused_diag`` with its Möbius terms: the scheduler gives every
+    ``DiagOp`` its terms, with or without the phase vector ``d``, and
+    the terms make the same phase as ``d``.  ``BitPermGridOp`` goes to
+    ``bitperm_swap``, ``TransposeCrossOp`` to ``bitperm_transpose``.  The
+    other op types raise ``NotImplementedError``.  ``plain=True`` runs
+    the plain torch twins on any device.
     """
-    if diag_terms is not None:
-        raise _no_epilogue(op)
     if isinstance(op, DualPanelOp):
         return pk.dual_panel(
             re, im, op.first.W, op.first.pos, op.second.W, op.second.pos,
             straddle=op.pre_straddle, post_straddle=op.post_straddle,
-            plain=plain)
+            diag_terms=diag_terms, plain=plain)
     if isinstance(op, WindowPanelOp):
         if op.pos == 0:
-            return pk.lane_panel(re, im, op.W, plain=plain)
-        return pk.positioned_panel(re, im, op.W, op.pos, plain=plain)
+            return pk.lane_panel(re, im, op.W, diag_terms=diag_terms,
+                                 plain=plain)
+        return pk.positioned_panel(re, im, op.W, op.pos,
+                                   diag_terms=diag_terms, plain=plain)
+    if diag_terms is not None:
+        raise ValueError(f"a diag epilogue rides a panel, not a "
+                         f"{type(op).__name__}")
+    if isinstance(op, DiagOp):
+        return dk.fused_diag(re, im, _diag_terms(op), plain=plain)
+    if isinstance(op, BitPermGridOp):
+        return bk.bitperm_swap(re, im, op.pairs, dict(op.grid_map),
+                               plain=plain)
+    if isinstance(op, TransposeCrossOp):
+        return bk.bitperm_transpose(re, im, plain=plain)
     raise _unported(op)
 
 
@@ -105,7 +126,13 @@ def pair_panel_diag(ops, enabled: bool | None = None):
 
 
 def _prepare(op, device, fdtype):
-    """The op with its W planes (and straddler operands) on the device."""
+    """The op with its W planes (and straddler and diag operands) on the
+    device."""
+    if isinstance(op, DiagOp):
+        return dataclasses.replace(
+            op, terms=_prepare_terms(_diag_terms(op), device))
+    if isinstance(op, (BitPermGridOp, TransposeCrossOp)):
+        return op
     if isinstance(op, WindowPanelOp):
         return dataclasses.replace(op, W=pk.w_planes(op.W, device, fdtype))
     if isinstance(op, DualPanelOp):
@@ -119,6 +146,31 @@ def _prepare(op, device, fdtype):
             second=_prepare(op.second, device, fdtype),
             pre_straddle=pre, post_straddle=post)
     raise _unported(op)
+
+
+def _prepare_terms(terms, device):
+    """A merged diag run packed (and, on the card, uploaded) once."""
+    dterms = dk.DiagTerms.of(terms)
+    if dterms is not None and device.type == "cuda":
+        dterms.operand(device)
+    return dterms
+
+
+def schedule(cd: dict, window: int = 7) -> list:
+    """The circuit's window schedule as ``[(op, diag_terms | None)]``:
+    ``compile_window_schedule`` (terms-only diag merges from n = 10,
+    unless ``QST_DIAG_TERMS_ONLY=0``), then ``pair_panel_diag``."""
+    n = cd["number_of_qubits"]
+    terms_only = n >= 10 and os.environ.get("QST_DIAG_TERMS_ONLY", "1") == "1"
+    return pair_panel_diag(compile_window_schedule(
+        cd, window=window, diag_terms_only=terms_only))
+
+
+def prepare_schedule(paired, device, fdtype) -> list:
+    """``[(op, DiagTerms | None)]`` with every operand on ``device``.
+    Raises ``NotImplementedError`` on an op type without a kernel."""
+    return [(_prepare(op, device, fdtype), _prepare_terms(dterms, device))
+            for op, dterms in paired]
 
 
 def _switches() -> tuple:
@@ -156,25 +208,18 @@ def build_window_circuit_fn(
     cdtype = complex_dtype(dtype)
     fdtype = float_dtype(cdtype)
     cd = validate_circuit_dict(circuit_dict)
-    n = cd["number_of_qubits"]
-    terms_only = n >= 10 and os.environ.get("QST_DIAG_TERMS_ONLY", "1") == "1"
     key = ("window", circuit_hash(cd), str(cdtype), window, planar_io,
            str(dev), plain, _switches())
     cached = _COMPILE_CACHE.get(key)
     if cached is not None:
         return cached
 
-    ops = compile_window_schedule(cd, window=window,
-                                  diag_terms_only=terms_only)
-    paired = pair_panel_diag(ops)
-    for op, dterms in paired:  # raise before any pass runs
-        if dterms is not None:
-            raise _no_epilogue(op)
-    prepared = [_prepare(op, dev, fdtype) for op, _ in paired]
+    # Raises before any pass runs on an op type without a kernel yet.
+    prepared = prepare_schedule(schedule(cd, window), dev, fdtype)
 
     def body(re, im):
-        for op in prepared:
-            re, im = apply_window_op(re, im, op, plain=plain)
+        for op, dterms in prepared:
+            re, im = apply_window_op(re, im, op, dterms, plain=plain)
         return re, im
 
     if planar_io:

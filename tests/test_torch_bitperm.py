@@ -1,0 +1,102 @@
+"""The bit-permutation twins against the JAX package's Pallas entries.
+
+The JAX side runs as its own tests run it (CPU, ``interpret=True``,
+float64 planes); the port's wrappers get CPU tensors, so they run their
+plain twins.  Both only move floats, so they must agree exactly.
+"""
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from quantum_simulations_tpu.ops import pallas_kernels as rk
+from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
+
+
+def _state(n, seed):
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)
+
+
+def _ref(fn, psi, *args, **kw):
+    re, im = fn(jnp.asarray(psi.real), jnp.asarray(psi.imag), *args,
+                interpret=True, **kw)
+    return np.asarray(re), np.asarray(im)
+
+
+def _port(fn, psi, *args, **kw):
+    re, im = fn(torch.from_numpy(psi.real.copy()),
+                torch.from_numpy(psi.imag.copy()), *args, **kw)
+    return re.numpy(), im.numpy()
+
+
+def _exact(got, want):
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+SWAPS = {
+    # qft28's pass at n = 20 scale: sub-pairs on bits 7..9, a grid pair,
+    # and a grid_map with a 3-cycle (not an involution: pins its direction)
+    "pairs_and_cycle": (20, ((7, 19), (8, 18), (9, 17), (10, 16)),
+                        {11: 13, 13: 15, 15: 11, 12: 14, 14: 12}),
+    "qft18_grid_only": (18, (), {11: 17, 12: 16, 13: 15, 15: 13, 16: 12,
+                                 17: 11}),
+    "sub_pairs_only": (14, ((7, 9), (8, 13)), {}),
+    "identity": (12, (), {}),
+}
+
+
+@pytest.mark.parametrize("case", list(SWAPS), ids=list(SWAPS))
+def test_bitperm_swap_matches_reference(case):
+    n, pairs, grid_map = SWAPS[case]
+    psi = _state(n, n)
+    bk.reset_counts()
+    got = _port(bk.bitperm_swap, psi, pairs, grid_map)
+    assert bk.PLAIN_CALLS["bitperm_swap"] == 1
+    _exact(got, _ref(rk.bitperm_swap_planar, psi, pairs, grid_map=grid_map))
+
+
+@pytest.mark.parametrize("n", [14, 18])
+def test_bitperm_transpose_matches_reference(n):
+    psi = _state(n, n)
+    bk.reset_counts()
+    got = _port(bk.bitperm_transpose, psi)
+    assert bk.PLAIN_CALLS["bitperm_transpose"] == 1
+    _exact(got, _ref(rk.bitperm_transpose_planar, psi))
+
+
+def test_bit_sources_compose_pairs_and_grid_map():
+    src = bk.bit_sources(16, ((7, 12),), {10: 11, 11: 13, 13: 10})
+    assert src[:7] == list(range(7))
+    assert (src[7], src[12]) == (12, 7)
+    assert (src[10], src[11], src[13]) == (11, 13, 10)
+    assert src[14:] == [14, 15]
+
+
+@pytest.mark.parametrize("pairs,grid_map,match", [
+    (((7, 12), (12, 13)), {}, "disjoint"),
+    (((5, 12),), {}, "leave bits"),
+    ((), {10: 11, 11: 11}, "bijection"),
+    ((), {9: 11, 11: 9}, "leaves bits"),
+    (((10, 12),), {10: 11, 11: 10}, "share bits"),
+])
+def test_bitperm_swap_rejects_what_the_reference_rejects(pairs, grid_map, match):
+    with pytest.raises(ValueError, match=match):
+        bk.bit_sources(16, pairs, grid_map)
+
+
+def test_bitperm_transpose_needs_n14():
+    x = torch.zeros(1 << 13, dtype=torch.float64)
+    with pytest.raises(ValueError, match="n >= 14"):
+        bk.bitperm_transpose(x, x)
+
+
+def test_bitperm_swap_checks_16_byte_alignment():
+    """The kernel moves float4s: a plane that is a view at an odd offset
+    is refused with a ValueError before any launch."""
+    base = torch.zeros((1 << 10) + 4, dtype=torch.float32)
+    good, odd = base[:1 << 10], base[1:(1 << 10) + 1]
+    assert good.data_ptr() % 16 == 0 and odd.is_contiguous()
+    bk.check_aligned("bitperm_swap", good, good)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        bk.check_aligned("bitperm_swap", good, odd)

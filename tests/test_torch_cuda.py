@@ -14,6 +14,8 @@ import pytest
 import torch
 
 from quantum_simulations_tpu_torch.circuit import library
+from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
+from quantum_simulations_tpu_torch.ops import diag_kernels as dk
 from quantum_simulations_tpu_torch.ops import panel_kernels as pk
 
 pytestmark = pytest.mark.cuda
@@ -92,4 +94,115 @@ def test_simulate_on_card_matches_float64_twins(dev):
     assert pk.LAUNCHES["dual_panel"] == 2 and not any(pk.PLAIN_CALLS.values())
     want = simulator.simulate(cd, mode="window", dtype="complex128",
                               device=dev, plain=True)
+    assert float(torch.linalg.vector_norm(got.to(torch.complex128) - want)) < TOL_L2
+
+
+def _terms(n, count, seed, scale=5.0):
+    """Random Möbius terms of order <= 3 on n qubits (the global term
+    too), sum |coeff| about count * scale / 2."""
+    rng = np.random.default_rng(seed)
+    terms = {(): float(rng.uniform(-scale, scale))}
+    while len(terms) < count:
+        qs = tuple(sorted(rng.choice(n, rng.integers(1, 4), replace=False)))
+        terms[tuple(int(q) for q in qs)] = float(rng.uniform(-scale, scale))
+    return tuple(terms.items())
+
+
+@pytest.mark.parametrize("n,count", [(20, 43), (20, 120), (9, 20), (3, 6)])
+def test_fused_diag(dev, n, count):
+    x, terms = _state(n, n, dev), _terms(n, count, n + count)
+    before = dk.LAUNCHES["fused_diag"]
+    got = dk.fused_diag(*x, terms)
+    assert dk.LAUNCHES["fused_diag"] == before + 1
+    assert _l2(got, dk.fused_diag_plain(*x, terms)) < TOL_L2
+
+
+@pytest.mark.parametrize("n,pos", [(20, 7), (20, 13), (16, 9)])
+def test_positioned_panel_diag_epilogue(dev, n, pos):
+    x, W, terms = _state(n, pos, dev), _unitary(128, pos), _terms(n, 60, pos)
+    before = pk.LAUNCHES["positioned_panel+diag"]
+    got = pk.positioned_panel(*x, W, pos, diag_terms=terms)
+    assert pk.LAUNCHES["positioned_panel+diag"] == before + 1
+    want = pk.positioned_panel_plain(*x, W, pos, diag_terms=terms)
+    assert _l2(got, want) < TOL_L2
+
+
+@pytest.mark.parametrize("n", [20, 13])
+def test_lane_panel_diag_epilogue(dev, n):
+    x, W, terms = _state(n, n, dev), _unitary(128, 5), _terms(n, 50, n)
+    got = pk.lane_panel(*x, W, diag_terms=terms)
+    assert _l2(got, pk.lane_panel_plain(*x, W, diag_terms=terms)) < TOL_L2
+
+
+def test_dual_panel_diag_epilogue(dev):
+    x, terms = _state(20, 1, dev), _terms(20, 70, 2)
+    W1, W2 = _unitary(128, 1), _unitary(128, 2)
+    kw = dict(straddle=(6, 9, _unitary(4, 9)),
+              post_straddle=(6, 12, _unitary(4, 12)), diag_terms=terms)
+    got = pk.dual_panel(*x, W1, 0, W2, 7, **kw)
+    assert _l2(got, pk.dual_panel_plain(*x, W1, 0, W2, 7, **kw)) < TOL_L2
+
+
+def test_ragged_panel_diag_runs_two_kernels(dev):
+    x, W, terms = _state(16, 3, dev), _unitary(32, 3), _terms(16, 50, 3)
+    pk.reset_counts()
+    dk.reset_counts()
+    got = pk.positioned_panel(*x, W, 11, diag_terms=terms)
+    assert pk.LAUNCHES["positioned_panel"] == 1
+    assert dk.LAUNCHES["fused_diag"] == 1
+    want = pk.positioned_panel_plain(*x, W, 11, diag_terms=terms)
+    assert _l2(got, want) < TOL_L2
+
+
+@pytest.mark.parametrize("n,pairs,grid_map", [
+    (20, ((7, 19), (8, 18), (9, 17), (10, 16)),
+     {11: 13, 13: 15, 15: 11, 12: 14, 14: 12}),
+    (28, ((7, 20), (8, 19), (9, 18), (10, 17)),
+     {21: 27, 22: 26, 23: 25, 25: 23, 26: 22, 27: 21}),
+    (12, (), {10: 11, 11: 10}),
+])
+def test_bitperm_swap_exact(dev, n, pairs, grid_map):
+    x = _state(n, n, dev)
+    got = bk.bitperm_swap(*x, pairs, grid_map)
+    want = bk.bitperm_swap_plain(*x, pairs, grid_map)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_bitperm_swap_refuses_a_misaligned_plane(dev):
+    """A view at an odd offset raises before the launch, and the context
+    stays usable."""
+    n = 12
+    x = _state(n, n, dev)
+    base = torch.zeros((1 << n) + 4, device=dev)
+    base[1:(1 << n) + 1] = x[0]
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        bk.bitperm_swap(base[1:(1 << n) + 1], x[1], (), {10: 11, 11: 10})
+    got = bk.bitperm_swap(*x, (), {10: 11, 11: 10})
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], bk.bitperm_swap_plain(*x, (), {10: 11, 11: 10})[0])
+
+
+@pytest.mark.parametrize("n", [14, 20])
+def test_bitperm_transpose_exact(dev, n):
+    x = _state(n, n, dev)
+    got = bk.bitperm_transpose(*x)
+    want = bk.bitperm_transpose_plain(*x)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("name", ["qft", "qaoa_maxcut"])
+def test_qft_qaoa_on_card_match_float64_twins(dev, name):
+    from quantum_simulations_tpu_torch.runtime import simulator
+
+    n = 20
+    cd = getattr(library, name)(n)
+    rng = np.random.default_rng(n)
+    psi0 = rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)
+    psi0 = torch.as_tensor(psi0 / np.linalg.norm(psi0), device=dev)
+    for reset in (pk.reset_counts, dk.reset_counts, bk.reset_counts):
+        reset()
+    got = simulator.simulate(cd, mode="window", device=dev, initial_state=psi0)
+    assert not any({**pk.PLAIN_CALLS, **dk.PLAIN_CALLS, **bk.PLAIN_CALLS}.values())
+    want = simulator.simulate(cd, mode="window", dtype="complex128",
+                              device=dev, plain=True, initial_state=psi0)
     assert float(torch.linalg.vector_norm(got.to(torch.complex128) - want)) < TOL_L2

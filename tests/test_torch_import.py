@@ -15,8 +15,10 @@ MODULES = [
     "quantum_simulations_tpu_torch.convert",
     "quantum_simulations_tpu_torch.circuit.dag",
     "quantum_simulations_tpu_torch.circuit.panelize",
+    "quantum_simulations_tpu_torch.ops.bitperm_kernels",
     "quantum_simulations_tpu_torch.ops.cuda_build",
     "quantum_simulations_tpu_torch.ops.dense",
+    "quantum_simulations_tpu_torch.ops.diag_kernels",
     "quantum_simulations_tpu_torch.ops.panel_kernels",
     "quantum_simulations_tpu_torch.runtime.simulator",
 ]
@@ -89,3 +91,26 @@ def test_cuda_build_needs_nvcc(monkeypatch, tmp_path):
     monkeypatch.delenv("QST_NVCC", raising=False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build_all()
+
+
+def test_library_hash_covers_the_headers(monkeypatch, tmp_path):
+    """Editing a header that several sources include (phase.cuh) must
+    rebuild each of them: a stale library is never loaded."""
+    import shutil
+
+    from quantum_simulations_tpu_torch.ops import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC, csrc)
+    monkeypatch.setenv("QST_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(cuda_build, "CSRC", csrc)
+    before = {s: cuda_build.library_path(s) for s in ("panels", "diag", "bitperm")}
+    assert all(p.parent == tmp_path / "build" for p in before.values())
+    header = csrc / "phase.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {s: cuda_build.library_path(s) for s in before}
+    assert after["panels"] != before["panels"]
+    assert after["diag"] != before["diag"]
+    (csrc / "diag.cu").write_bytes((csrc / "diag.cu").read_bytes() + b" ")
+    assert cuda_build.library_path("diag") != after["diag"]
+    assert cuda_build.library_path("panels") == after["panels"]

@@ -12,6 +12,8 @@ from quantum_simulations_tpu.circuit import library as rlib
 from quantum_simulations_tpu.circuit.panelize import compile_window_schedule
 from quantum_simulations_tpu.runtime import simulator as RS
 from quantum_simulations_tpu_torch import SimulatorConfig, api, convert
+from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
+from quantum_simulations_tpu_torch.ops import diag_kernels as dk
 from quantum_simulations_tpu_torch.ops import panel_kernels as pk
 from quantum_simulations_tpu_torch.runtime import simulator as PS
 
@@ -124,9 +126,12 @@ def test_auto_mode_resolves_to_window():
 
 
 def test_diag_op_raises_naming_the_op():
+    """DiagOps run now; the op types still without a kernel raise and
+    name the kernel they wait for: qft(16)'s terminal BitPermOp, and
+    non_stabilizer(12)'s PhysGateOp."""
     cfg = SimulatorConfig(mode="window", dtype="complex128")
-    with pytest.raises(NotImplementedError, match="DiagOp.*fused_diag_planar"):
-        api.simulate(rlib.qft(10), cfg, device=CPU)
+    with pytest.raises(NotImplementedError, match="BitPermOp.*bitperm_cross_planar"):
+        api.simulate(rlib.qft(16), cfg, device=CPU)
     with pytest.raises(NotImplementedError, match="PhysGateOp"):
         api.simulate(rlib.non_stabilizer(12), cfg, device=CPU)
 
@@ -143,20 +148,71 @@ def test_unported_tiers_raise(kw, match):
         api.simulate(rlib.non_stabilizer(14), SimulatorConfig(**kw), device=CPU)
 
 
-def test_inplace_and_diag_epilogue_raise(monkeypatch):
+def test_inplace_and_diag_epilogue_raise():
+    """inplace=True still raises.  The diag epilogue runs now; a schedule
+    with an op without a kernel (here a MultiSwapOp) raises when it is
+    prepared, before any pass runs, and names the kernel it waits for."""
+    from quantum_simulations_tpu_torch.circuit.panelize import MultiSwapOp
+
     cd = rlib.non_stabilizer(14)
     with pytest.raises(NotImplementedError, match="capacity"):
         PS.build_window_circuit_fn(cd, inplace=True, device=CPU)
-    monkeypatch.setenv("QST_PANEL_DIAG_FUSE_MIN", "2")
-    with pytest.raises(NotImplementedError, match="diag epilogue"):
-        PS.build_window_circuit_fn(rlib.qft(18), device=CPU)
+    with pytest.raises(NotImplementedError,
+                       match="MultiSwapOp.*apply_multiswap_planar"):
+        PS.prepare_schedule([(MultiSwapOp(((7, 9), (8, 12))), None)],
+                            torch.device(CPU), torch.float64)
+
+
+def _reset_all():
+    for m in (pk, dk, bk):
+        m.reset_counts()
 
 
 def test_cpu_run_uses_only_plain_twins():
-    pk.reset_counts()
-    api.simulate(rlib.non_stabilizer(18), SimulatorConfig(mode="window"),
-                 device=CPU)
-    assert pk.LAUNCHES == {"lane_panel": 0, "positioned_panel": 0,
-                           "dual_panel": 0}
-    assert pk.PLAIN_CALLS == {"lane_panel": 0, "positioned_panel": 3,
-                              "dual_panel": 2}
+    for name, plain in (
+            ("non_stabilizer", {"positioned_panel": 3, "dual_panel": 2}),
+            ("qft", {"positioned_panel+diag": 2, "dual_panel": 1,
+                     "bitperm_swap": 1, "bitperm_transpose": 1})):
+        _reset_all()
+        api.simulate(getattr(rlib, name)(18), SimulatorConfig(mode="window"),
+                     device=CPU)
+        launches = {**pk.LAUNCHES, **dk.LAUNCHES, **bk.LAUNCHES}
+        calls = {**pk.PLAIN_CALLS, **dk.PLAIN_CALLS, **bk.PLAIN_CALLS}
+        assert not any(launches.values()), name
+        assert {k: v for k, v in calls.items() if v} == plain, name
+
+
+@pytest.mark.parametrize("name", ["qft", "qaoa_maxcut", "sycamore_like",
+                                  "trotter_ising", "graph_state"])
+def test_diag_and_bitperm_circuits_match_reference(name):
+    """qft(18) reaches the positioned diag epilogue, bitperm_swap and
+    bitperm_transpose; qaoa_maxcut(18) and sycamore_like(18) reach
+    fused_diag and the dual panel; trotter_ising(18) and graph_state(18)
+    are diagonal runs between panels as well.  Each from |0> and from a
+    random state (from |0> a wrong phase on a control still 0 can
+    hide)."""
+    n = 18
+    cd = getattr(rlib, name)(n)
+    cfg = SimulatorConfig(mode="window", dtype="complex128")
+    np.testing.assert_allclose(api.simulate(cd, cfg, device=CPU), _ref(cd),
+                               atol=1e-10)
+    psi0 = _random_state(n, 3)
+    got = PS.simulate(cd, dtype="complex128", mode="window", device=CPU,
+                      initial_state=psi0)
+    np.testing.assert_allclose(got.numpy(), _ref(cd, initial_state=psi0),
+                               atol=1e-10)
+
+
+@pytest.mark.parametrize("name", ["qft", "qaoa_maxcut"])
+def test_reference_diag_bitperm_schedule_on_port_executor(name):
+    """The reference's op list with its diag epilogues, DiagOps and bit
+    permutations, carried across by ``convert``."""
+    n = 18
+    cd = getattr(rlib, name)(n)
+    psi0 = _random_state(n, 5)
+    ref_ops = RS.pair_panel_diag(compile_window_schedule(cd, diag_terms_only=True))
+    re, im = convert.planes_from_numpy(psi0, CPU, torch.float64)
+    for op, terms in convert.ops_from_reference(ref_ops):
+        re, im = PS.apply_window_op(re, im, op, terms)
+    np.testing.assert_allclose(convert.to_numpy(re, im),
+                               _ref(cd, initial_state=psi0), atol=1e-10)
