@@ -10,17 +10,23 @@ Phases (any failure exits non-zero):
    then the build of every ``quantum_simulations_tpu_torch/csrc/*.cu``
    (one nvcc per source, started together; ptxas register report).
 2. Each kernel against its plain torch twin on the card, on seeded
-   unit-norm states.  At n = 28 with the operands of the three requests:
+   unit-norm states.  At n = 28 with the operands of the requests:
    nonstab28's W's (positioned pos 11 / 14 / 21, dual with and without
    its pre-straddler, the lane panel on the (2^21, 128) view), qaoa28's
    43-term diag run through ``fused_diag``, qft28's pos-21 panel with its
-   147-term run as the diag epilogue, and qft28's ``bitperm_swap`` and
-   ``bitperm_transpose``.  At n = 20 with random operands: positioned
+   147-term run as the diag epilogue, qft28's ``bitperm_swap`` and
+   ``bitperm_transpose``, deutsch_jozsa28's ``pair_update`` gates
+   (7, 27) and (20, 27) and ``mixed_pair`` gate (0, 27), qpe28's
+   ``mixed_pair`` gate (6, 20) and multiswap, w_qft28's two
+   ``mixed_low_pair`` gates, and the ``bitperm_cross`` of qft28 with
+   ``QST_BITPERM_DECOMP=0``.  At n = 20 with random operands: positioned
    pos 7 / 8 / 9, a ragged 64-wide top window, dual in (7, 0) order,
    dual with general complex pre- and post-straddlers, ``fused_diag``,
    the lane / positioned / dual diag epilogues (order <= 3 terms, sum
-   |coeff| > 100 rad), and both bit permutations.  Fails on
-   ||diff||_2 > 1e-5, or on any difference for a bit permutation.
+   |coeff| > 100 rad), the three bit permutations, and the three pair
+   wrappers with random 4x4 unitaries for lo in {0, 1, 2, 6, 7, 12, 13}
+   in both qubit orders.  Fails on ||diff||_2 > 1e-5, or on any
+   difference for a bit permutation.
 3. The main path, five requests through the entry points, the counters
    set to 0 just before each request and read just after it, no plain
    twin called: ``api.simulate(non_stabilizer(28, depth=4, seed=7),
@@ -32,9 +38,16 @@ Phases (any failure exits non-zero):
    1e-6), ``qaoa_maxcut(28)`` (dual_panel 3, positioned_panel 8,
    positioned_panel+diag 2, fused_diag 2), and qft28 once more through
    ``simulator.simulate`` from a seeded random unit-norm state (from |0>
-   a wrong phase on a control still 0 can hide).  Each but the wall:
-   |norm2 - 1| <= 1e-5 and ||psi - psi_f64||_2 <= 1e-5 against the plain
-   twins in float64 on the card, from the same state.
+   a wrong phase on a control still 0 can hide).  Then the two-qubit
+   gate requests: ``qpe(27)`` (mixed_pair 7, bitperm_swap 1 for its
+   multiswap, and its panels and diag runs), ``qft_adder(28)``
+   (mixed_pair 14, bitperm_swap 2), ``deutsch_jozsa(28)`` (pair_update
+   14, mixed_pair 7), ``w_qft(28)`` (mixed_low_pair 2), ``qft(28)`` with
+   ``QST_BITPERM_DECOMP=0`` (bitperm_swap 1, bitperm_cross 1; every
+   amplitude 2^-14) and qpe28 once more from a random state.  No request
+   calls the plain torch gate paths (``dense.GATE_CALLS == 0``).  Each
+   but the wall: |norm2 - 1| <= 1e-5 and ||psi - psi_f64||_2 <= 1e-5
+   against the plain twins in float64 on the card, from the same state.
 4. Times at n = 28: per kernel the median CUDA-event ms, the plain
    twin's ms, one torch library call computing the same function
    (timed here, never used by the port; for a diag run, with or without
@@ -44,10 +57,14 @@ Phases (any failure exits non-zero):
    cores), with the flop the function needs (6 per complex multiply-add,
    none for a select straddler, 6 per amplitude for a diag rotation,
    none for a bit permutation).  Each epilogue row also times the same
-   panel without it.  Then the kernel time of every pass of qft28 and
-   qaoa28, and the end-to-end time of nonstab28, qft28 and qaoa28 by the
-   two-point estimator (t(2R) - t(R)) / R with
-   amplitude-updates/s = gates * 2^28 / t.
+   panel without it.  The pair kernel at its classes (pair_update
+   column (7, 27) and row (20, 27), mixed_pair (0, 27), mixed_low_pair
+   (6, 7) and (7, 6)), its library call an einsum of the (2, 2, 2, 2)
+   coefficients with the complex64 (A, 2, B, 2, C) view, and
+   ``bitperm_cross``.  Then the kernel time of every pass of qft28,
+   qaoa28 and qpe28, and the end-to-end time of nonstab28, qft28,
+   qaoa28, qpe28 and qft_adder28 by the two-point estimator
+   (t(2R) - t(R)) / R with amplitude-updates/s = gates * 2^28 / t.
 
 The last lines: the card line as nvidia-smi prints it, one JSON object
 ``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.  The
@@ -75,7 +92,11 @@ SRC = {"lane_panel": f"{CSRC}/panels.cu",
        "dual_panel": f"{CSRC}/panels.cu",
        "fused_diag": f"{CSRC}/diag.cu",
        "bitperm_swap": f"{CSRC}/bitperm.cu",
-       "bitperm_transpose": f"{CSRC}/bitperm.cu"}
+       "bitperm_transpose": f"{CSRC}/bitperm.cu",
+       "bitperm_cross": f"{CSRC}/bitperm.cu",
+       "pair_update": f"{CSRC}/pair.cu",
+       "mixed_pair": f"{CSRC}/pair.cu",
+       "mixed_low_pair": f"{CSRC}/pair.cu"}
 KERNELS = list(SRC)
 PALLAS = "quantum_simulations_tpu/ops/pallas_kernels.py"
 REPLACES = {"lane_panel": f"{PALLAS}:93",
@@ -83,7 +104,11 @@ REPLACES = {"lane_panel": f"{PALLAS}:93",
             "dual_panel": f"{PALLAS}:343",
             "fused_diag": f"{PALLAS}:1297",
             "bitperm_swap": f"{PALLAS}:1977",
-            "bitperm_transpose": f"{PALLAS}:2155"}
+            "bitperm_transpose": f"{PALLAS}:2155",
+            "bitperm_cross": f"{PALLAS}:1890",
+            "pair_update": f"{PALLAS}:898",
+            "mixed_pair": f"{PALLAS}:1107",
+            "mixed_low_pair": f"{PALLAS}:1692"}
 # The request whose launches each kernel reports; each request has
 # counts of its own.  A panel's launches count its "+diag" key too.
 PATH = {"lane_panel": "qft28",
@@ -91,7 +116,11 @@ PATH = {"lane_panel": "qft28",
         "dual_panel": "qaoa28",
         "fused_diag": "qaoa28",
         "bitperm_swap": "qft28",
-        "bitperm_transpose": "qft28"}
+        "bitperm_transpose": "qft28",
+        "bitperm_cross": "qft28 nodecomp",
+        "pair_update": "deutsch_jozsa28",
+        "mixed_pair": "qpe28",
+        "mixed_low_pair": "w_qft28"}
 # Launches of each request, by counter key (keys not listed: 0).
 WANT = {"nonstab28": {"dual_panel": 2, "positioned_panel": 3},
         "hadamard_wall28": {"lane_panel": 1, "positioned_panel": 3},
@@ -99,7 +128,25 @@ WANT = {"nonstab28": {"dual_panel": 2, "positioned_panel": 3},
                   "lane_panel": 1, "bitperm_swap": 1, "bitperm_transpose": 1},
         "qaoa28": {"dual_panel": 3, "positioned_panel": 8,
                    "positioned_panel+diag": 2, "fused_diag": 2}}
+WANT.update({
+    "qpe28": {"dual_panel": 1, "positioned_panel": 5, "fused_diag": 3,
+              "bitperm_swap": 1, "mixed_pair": 7, "lane_panel+diag": 1,
+              "positioned_panel+diag": 1},
+    "qft_adder28": {"positioned_panel+diag": 5, "bitperm_swap": 2,
+                    "fused_diag": 3, "lane_panel": 1, "positioned_panel": 3,
+                    "mixed_pair": 14, "lane_panel+diag": 1},
+    "deutsch_jozsa28": {"dual_panel": 2, "positioned_panel": 4,
+                        "mixed_pair": 7, "pair_update": 14},
+    "w_qft28": {"lane_panel": 2, "mixed_low_pair": 2, "positioned_panel": 5,
+                "positioned_panel+diag": 3, "bitperm_swap": 1,
+                "bitperm_transpose": 1},
+    "qft28 nodecomp": {"positioned_panel+diag": 3, "lane_panel": 1,
+                       "positioned_panel": 1, "bitperm_swap": 1,
+                       "bitperm_cross": 1}})
 WANT["qft28 random state"] = WANT["qft28"]
+WANT["qpe28 random state"] = WANT["qpe28"]
+# The requests timed end to end.
+E2E = ("nonstab28", "qft28", "qaoa28", "qpe28", "qft_adder28")
 TOL_L2 = 1e-5
 
 RECORD: dict = {"cases": [], "times": []}
@@ -116,20 +163,51 @@ def circuits() -> dict:
     return {"nonstab28": library.non_stabilizer(NQ, depth=4, seed=7),
             "hadamard_wall28": library.hadamard_wall(NQ),
             "qft28": library.qft(NQ),
-            "qaoa28": library.qaoa_maxcut(NQ)}
+            "qaoa28": library.qaoa_maxcut(NQ),
+            "qpe28": library.qpe(NQ - 1),
+            "qft_adder28": library.qft_adder(NQ),
+            "deutsch_jozsa28": library.deutsch_jozsa(NQ),
+            "w_qft28": library.w_qft(NQ)}
+
+
+class env_switch:
+    """``with env_switch("QST_BITPERM_DECOMP", "0"):`` sets one switch
+    for the block and restores it after."""
+
+    def __init__(self, key: str, value: str):
+        self.key, self.value = key, value
+
+    def __enter__(self):
+        self.old = os.environ.get(self.key)
+        os.environ[self.key] = self.value
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ[self.key]
+        else:
+            os.environ[self.key] = self.old
+
+
+def nodecomp():
+    """qft28's terminal SWAP network as one BitPermOp (bitperm_cross)."""
+    return env_switch("QST_BITPERM_DECOMP", "0")
 
 
 def count_modules():
     from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
     from quantum_simulations_tpu_torch.ops import diag_kernels as dk
+    from quantum_simulations_tpu_torch.ops import pair_kernels as pq
     from quantum_simulations_tpu_torch.ops import panel_kernels as pk
 
-    return pk, dk, bk
+    return pk, dk, bk, pq
 
 
 def reset_counts() -> None:
+    from quantum_simulations_tpu_torch.ops import dense
+
     for m in count_modules():
         m.reset_counts()
+    dense.GATE_CALLS = 0
 
 
 def launches() -> dict:
@@ -308,6 +386,33 @@ def dual_library(xc, op, cw, ph=None):
                                 Wl.view(128, 2, 64), Wr.view(128, H, 2, L))
 
 
+def pair_library(xc, qa: int, qb: int, U):
+    """One torch call computing a two-qubit gate on the complex state
+    ``xc``: an einsum of the (2, 2, 2, 2) coefficients C[ho, lo_, h, l]
+    with the (A, 2, B, 2, C) view."""
+    import torch
+
+    from quantum_simulations_tpu_torch.ops import pair_kernels as pq
+
+    n = xc.numel().bit_length() - 1
+    hi, lo = max(qa, qb), min(qa, qb)
+    xv = xc.view(1 << (n - hi - 1), 2, 1 << (hi - lo - 1), 2, 1 << lo)
+    C4 = torch.as_tensor(pq.pair_coeffs(U, qa, qb), dtype=xc.dtype,
+                         device=xc.device)
+    return lambda: torch.einsum("HLhl,ahblc->aHbLc", C4, xv)
+
+
+def cross_library(xc, cross):
+    """One torch call computing ``bitperm_cross`` on the complex state
+    ``xc``: ``permute(...).contiguous()`` of its factored bit view."""
+    from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
+
+    n = xc.numel().bit_length() - 1
+    shape, dims = bk.permute_view(n, bk.cross_sources(n, cross))
+    xs = xc.view(shape)
+    return lambda: xs.permute(dims).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: every kernel against its plain twin
 # ---------------------------------------------------------------------------
@@ -388,6 +493,27 @@ def kernel_cases(n: int, scheds, rng):
                           lambda x: bk.bitperm_transpose(*x),
                           lambda x: bk.bitperm_transpose_plain(*x),
                           exact=True))
+        dj = gate_ops(scheds["deutsch_jozsa28"])
+        for qs in DJ_GATES:
+            cases.append(pair_case(f"deutsch_jozsa28 {qs}", dj[qs]))
+        qpe = gate_ops(scheds["qpe28"])
+        qs = next(iter(qpe))
+        cases.append(pair_case(f"qpe28 {qs}", qpe[qs]))
+        ms, _ = find(scheds["qpe28"], "MultiSwapOp")
+        cases.append(case(f"bitperm_swap qpe28 multiswap {ms.pairs}",
+                          "bitperm_swap",
+                          lambda x: bk.bitperm_swap(*x, ms.pairs, {}),
+                          lambda x: bk.bitperm_swap_plain(*x, ms.pairs, {}),
+                          exact=True))
+        wq = gate_ops(scheds["w_qft28"])
+        for qs in ((6, 7), (7, 6)):
+            cases.append(pair_case(f"w_qft28 {qs}", wq[qs]))
+        bp, _ = find(scheds["qft28 nodecomp"], "BitPermOp")
+        cases.append(case(f"bitperm_cross qft28 nodecomp {bp.cross}",
+                          "bitperm_cross",
+                          lambda x: bk.bitperm_cross(*x, bp.cross),
+                          lambda x: bk.bitperm_cross_plain(*x, bp.cross),
+                          exact=True))
         return cases
     for pos in (7, 8, 9):
         W = rand_unitary(128, rng)
@@ -430,7 +556,57 @@ def kernel_cases(n: int, scheds, rng):
     cases.append(case("bitperm_transpose", "bitperm_transpose",
                       lambda x: bk.bitperm_transpose(*x),
                       lambda x: bk.bitperm_transpose_plain(*x), exact=True))
+    cross = (19, 13, 17, 14, 18, 16, 15)
+    cases.append(case(f"bitperm_cross {cross}", "bitperm_cross",
+                      lambda x: bk.bitperm_cross(*x, cross),
+                      lambda x: bk.bitperm_cross_plain(*x, cross), exact=True))
+    for qa, qb in PAIR_CLASSES:
+        U = rand_unitary(4, rng)
+        cases.append(pair_case(f"random U ({qa}, {qb})",
+                               ((qa, qb), U)))
     return cases
+
+
+# deutsch_jozsa28's gates for pair_update's column body (lo <= 12) and
+# row body, and for mixed_pair.
+DJ_GATES = ((7, NQ - 1), (NQ - 8, NQ - 1), (0, NQ - 1))
+
+# (qa, qb) at n = 20: lo in {0, 1, 2, 6, 7, 12, 13}, both qubit orders,
+# every wrapper: mixed_low_pair (hi 7..9), mixed_pair (hi >= 10),
+# pair_update column (lo <= 12) and row (lo >= 13) bodies.
+PAIR_CLASSES = ((0, 7), (9, 1), (2, 8), (6, 7), (7, 6),
+                (0, 19), (12, 1), (2, 10), (6, 15),
+                (7, 11), (19, 7), (12, 16), (13, 14), (17, 13))
+
+
+def gate_ops(paired) -> dict:
+    """{qubits: (qubits, U)} of a schedule's PhysGateOps."""
+    return {op.qubits: (op.qubits, op.U) for op, _ in paired
+            if type(op).__name__ == "PhysGateOp"}
+
+
+def pair_wrapper(qa: int, qb: int) -> str:
+    """The pair wrapper (and launch key) that takes (qa, qb)."""
+    from quantum_simulations_tpu_torch.ops import pair_kernels as pq
+
+    if pq.pair_update_supported(qa, qb):
+        return "pair_update"
+    if pq.mixed_pair_supported(qa, qb):
+        return "mixed_pair"
+    return "mixed_low_pair"
+
+
+def pair_case(label: str, gate):
+    """A pair-kernel case: the wrapper that takes the gate's qubits
+    against the plain twin."""
+    from quantum_simulations_tpu_torch.ops import pair_kernels as pq
+
+    (qa, qb), U = gate
+    name = pair_wrapper(qa, qb)
+    wrap = getattr(pq, name)
+    return case(f"{name} {label}", name,
+                lambda x: wrap(*x, qa, qb, U),
+                lambda x: pq.pair_gate_plain(*x, qa, qb, U))
 
 
 def check_kernels(dev, scheds) -> dict:
@@ -476,12 +652,15 @@ def request(label: str, run) -> tuple:
     t0 = time.perf_counter()
     out = run()
     wall = time.perf_counter() - t0
-    got, plain = launches(), plain_calls()
+    from quantum_simulations_tpu_torch.ops import dense
+
+    got, plain, gates = launches(), plain_calls(), dense.GATE_CALLS
     log(f"main {label}: {wall:.3f} s (first call: schedule, operand upload, "
-        f"host copy) launches={got} plain_calls={plain}")
-    if got != WANT[label] or plain:
-        raise AssertionError(f"{label} launch counts {got} / plain {plain}, "
-                             f"want {WANT[label]} and no plain call")
+        f"host copy) launches={got} plain_calls={plain} dense_gate_calls={gates}")
+    if got != WANT[label] or plain or gates:
+        raise AssertionError(f"{label} launch counts {got} / plain {plain} / "
+                             f"dense {gates}, want {WANT[label]} and no plain "
+                             f"or dense call")
     return out, got, wall
 
 
@@ -578,6 +757,37 @@ def main_path(dev) -> dict:
                                    initial_state=psi0))
     main["qft28 random state"] = dict(first_call_s=wall, **against_f64(
         "qft28 random state", psi, qft, dev, initial_state=psi0))
+    del psi
+
+    # The two-qubit gate requests.
+    for label in ("qpe28", "qft_adder28", "deutsch_jozsa28", "w_qft28"):
+        cd = cds[label]
+        psi, counts[label], wall = request(
+            label, lambda cd=cd: api.simulate(cd, cfg, device=dev))
+        main[label] = dict(first_call_s=wall, **against_f64(label, psi, cd, dev))
+        del psi
+
+    # qft28 with its SWAP network as one BitPermOp: still uniform.
+    with nodecomp():
+        psi, counts["qft28 nodecomp"], wall = request(
+            "qft28 nodecomp", lambda: api.simulate(qft, cfg, device=dev))
+        nd_err = float(np.max(np.abs(psi - exact)))
+        log(f"main qft28 nodecomp (QST_BITPERM_DECOMP=0): max |psi - 2^-14| "
+            f"= {nd_err:.3e}")
+        if not nd_err <= 1e-6:
+            raise AssertionError("qft28 nodecomp of |0> is off the uniform state")
+        main["qft28 nodecomp"] = dict(
+            first_call_s=wall, max_err_vs_exact=nd_err,
+            **against_f64("qft28 nodecomp", psi, qft, dev))
+        del psi
+
+    qpe = cds["qpe28"]
+    psi, counts["qpe28 random state"], wall = request(
+        "qpe28 random state",
+        lambda: simulator.simulate(qpe, mode="window", device=dev,
+                                   initial_state=psi0))
+    main["qpe28 random state"] = dict(first_call_s=wall, **against_f64(
+        "qpe28 random state", psi, qpe, dev, initial_state=psi0))
     del psi, psi0
     torch.cuda.empty_cache()
     RECORD["main"] = dict(launches=counts, **main)
@@ -596,6 +806,7 @@ def times(dev, scheds) -> dict:
     )
     from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
     from quantum_simulations_tpu_torch.ops import diag_kernels as dk
+    from quantum_simulations_tpu_torch.ops import pair_kernels as pq
     from quantum_simulations_tpu_torch.ops import panel_kernels as pk
     from quantum_simulations_tpu_torch.runtime import simulator
 
@@ -711,17 +922,41 @@ def times(dev, scheds) -> dict:
     row("bitperm_transpose", "bitperm_transpose",
         lambda: bk.bitperm_transpose(*x), lambda: bk.bitperm_transpose_plain(*x),
         lambda: xt.transpose(0, 2).contiguous(), [])
-    del xs, xt, xc
+    del xs, xt
+
+    # The pair kernel at its classes, with the requests' gates; the
+    # library call is one einsum over the complex64 (A, 2, B, 2, C) view.
+    dj, wq = gate_ops(scheds["deutsch_jozsa28"]), gate_ops(scheds["w_qft28"])
+    col, rw, mixed = DJ_GATES
+    for label, (qs, U) in ((f"column {col}", dj[col]), (f"row {rw}", dj[rw]),
+                           (str(mixed), dj[mixed]),
+                           ("(6, 7)", wq[(6, 7)]), ("(7, 6)", wq[(7, 6)])):
+        qa, qb = qs
+        name = pair_wrapper(qa, qb)
+        row(name, f"{name} {label}",
+            lambda qa=qa, qb=qb, U=U, f=getattr(pq, name): f(*x, qa, qb, U),
+            lambda qa=qa, qb=qb, U=U: pq.pair_gate_plain(*x, qa, qb, U),
+            pair_library(xc, qa, qb, U), [4])
+    bp, _ = find(scheds["qft28 nodecomp"], "BitPermOp")
+    tables = bk.CrossTables.of(bp.cross)
+    tables.operand(dev)
+    row("bitperm_cross", "bitperm_cross qft28 nodecomp",
+        lambda: bk.bitperm_cross(*x, tables),
+        lambda: bk.bitperm_cross_plain(*x, tables),
+        cross_library(xc, tables.cross), [])
+    del xc
 
     # Every pass of qft28 and qaoa28, operands already on the card.
     RECORD["passes"] = {}
-    for label in ("qft28", "qaoa28"):
+    for label in ("qft28", "qaoa28", "qpe28"):
         prepared = simulator.prepare_schedule(scheds[label], dev, torch.float32)
         recs = []
         for i, (op, dt) in enumerate(prepared):
             ms = cuda_ms(lambda op=op, dt=dt: simulator.apply_window_op(
                 *x, op, dt), reps=5)
             name = type(op).__name__ + (f"@{op.pos}" if hasattr(op, "pos") else "")
+            if type(op).__name__ == "PhysGateOp":
+                name += str(op.qubits)
             if dt is not None:
                 name += f"+diag{len(dt.terms)}"
             elif type(op).__name__ == "DiagOp":
@@ -735,7 +970,7 @@ def times(dev, scheds) -> dict:
     torch.cuda.empty_cache()
 
     RECORD["e2e"] = {label: e2e(label, cd, dev)
-                     for label, cd in circuits().items() if label in scheds}
+                     for label, cd in circuits().items() if label in E2E}
     return rows
 
 
@@ -824,6 +1059,8 @@ def main() -> int:
 
     scheds = {label: schedule(cd) for label, cd in circuits().items()
               if label != "hadamard_wall28"}
+    with nodecomp():
+        scheds["qft28 nodecomp"] = schedule(circuits()["qft28"])
     for label, paired in scheds.items():
         log(f"{label} schedule: " + ", ".join(
             type(o).__name__ + (f"@{o.pos}" if hasattr(o, "pos") else "")

@@ -1,5 +1,5 @@
-// Bit permutations of the statevector's index, for Hopper (sm_90a): the
-// two passes of QFT's terminal bit reversal on (re, im) float32 planes.
+// Bit permutations of the statevector's index, for Hopper (sm_90a): QFT's
+// terminal bit reversal and SWAP networks on (re, im) float32 planes.
 //
 //   bitperm_swap       out[i] = in[sigma(i)], sigma a permutation of the
 //                      bits >= 7 (the row bits of the (2^n / 128, 128)
@@ -12,7 +12,9 @@
 //                      (free in the block index maps).  Here both compose
 //                      into one map of the row index: out row r = in row
 //                      rho(r), so the pass is a row gather, one warp per
-//                      row of 128 floats, float4 loads and stores.
+//                      row of 128 floats, float4 loads and stores.  The
+//                      port also runs MultiSwapOp and lone SWAPs on bits
+//                      >= 7 through it (the reference's XLA transposes).
 //   bitperm_transpose  lane bit l <-> bit n - 7 + l: on the (128, M, 128)
 //                      view, out[x, m, y] = in[y, m, x].  Replaces
 //                      bitperm_transpose_planar (:2163) with
@@ -20,9 +22,17 @@
 //                      transposes one 128 x 128 tile of each plane through
 //                      padded shared memory; rows are read and written 128
 //                      floats at a time.
+//   bitperm_cross      lane bit l <-> top bit cross[l]: out[x, m, y] =
+//                      in[f(y), m, g(x)].  Replaces bitperm_cross_planar
+//                      (:1905) with _bitperm_cross_kernel (:1890), which
+//                      runs two 0/1 permutation matmuls a tile on the MXU.
+//                      Here it is the transpose above with two 128-entry
+//                      tables (built on the host, read into shared memory
+//                      once a block): the tile load reads row f(y), the
+//                      store reads column g(x).  No arithmetic, so exact.
 //
 // Bound on an H100 SXM: bytes.  Both planes are read and written once,
-// 4.3 GB at n = 28, 1.28 ms at 3.35 TB/s; there is no arithmetic.  Both
+// 4.3 GB at n = 28, 1.28 ms at 3.35 TB/s; there is no arithmetic.  All
 // are out of place and exact (they only move floats).
 //
 // Each entry point launches on the given stream, allocates nothing and
@@ -78,17 +88,28 @@ bitperm_swap_kernel(const float4* __restrict__ re, const float4* __restrict__ im
   }
 }
 
-// ---- bitperm_transpose: one block per m, the planes one after the other.
+// ---- bitperm_transpose / bitperm_cross: one block per m, the planes one
+// after the other.  TABLES = false: f and g are the identity.  Three
+// blocks fit an SM's shared memory; the register cap of 42 a thread lets
+// all three in (the table instance took 60 unbounded: two blocks, 2.67
+// against the transpose's 2.11 ms at n = 28 on an H100 SXM).
 constexpr int TR_NT = 512;
+constexpr int TR_BLOCKS_PER_SM = 3;
 constexpr int TR_LD = LANES + 1;  // padded: both passes conflict-free
 constexpr size_t TR_SMEM = sizeof(float) * LANES * TR_LD;  // 66,048 B
 
-__global__ void __launch_bounds__(TR_NT)
-bitperm_transpose_kernel(const float* __restrict__ re,
-                         const float* __restrict__ im,
-                         float* __restrict__ ore, float* __restrict__ oim,
-                         long long M) {
-  extern __shared__ float tile[];  // [y][x], LANES x TR_LD
+template <bool TABLES>
+__global__ void __launch_bounds__(TR_NT, TR_BLOCKS_PER_SM)
+tile_cross_kernel(const float* __restrict__ re, const float* __restrict__ im,
+                  float* __restrict__ ore, float* __restrict__ oim,
+                  long long M, const unsigned char* __restrict__ fg) {
+  extern __shared__ float tile[];  // [y][c], LANES x TR_LD
+  __shared__ unsigned char f[LANES], g[LANES];
+  if (TABLES && threadIdx.x < 2 * LANES) {
+    if (threadIdx.x < LANES) f[threadIdx.x] = fg[threadIdx.x];
+    else g[threadIdx.x - LANES] = fg[threadIdx.x];
+  }
+  __syncthreads();
   const long long m = blockIdx.x;
   for (int p = 0; p < 2; ++p) {
     const float* __restrict__ x = p ? im : re;
@@ -96,16 +117,30 @@ bitperm_transpose_kernel(const float* __restrict__ re,
 #pragma unroll 8
     for (int e = threadIdx.x; e < LANES * LANES; e += TR_NT) {
       const int y = e / LANES, c = e % LANES;
-      tile[y * TR_LD + c] = x[((long long)y * M + m) * LANES + c];
+      const int row = TABLES ? f[y] : y;
+      tile[y * TR_LD + c] = x[((long long)row * M + m) * LANES + c];
     }
     __syncthreads();
 #pragma unroll 8
     for (int e = threadIdx.x; e < LANES * LANES; e += TR_NT) {
       const int r = e / LANES, y = e % LANES;
-      o[((long long)r * M + m) * LANES + y] = tile[y * TR_LD + r];
+      const int col = TABLES ? g[r] : r;
+      o[((long long)r * M + m) * LANES + y] = tile[y * TR_LD + col];
     }
     __syncthreads();
   }
+}
+
+template <bool TABLES>
+int launch_tile_cross(const float* re, const float* im, float* ore, float* oim,
+                      long long M, const unsigned char* fg, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      tile_cross_kernel<TABLES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)TR_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  tile_cross_kernel<TABLES><<<(unsigned)M, TR_NT, TR_SMEM, (cudaStream_t)stream>>>(
+      re, im, ore, oim, M, fg);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -143,13 +178,17 @@ int qst_bitperm_transpose(const float* re, const float* im, float* ore,
                           float* oim, long long M, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(bitperm_transpose_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)TR_SMEM);
+  return launch_tile_cross<false>(re, im, ore, oim, M, nullptr, stream);
+}
+
+// fg: the 256 bytes f[128] then g[128], on the device.
+int qst_bitperm_cross(const float* re, const float* im, float* ore, float* oim,
+                      long long M, const unsigned char* fg, int device,
+                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  bitperm_transpose_kernel<<<(unsigned)M, TR_NT, TR_SMEM, (cudaStream_t)stream>>>(
-      re, im, ore, oim, M);
-  return (int)cudaGetLastError();
+  if (fg == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_tile_cross<true>(re, im, ore, oim, M, fg, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 """Bit permutations of the state index on (re, im) planes: QFT's terminal
-bit reversal.  CUDA kernels for the card, a plain torch twin of each.
+bit reversal and SWAP networks.  CUDA kernels for the card, a plain torch
+twin of each.
 
 =====================  ====================================================
 ``bitperm_swap``       ``bitperm_swap_planar``: a permutation of the bits
@@ -8,6 +9,9 @@ bit reversal.  CUDA kernels for the card, a plain torch twin of each.
 ``bitperm_transpose``  ``bitperm_transpose_planar``: lane bit l <-> bit
                        n - 7 + l, out[x, m, y] = in[y, m, x] on the
                        (128, M, 128) view, out of place
+``bitperm_cross``      ``bitperm_cross_planar``: the 7 transpositions lane
+                       l <-> top bit cross[l], out[x, m, y] = in[f(y), m,
+                       g(x)] on the (128, M, 128) view, out of place
 =====================  ====================================================
 
 Each wrapper runs its CUDA kernel (``csrc/bitperm.cu``) on a CUDA tensor
@@ -19,16 +23,19 @@ kernel and twin agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
-from .cuda_build import launch, on_card
+from .cuda_build import check_aligned, launch, on_card
 
 LANE_BITS = 7
 LANES = 1 << LANE_BITS
 
-LAUNCHES = {"bitperm_swap": 0, "bitperm_transpose": 0}
-PLAIN_CALLS = {"bitperm_swap": 0, "bitperm_transpose": 0}
+_KEYS = ("bitperm_swap", "bitperm_transpose", "bitperm_cross")
+LAUNCHES = dict.fromkeys(_KEYS, 0)
+PLAIN_CALLS = dict.fromkeys(_KEYS, 0)
 
 
 def reset_counts() -> None:
@@ -67,6 +74,55 @@ def bit_sources(n: int, pairs, grid_map) -> list[int]:
         src[lo], src[hi] = hi, lo
     for b, s in grid_map.items():
         src[b] = s
+    return src
+
+
+@dataclass(frozen=True)
+class CrossTables:
+    """The lane <-> top crossing ``cross`` (lane l <-> bit cross[l], a
+    bijection onto the top 7 bits of an n = max(cross) + 1 bit index)
+    with its tables, built once on the host as the reference builds them
+    (pallas_kernels.py:1922-1932): bit pi(l) of f(v) is bit l of v, bit l
+    of g(v) is bit pi(l) of v, pi(l) = cross[l] - (n - 7).  ``words`` is
+    f then g (uint8); ``operand(device)`` uploads it once per device."""
+    cross: tuple
+    words: np.ndarray = field(compare=False, repr=False)
+    packed: dict = field(default_factory=dict, compare=False, repr=False)
+
+    @classmethod
+    def of(cls, cross) -> "CrossTables":
+        if isinstance(cross, CrossTables):
+            return cross
+        cross = tuple(int(c) for c in cross)
+        n = max(cross) + 1
+        if len(cross) != LANE_BITS or sorted(cross) != list(range(n - 7, n)):
+            raise ValueError(f"bitperm_cross: cross {cross} is not a bijection "
+                             f"onto the top 7 bits")
+        v = np.arange(LANES)
+        f, g = np.zeros(LANES, np.uint8), np.zeros(LANES, np.uint8)
+        for el, c in enumerate(cross):
+            pi = c - (n - 7)
+            f |= (((v >> el) & 1) << pi).astype(np.uint8)
+            g |= (((v >> pi) & 1) << el).astype(np.uint8)
+        return cls(cross, np.concatenate([f, g]))
+
+    @property
+    def n(self) -> int:
+        return max(self.cross) + 1
+
+    def operand(self, device) -> torch.Tensor:
+        key = str(device)
+        if key not in self.packed:
+            self.packed[key] = torch.from_numpy(self.words.copy()).to(device)
+        return self.packed[key]
+
+
+def cross_sources(n: int, cross) -> list[int]:
+    """src[b] (as :func:`bit_sources`) of the transpositions lane l <->
+    bit cross[l]."""
+    src = list(range(n))
+    for el, c in enumerate(cross):
+        src[el], src[c] = c, el
     return src
 
 
@@ -119,6 +175,27 @@ def bitperm_transpose_plain(re, im):
                  .reshape(-1) for x in (re, im))
 
 
+def bitperm_cross_plain(re, im, cross):
+    """``permute(...).contiguous()`` of the factored view of each plane,
+    the 7 transpositions lane l <-> bit cross[l]."""
+    PLAIN_CALLS["bitperm_cross"] += 1
+    tables = CrossTables.of(cross)
+    n = _check_cross(re, tables)
+    shape, dims = permute_view(n, cross_sources(n, tables.cross))
+    return tuple(x.reshape(shape).permute(dims).contiguous().reshape(-1)
+                 for x in (re, im))
+
+
+def _check_cross(re, tables: CrossTables) -> int:
+    n = _n_of(re)
+    if n < 2 * LANE_BITS:
+        raise ValueError("bitperm_cross needs the (128, M, 128) view: n >= 14")
+    if tables.n != n:
+        raise ValueError(f"bitperm_cross: cross {tables.cross} is not onto "
+                         f"the top 7 bits of a {n}-qubit state")
+    return n
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -129,17 +206,8 @@ _SIGNATURES = {
     "qst_bitperm_swap": (_I, [_P, _P, _P, _P, _LL, ctypes.POINTER(_I), _I,
                               _I, _P]),
     "qst_bitperm_transpose": (_I, [_P, _P, _P, _P, _LL, _I, _P]),
+    "qst_bitperm_cross": (_I, [_P, _P, _P, _P, _LL, _P, _I, _P]),
 }
-
-
-def check_aligned(name: str, *planes) -> None:
-    """Raise unless every plane starts on a 16-byte boundary: the kernel
-    moves float4s, and a misaligned one would end in a sticky CUDA error
-    that spoils the context instead of an exception."""
-    for x in planes:
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name}: planes must start on a 16-byte "
-                             f"boundary (a view at an odd offset?)")
 
 
 def bitperm_swap(re, im, pairs, grid_map=None, *, plain: bool = False):
@@ -173,4 +241,22 @@ def bitperm_transpose(re, im, *, plain: bool = False):
            re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
            re.numel() >> (2 * LANE_BITS))
     LAUNCHES["bitperm_transpose"] += 1
+    return ore, oim
+
+
+def bitperm_cross(re, im, cross, *, plain: bool = False):
+    """Lane bit l <-> bit cross[l] (``cross`` a tuple or
+    :class:`CrossTables`): out[x, m, y] = in[f(y), m, g(x)] on the
+    (128, M, 128) view, 128 x 128 tiles through shared memory, out of
+    place."""
+    tables = CrossTables.of(cross)
+    if plain or not on_card("bitperm_cross", re, im):
+        return bitperm_cross_plain(re, im, tables)
+    _check_cross(re, tables)
+    check_aligned("bitperm_cross", re, im)
+    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    launch("bitperm", _SIGNATURES, "qst_bitperm_cross", re.device,
+           re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+           re.numel() >> (2 * LANE_BITS), tables.operand(re.device).data_ptr())
+    LAUNCHES["bitperm_cross"] += 1
     return ore, oim

@@ -8,10 +8,11 @@ flags, so an edited source or header is rebuilt and a stale library is
 never loaded.  ``QST_TORCH_BUILD_DIR`` moves the build directory;
 ``QST_NVCC`` names the compiler.
 
-``on_card`` and ``launch`` are the wrappers' shared halves: the first
-decides kernel (CUDA planes) or plain twin (CPU planes) and raises on
-planes no kernel takes, the second calls a C entry on the current stream
-and raises on a CUDA error.
+``on_card``, ``check_aligned`` and ``launch`` are the wrappers' shared
+halves: the first decides kernel (CUDA planes) or plain twin (CPU
+planes) and raises on planes no kernel takes, the second raises on
+planes a float4 kernel cannot take, the third calls a C entry on the
+current stream and raises on a CUDA error.
 """
 from __future__ import annotations
 
@@ -131,6 +132,16 @@ def on_card(name: str, re: torch.Tensor, im: torch.Tensor) -> bool:
     if not (re.is_contiguous() and im.is_contiguous()):
         raise ValueError(f"{name}: planes must be contiguous")
     return True
+
+
+def check_aligned(name: str, *planes) -> None:
+    """Raise unless every plane starts on a 16-byte boundary: the kernel
+    moves float4s, and a misaligned one would end in a sticky CUDA error
+    that spoils the context instead of an exception."""
+    for x in planes:
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: planes must start on a 16-byte "
+                             f"boundary (a view at an odd offset?)")
 
 
 def launch(source: str, signatures: dict, entry: str,

@@ -5,9 +5,11 @@ the circuit compiles to a fixed-window schedule
 (``circuit/panelize.compile_window_schedule``) and each op runs as one
 pass of a kernel: a panel (``ops/panel_kernels.py``, with the merged diag
 run that follows it as its epilogue), a merged diag run
-(``ops/diag_kernels.py``) or a bit permutation
-(``ops/bitperm_kernels.py``).  The state is split once into two float
-planes and stays planar for the whole run.
+(``ops/diag_kernels.py``), a two-qubit gate (``ops/pair_kernels.py``) or
+a bit permutation (``ops/bitperm_kernels.py``).  Gates no kernel takes
+run the reference's XLA paths in plain torch (``ops/dense.py``).  The
+state is split once into two float planes and stays planar for the
+whole run.
 
 Execution is out of place: each pass writes fresh planes, so the card
 holds input and output of one pass (4 planes, 16 GiB in float32 at
@@ -24,33 +26,19 @@ import numpy as np
 import torch
 
 from ..circuit.contract import circuit_hash, validate_circuit_dict
+from ..circuit.gates import is_diagonal
 from ..circuit.panelize import (
-    BitPermGridOp, DiagOp, DualPanelOp, TransposeCrossOp, WindowPanelOp,
-    compile_window_schedule,
+    BitPermGridOp, BitPermOp, DiagOp, DualPanelOp, MultiSwapOp, PhysGateOp,
+    TransposeCrossOp, WindowPanelOp, compile_window_schedule,
 )
 from ..ops import bitperm_kernels as bk
 from ..ops import dense
 from ..ops import diag_kernels as dk
+from ..ops import pair_kernels as pq
 from ..ops import panel_kernels as pk
 from ..utils.device import complex_dtype, float_dtype, resolve_device
 
 _COMPILE_CACHE: dict = {}
-
-# The reference kernel (quantum_simulations_tpu/ops/pallas_kernels.py or
-# its XLA path) that each op type without a port waits for.
-_WAITS_FOR = {
-    "PhysGateOp": "pair_update_planar / mixed_pair_planar / midpair_planar"
-                  " / mixed_low_pair_planar (or dense.apply_gate_planar)",
-    "MultiSwapOp": "apply_multiswap_planar (pair_update_planar in place)",
-    "BitPermOp": "bitperm_cross_planar",
-}
-
-
-def _unported(op) -> NotImplementedError:
-    name = type(op).__name__
-    return NotImplementedError(
-        f"{name} has no kernel in the port yet: it waits for the port of "
-        f"{_WAITS_FOR.get(name, 'its reference kernel')}")
 
 
 def _diag_terms(op):
@@ -70,9 +58,13 @@ def apply_window_op(re, im, op, diag_terms=None, *, plain: bool = False):
     ``fused_diag`` with its Möbius terms: the scheduler gives every
     ``DiagOp`` its terms, with or without the phase vector ``d``, and
     the terms make the same phase as ``d``.  ``BitPermGridOp`` goes to
-    ``bitperm_swap``, ``TransposeCrossOp`` to ``bitperm_transpose``.  The
-    other op types raise ``NotImplementedError``.  ``plain=True`` runs
-    the plain torch twins on any device.
+    ``bitperm_swap``, ``TransposeCrossOp`` to ``bitperm_transpose``.  A
+    ``PhysGateOp`` goes to :func:`apply_gate`.  A ``MultiSwapOp`` (disjoint
+    pairs of bits >= 7, n >= 11 by construction) is one ``bitperm_swap``
+    pass, where the reference runs a multi-axis XLA transpose
+    (``apply_multiswap_planar``); a ``BitPermOp`` runs its middle pairs
+    so, then ``bitperm_cross``.
+    ``plain=True`` runs the plain torch twins on any device.
     """
     if isinstance(op, DualPanelOp):
         return pk.dual_panel(
@@ -95,7 +87,42 @@ def apply_window_op(re, im, op, diag_terms=None, *, plain: bool = False):
                                plain=plain)
     if isinstance(op, TransposeCrossOp):
         return bk.bitperm_transpose(re, im, plain=plain)
-    raise _unported(op)
+    if isinstance(op, PhysGateOp):
+        return apply_gate(re, im, op.qubits, op.U, plain=plain)
+    if isinstance(op, MultiSwapOp):
+        return bk.bitperm_swap(re, im, op.pairs, {}, plain=plain)
+    if isinstance(op, BitPermOp):
+        if op.mid_pairs:
+            re, im = bk.bitperm_swap(re, im, op.mid_pairs, {}, plain=plain)
+        return bk.bitperm_cross(re, im, op.cross, plain=plain)
+    raise TypeError(f"no window op {type(op).__name__}")
+
+
+def apply_gate(re, im, qubits, U, *, plain: bool = False):
+    """One gate, routed as the reference's standard tier routes it
+    (simulator.py:293-345): a non-diagonal 2q gate that is not a SWAP
+    to ``pair_update`` when both bits are >= 7 and
+    ``pair_update_supported``; any non-diagonal 2q gate with a lane bit
+    to ``mixed_pair`` (other bit >= 10) or, from n = 10, to
+    ``mixed_low_pair`` (other bit 7..9); a SWAP of two bits >= 7 to
+    ``bitperm_swap`` with one pair from n = 10 (the reference's XLA
+    swapaxes); everything else to the plain torch gate paths of
+    ``ops/dense.py``."""
+    qubits = tuple(qubits)
+    U = np.asarray(U)
+    n = re.numel().bit_length() - 1
+    if len(qubits) == 2 and not is_diagonal(U):
+        qa, qb = qubits
+        swap = np.array_equal(np.asarray(U, np.complex128), dense._SWAP4)
+        if not swap and pq.pair_update_supported(qa, qb):
+            return pq.pair_update(re, im, qa, qb, U, plain=plain)
+        if pq.mixed_pair_supported(qa, qb):
+            return pq.mixed_pair(re, im, qa, qb, U, plain=plain)
+        if pq.mixed_low_pair_supported(qa, qb) and n >= 10:
+            return pq.mixed_low_pair(re, im, qa, qb, U, plain=plain)
+        if swap and min(qa, qb) >= 7 and n >= 10:
+            return bk.bitperm_swap(re, im, (qubits,), {}, plain=plain)
+    return dense.apply_gate_planar(re, im, qubits, U)
 
 
 def pair_panel_diag(ops, enabled: bool | None = None):
@@ -131,7 +158,13 @@ def _prepare(op, device, fdtype):
     if isinstance(op, DiagOp):
         return dataclasses.replace(
             op, terms=_prepare_terms(_diag_terms(op), device))
-    if isinstance(op, (BitPermGridOp, TransposeCrossOp)):
+    if isinstance(op, BitPermOp):
+        tables = bk.CrossTables.of(op.cross)
+        if device.type == "cuda":
+            tables.operand(device)
+        return dataclasses.replace(op, cross=tables)
+    if isinstance(op, (BitPermGridOp, TransposeCrossOp, MultiSwapOp,
+                       PhysGateOp)):
         return op
     if isinstance(op, WindowPanelOp):
         return dataclasses.replace(op, W=pk.w_planes(op.W, device, fdtype))
@@ -145,7 +178,7 @@ def _prepare(op, device, fdtype):
             op, first=_prepare(op.first, device, fdtype),
             second=_prepare(op.second, device, fdtype),
             pre_straddle=pre, post_straddle=post)
-    raise _unported(op)
+    raise TypeError(f"no window op {type(op).__name__}")
 
 
 def _prepare_terms(terms, device):
@@ -167,8 +200,7 @@ def schedule(cd: dict, window: int = 7) -> list:
 
 
 def prepare_schedule(paired, device, fdtype) -> list:
-    """``[(op, DiagTerms | None)]`` with every operand on ``device``.
-    Raises ``NotImplementedError`` on an op type without a kernel."""
+    """``[(op, DiagTerms | None)]`` with every operand on ``device``."""
     return [(_prepare(op, device, fdtype), _prepare_terms(dterms, device))
             for op, dterms in paired]
 
@@ -214,7 +246,6 @@ def build_window_circuit_fn(
     if cached is not None:
         return cached
 
-    # Raises before any pass runs on an op type without a kernel yet.
     prepared = prepare_schedule(schedule(cd, window), dev, fdtype)
 
     def body(re, im):

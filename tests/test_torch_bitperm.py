@@ -100,3 +100,47 @@ def test_bitperm_swap_checks_16_byte_alignment():
     bk.check_aligned("bitperm_swap", good, good)
     with pytest.raises(ValueError, match="16-byte boundary"):
         bk.check_aligned("bitperm_swap", good, odd)
+
+
+CROSSES = {
+    "identity14": (14, tuple(range(7, 14))),
+    "reversal14": (14, tuple(range(13, 6, -1))),
+    "identity16": (16, tuple(range(9, 16))),
+    "shuffle16": (16, (12, 15, 9, 14, 10, 13, 11)),
+}
+
+
+@pytest.mark.parametrize("case", list(CROSSES), ids=list(CROSSES))
+def test_bitperm_cross_matches_reference(case):
+    n, cross = CROSSES[case]
+    psi = _state(n, n + 1)
+    bk.reset_counts()
+    got = _port(bk.bitperm_cross, psi, cross)
+    assert bk.PLAIN_CALLS["bitperm_cross"] == 1
+    _exact(got, _ref(rk.bitperm_cross_planar, psi, cross))
+
+
+def test_cross_tables_are_the_references():
+    """f and g as bitperm_cross_planar builds them (its 0/1 matrices
+    PF[y, f(y)] = PG[x, g(x)] = 1)."""
+    cross = (12, 15, 9, 14, 10, 13, 11)
+    t = bk.CrossTables.of(cross)
+    f, g = t.words[:128], t.words[128:]
+    n = 16
+    pi = [c - (n - 7) for c in cross]
+    for v in range(128):
+        assert f[v] == sum(((v >> el) & 1) << pi[el] for el in range(7))
+        assert g[v] == sum(((v >> pi[el]) & 1) << el for el in range(7))
+    assert bk.CrossTables.of(t) is t and t.n == n
+
+
+@pytest.mark.parametrize("n,cross,match", [
+    (13, tuple(range(6, 13)), "n >= 14"),
+    (16, tuple(range(8, 15)), "top 7 bits of a 16-qubit"),
+    (16, (9, 10, 11, 12, 13, 14, 14), "bijection"),
+    (16, (9, 10, 11, 12, 13, 15), "bijection"),
+])
+def test_bitperm_cross_rejects_what_the_reference_rejects(n, cross, match):
+    x = torch.zeros(1 << n, dtype=torch.float64)
+    with pytest.raises(ValueError, match=match):
+        bk.bitperm_cross(x, x, cross)

@@ -16,6 +16,7 @@ import torch
 from quantum_simulations_tpu_torch.circuit import library
 from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
 from quantum_simulations_tpu_torch.ops import diag_kernels as dk
+from quantum_simulations_tpu_torch.ops import pair_kernels as pq
 from quantum_simulations_tpu_torch.ops import panel_kernels as pk
 
 pytestmark = pytest.mark.cuda
@@ -190,19 +191,72 @@ def test_bitperm_transpose_exact(dev, n):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("name", ["qft", "qaoa_maxcut"])
+@pytest.mark.parametrize("name", ["qft", "qaoa_maxcut", "qpe", "deutsch_jozsa"])
 def test_qft_qaoa_on_card_match_float64_twins(dev, name):
     from quantum_simulations_tpu_torch.runtime import simulator
 
     n = 20
-    cd = getattr(library, name)(n)
+    cd = library.qpe(n - 1) if name == "qpe" else getattr(library, name)(n)
     rng = np.random.default_rng(n)
     psi0 = rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)
     psi0 = torch.as_tensor(psi0 / np.linalg.norm(psi0), device=dev)
-    for reset in (pk.reset_counts, dk.reset_counts, bk.reset_counts):
-        reset()
+    for m in (pk, dk, bk, pq):
+        m.reset_counts()
     got = simulator.simulate(cd, mode="window", device=dev, initial_state=psi0)
-    assert not any({**pk.PLAIN_CALLS, **dk.PLAIN_CALLS, **bk.PLAIN_CALLS}.values())
+    assert not any({**pk.PLAIN_CALLS, **dk.PLAIN_CALLS, **bk.PLAIN_CALLS,
+                    **pq.PLAIN_CALLS}.values())
     want = simulator.simulate(cd, mode="window", dtype="complex128",
                               device=dev, plain=True, initial_state=psi0)
     assert float(torch.linalg.vector_norm(got.to(torch.complex128) - want)) < TOL_L2
+
+
+# (qa, qb) at n = 20 for lo in {0, 1, 2, 6, 7, 12, 13}, both orders, each
+# pair wrapper and body class; lo < 2 is the kernel's float4 edge.
+PAIR_CLASSES = [(0, 7), (9, 1), (2, 8), (6, 7), (7, 6), (0, 19), (12, 1),
+                (2, 10), (6, 15), (7, 11), (19, 7), (12, 16), (13, 14),
+                (17, 13)]
+
+
+@pytest.mark.parametrize("qa,qb", PAIR_CLASSES)
+def test_pair_gate_through_each_wrapper(dev, qa, qb):
+    x, U = _state(20, qa + 20 * qb, dev), _unitary(4, qa * 7 + qb)
+    if pq.pair_update_supported(qa, qb):
+        name = "pair_update"
+    elif pq.mixed_pair_supported(qa, qb):
+        name = "mixed_pair"
+    else:
+        name = "mixed_low_pair"
+    before = pq.LAUNCHES[name]
+    got = getattr(pq, name)(*x, qa, qb, U)
+    assert pq.LAUNCHES[name] == before + 1
+    assert _l2(got, pq.pair_gate_plain(*x, qa, qb, U)) < TOL_L2
+
+
+@pytest.mark.parametrize("qa,qb", [(0, 1), (1, 0), (1, 2), (0, 3), (2, 3)])
+def test_pair_gate_low_bits(dev, qa, qb):
+    """Bits the wrappers never pass (hi < 7): one float4 holds a whole
+    quad (0, 1), or half of two (lo < 2 <= hi)."""
+    x, U = _state(12, qa + qb, dev), _unitary(4, 5 + qa)
+    got = pq._pair_gate("mixed_low_pair", *x, qa, qb, U, False)
+    assert _l2(got, pq.pair_gate_plain(*x, qa, qb, U)) < TOL_L2
+
+
+def test_pair_gate_moves_a_permutation_exactly(dev):
+    from quantum_simulations_tpu_torch.ops import dense
+
+    x = _state(20, 3, dev)
+    for qa, qb in ((13, 19), (3, 15), (6, 8)):
+        got = pq._pair_gate("pair_update", *x, qa, qb, dense._SWAP4, False)
+        want = pq.pair_gate_plain(*x, qa, qb, dense._SWAP4)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,cross", [(14, tuple(range(13, 6, -1))),
+                                     (20, (19, 13, 17, 14, 18, 16, 15))])
+def test_bitperm_cross_exact(dev, n, cross):
+    x = _state(n, n, dev)
+    before = bk.LAUNCHES["bitperm_cross"]
+    got = bk.bitperm_cross(*x, cross)
+    assert bk.LAUNCHES["bitperm_cross"] == before + 1
+    want = bk.bitperm_cross_plain(*x, cross)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

@@ -19,6 +19,7 @@ MODULES = [
     "quantum_simulations_tpu_torch.ops.cuda_build",
     "quantum_simulations_tpu_torch.ops.dense",
     "quantum_simulations_tpu_torch.ops.diag_kernels",
+    "quantum_simulations_tpu_torch.ops.pair_kernels",
     "quantum_simulations_tpu_torch.ops.panel_kernels",
     "quantum_simulations_tpu_torch.runtime.simulator",
 ]

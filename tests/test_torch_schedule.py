@@ -41,6 +41,11 @@ CIRCUITS = [(f"nonstab{n}", rlib.non_stabilizer(n)) for n in (12, 16, 18, 20, 28
     ("w9", rlib.w_state(9)),
     ("qpe7", rlib.qpe(6)),
     ("qft18", rlib.qft(18)),
+    # PhysGateOps on every pair class, MultiSwapOps, at full width
+    ("qpe28", rlib.qpe(27)),
+    ("qft_adder28", rlib.qft_adder(28)),
+    ("deutsch_jozsa28", rlib.deutsch_jozsa(28)),
+    ("w_qft28", rlib.w_qft(28)),
 ]
 
 

@@ -13,7 +13,9 @@ from quantum_simulations_tpu.circuit.panelize import compile_window_schedule
 from quantum_simulations_tpu.runtime import simulator as RS
 from quantum_simulations_tpu_torch import SimulatorConfig, api, convert
 from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
+from quantum_simulations_tpu_torch.ops import dense
 from quantum_simulations_tpu_torch.ops import diag_kernels as dk
+from quantum_simulations_tpu_torch.ops import pair_kernels as pq
 from quantum_simulations_tpu_torch.ops import panel_kernels as pk
 from quantum_simulations_tpu_torch.runtime import simulator as PS
 
@@ -126,14 +128,13 @@ def test_auto_mode_resolves_to_window():
 
 
 def test_diag_op_raises_naming_the_op():
-    """DiagOps run now; the op types still without a kernel raise and
-    name the kernel they wait for: qft(16)'s terminal BitPermOp, and
-    non_stabilizer(12)'s PhysGateOp."""
+    """The schedules that raised before the pair kernels and the crossing
+    were ported now run and match the reference: qft(16)'s terminal
+    BitPermOp (bitperm_cross) and non_stabilizer(12)'s PhysGateOps."""
     cfg = SimulatorConfig(mode="window", dtype="complex128")
-    with pytest.raises(NotImplementedError, match="BitPermOp.*bitperm_cross_planar"):
-        api.simulate(rlib.qft(16), cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match="PhysGateOp"):
-        api.simulate(rlib.non_stabilizer(12), cfg, device=CPU)
+    for cd in (rlib.qft(16), rlib.non_stabilizer(12)):
+        np.testing.assert_allclose(api.simulate(cd, cfg, device=CPU), _ref(cd),
+                                   atol=1e-10)
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -149,37 +150,50 @@ def test_unported_tiers_raise(kw, match):
 
 
 def test_inplace_and_diag_epilogue_raise():
-    """inplace=True still raises.  The diag epilogue runs now; a schedule
-    with an op without a kernel (here a MultiSwapOp) raises when it is
-    prepared, before any pass runs, and names the kernel it waits for."""
+    """inplace=True still raises.  A MultiSwapOp, which raised before,
+    is prepared and runs as one bitperm_swap pass, like the reference's
+    multi-axis transpose."""
     from quantum_simulations_tpu_torch.circuit.panelize import MultiSwapOp
 
     cd = rlib.non_stabilizer(14)
     with pytest.raises(NotImplementedError, match="capacity"):
         PS.build_window_circuit_fn(cd, inplace=True, device=CPU)
-    with pytest.raises(NotImplementedError,
-                       match="MultiSwapOp.*apply_multiswap_planar"):
-        PS.prepare_schedule([(MultiSwapOp(((7, 9), (8, 12))), None)],
-                            torch.device(CPU), torch.float64)
+    pairs = ((7, 9), (8, 12))
+    (op, _), = PS.prepare_schedule([(MultiSwapOp(pairs), None)],
+                                   torch.device(CPU), torch.float64)
+    psi = _random_state(14, 9)
+    bk.reset_counts()
+    got = PS.apply_window_op(*convert.planes_from_numpy(psi, CPU), op)
+    assert bk.PLAIN_CALLS["bitperm_swap"] == 1
+    want = RS.apply_multiswap_planar(psi.real, psi.imag, pairs)
+    np.testing.assert_array_equal(convert.to_numpy(*got),
+                                  np.asarray(want[0]) + 1j * np.asarray(want[1]))
 
 
 def _reset_all():
-    for m in (pk, dk, bk):
+    for m in (pk, dk, bk, pq):
         m.reset_counts()
+    dense.GATE_CALLS = 0
 
 
 def test_cpu_run_uses_only_plain_twins():
-    for name, plain in (
-            ("non_stabilizer", {"positioned_panel": 3, "dual_panel": 2}),
-            ("qft", {"positioned_panel+diag": 2, "dual_panel": 1,
-                     "bitperm_swap": 1, "bitperm_transpose": 1})):
+    for cd, plain in (
+            (rlib.non_stabilizer(18), {"positioned_panel": 3, "dual_panel": 2}),
+            (rlib.qft(18), {"positioned_panel+diag": 2, "dual_panel": 1,
+                            "bitperm_swap": 1, "bitperm_transpose": 1}),
+            (rlib.qpe(17), {"dual_panel": 1, "positioned_panel": 4,
+                            "lane_panel+diag": 1, "fused_diag": 3,
+                            "mixed_pair": 7}),
+            (rlib.deutsch_jozsa(18), {"dual_panel": 2, "positioned_panel": 2,
+                                      "mixed_pair": 7, "pair_update": 4})):
         _reset_all()
-        api.simulate(getattr(rlib, name)(18), SimulatorConfig(mode="window"),
-                     device=CPU)
-        launches = {**pk.LAUNCHES, **dk.LAUNCHES, **bk.LAUNCHES}
-        calls = {**pk.PLAIN_CALLS, **dk.PLAIN_CALLS, **bk.PLAIN_CALLS}
-        assert not any(launches.values()), name
-        assert {k: v for k, v in calls.items() if v} == plain, name
+        api.simulate(cd, SimulatorConfig(mode="window"), device=CPU)
+        launches = {**pk.LAUNCHES, **dk.LAUNCHES, **bk.LAUNCHES, **pq.LAUNCHES}
+        calls = {**pk.PLAIN_CALLS, **dk.PLAIN_CALLS, **bk.PLAIN_CALLS,
+                 **pq.PLAIN_CALLS}
+        assert not any(launches.values()), cd["number_of_qubits"]
+        assert {k: v for k, v in calls.items() if v} == plain
+        assert dense.GATE_CALLS == 0
 
 
 @pytest.mark.parametrize("name", ["qft", "qaoa_maxcut", "sycamore_like",
@@ -211,6 +225,61 @@ def test_reference_diag_bitperm_schedule_on_port_executor(name):
     cd = getattr(rlib, name)(n)
     psi0 = _random_state(n, 5)
     ref_ops = RS.pair_panel_diag(compile_window_schedule(cd, diag_terms_only=True))
+    re, im = convert.planes_from_numpy(psi0, CPU, torch.float64)
+    for op, terms in convert.ops_from_reference(ref_ops):
+        re, im = PS.apply_window_op(re, im, op, terms)
+    np.testing.assert_allclose(convert.to_numpy(re, im),
+                               _ref(cd, initial_state=psi0), atol=1e-10)
+
+
+PAIR_CIRCUITS = [("qpe", 17), ("qft_adder", 18), ("deutsch_jozsa", 18),
+                 ("w_qft", 18), ("ghz_qft", 18), ("qft", 14), ("qft", 16),
+                 ("non_stabilizer", 12), ("qnn", 18), ("ripple_adder", 18)]
+
+
+@pytest.mark.parametrize("name,arg", PAIR_CIRCUITS,
+                         ids=[f"{c}{a}" for c, a in PAIR_CIRCUITS])
+def test_pair_and_swap_circuits_match_reference(name, arg):
+    """Circuits with PhysGateOps, MultiSwapOps or a BitPermOp: qpe,
+    qft_adder and deutsch_jozsa reach pair_update / mixed_pair and the
+    multiswap, w_qft and ghz_qft mixed_low_pair, qft(14) and qft(16)
+    bitperm_cross, qnn and ripple_adder the plain torch gate paths.
+    From |0> and from a random state."""
+    cd = getattr(rlib, name)(arg)
+    n = cd["number_of_qubits"]
+    cfg = SimulatorConfig(mode="window", dtype="complex128")
+    np.testing.assert_allclose(api.simulate(cd, cfg, device=CPU), _ref(cd),
+                               atol=1e-10)
+    psi0 = _random_state(n, 7)
+    got = PS.simulate(cd, dtype="complex128", mode="window", device=CPU,
+                      initial_state=psi0)
+    np.testing.assert_allclose(got.numpy(), _ref(cd, initial_state=psi0),
+                               atol=1e-10)
+
+
+def test_qft_without_bitperm_decomposition(monkeypatch):
+    """QST_BITPERM_DECOMP=0 keeps qft(18)'s SWAP network one BitPermOp:
+    its middle pairs through bitperm_swap, then bitperm_cross."""
+    monkeypatch.setenv("QST_BITPERM_DECOMP", "0")
+    cd = rlib.qft(18)
+    psi0 = _random_state(18, 11)
+    _reset_all()
+    got = PS.simulate(cd, dtype="complex128", mode="window", device=CPU,
+                      initial_state=psi0)
+    assert bk.PLAIN_CALLS["bitperm_cross"] == 1
+    np.testing.assert_allclose(got.numpy(), _ref(cd, initial_state=psi0),
+                               atol=1e-10)
+
+
+def test_reference_pair_schedule_on_port_executor():
+    """qpe(17)'s op list from the reference's scheduler, carried across
+    by ``convert``, on the port's executor."""
+    cd = rlib.qpe(17)
+    n = cd["number_of_qubits"]
+    psi0 = _random_state(n, 13)
+    ref_ops = RS.pair_panel_diag(compile_window_schedule(cd, diag_terms_only=True))
+    assert any(type(op).__name__ == "MultiSwapOp" or
+               type(op).__name__ == "PhysGateOp" for op, _ in ref_ops)
     re, im = convert.planes_from_numpy(psi0, CPU, torch.float64)
     for op, terms in convert.ops_from_reference(ref_ops):
         re, im = PS.apply_window_op(re, im, op, terms)

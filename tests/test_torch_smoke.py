@@ -93,3 +93,23 @@ def test_fused_diag_library_matches_twin():
     x, xc, terms = _inputs(11)
     ph = cs.phase_table(xc.numel(), terms, CPU, torch.float64)
     _close(xc * ph, dk.fused_diag_plain(*x, terms))
+
+
+@pytest.mark.parametrize("qs", [(0, 14), (9, 2), (6, 7), (7, 6), (7, 11),
+                                (14, 13)])
+def test_pair_library_matches_twin(qs):
+    from quantum_simulations_tpu_torch.ops import pair_kernels as pq
+
+    x, xc, _ = _inputs(sum(qs))
+    U = _unitary(4, qs[0])
+    _close(cs.pair_library(xc, *qs, U)(), pq.pair_gate_plain(*x, *qs, U))
+
+
+def test_cross_library_matches_twin():
+    from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
+
+    x, xc, _ = _inputs(13)
+    cross = (10, 14, 8, 12, 13, 9, 11)
+    got = cs.cross_library(xc, cross)().reshape(-1)
+    want = pk.from_planar(*bk.bitperm_cross_plain(*x, cross))
+    assert torch.equal(got, want)
