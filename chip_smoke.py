@@ -25,8 +25,15 @@ Phases (any failure exits non-zero):
    the lane / positioned / dual diag epilogues (order <= 3 terms, sum
    |coeff| > 100 rad), the three bit permutations, and the three pair
    wrappers with random 4x4 unitaries for lo in {0, 1, 2, 6, 7, 12, 13}
-   in both qubit orders.  Fails on ||diff||_2 > 1e-5, or on any
-   difference for a bit permutation.
+   in both qubit orders.  Then, at n = 20, every in-place instance (the
+   capacity tier's): lane / positioned / dual panels with straddlers and
+   diag epilogues, ``fused_diag``, the three pair wrappers, ``midpair``
+   for lo 7, 8, 9 in both orders, the in-place transpose and crossing,
+   ``bitperm_involution`` on random involutions and ``bitperm_swap`` in
+   place on random bit permutations, each on a copy of one state: the
+   result must be the given planes, equal bit for bit to the
+   out-of-place run, and within 1e-5 of the plain twin.  Fails on
+   ||diff||_2 > 1e-5, or on any difference for a bit permutation.
 3. The main path, five requests through the entry points, the counters
    set to 0 just before each request and read just after it, no plain
    twin called: ``api.simulate(non_stabilizer(28, depth=4, seed=7),
@@ -48,6 +55,11 @@ Phases (any failure exits non-zero):
    calls the plain torch gate paths (``dense.GATE_CALLS == 0``).  Each
    but the wall: |norm2 - 1| <= 1e-5 and ||psi - psi_f64||_2 <= 1e-5
    against the plain twins in float64 on the card, from the same state.
+   Each request runs once more through ``SimulatorConfig(mode=
+   "capacity")`` (the random-state ones through
+   ``runtime.capacity.simulate_capacity`` from copies of that state):
+   only in-place launches (the ``" inplace"`` keys, ``midpair``,
+   ``bitperm_involution``), and a state within 1e-6 of the window run's.
 4. Times at n = 28: per kernel the median CUDA-event ms, the plain
    twin's ms, one torch library call computing the same function
    (timed here, never used by the port; for a diag run, with or without
@@ -65,6 +77,23 @@ Phases (any failure exits non-zero):
    qaoa28 and qpe28, and the end-to-end time of nonstab28, qft28,
    qaoa28, qpe28 and qft_adder28 by the two-point estimator
    (t(2R) - t(R)) / R with amplitude-updates/s = gates * 2^28 / t.
+   Each kernel row also times the in-place instance on the same
+   operands (``inplace_ms``); ``midpair`` on qpe28's (9, 17) SWAP and a
+   random (8, 27) gate, ``bitperm_involution`` on qft28's grid
+   permutation (its bound counts only the rows it moves).
+5. The capacity tier at n = 33, the largest state an 80 GB card holds
+   (two 32 GiB planes; an out-of-place pass would need 128 GiB).  With
+   under 1 GiB allocated before it, ghz(33), non_stabilizer(33, depth=4,
+   seed=7), qft(33) and qpe(32) run through ``api.simulate(cd,
+   SimulatorConfig(mode="capacity"))``, each with its launch counts, no
+   plain call, ``dense.GATE_CALLS == 0`` and a peak
+   ``max_memory_allocated`` <= 65 GiB.  No float64 twin fits at this
+   size, so each state is held to what is known of it: ghz33's two end
+   amplitudes 2^-1/2 within 1e-6 and its top two indices; qft33 uniform
+   (chunked ||psi - 2^-16.5||_2 <= 1e-5); nonstab33 followed by its
+   inverse back at |0> within 1e-5; qpe33 at index 2^32 + 2^29 with
+   probability >= 1 - 1e-5; every |norm2 - 1| <= 1e-5.  Times:
+   nonstab33 and qft33 by (t(2) - t(1)) / 1, ghz33 and qpe33 one run.
 
 The last lines: the card line as nvidia-smi prints it, one JSON object
 ``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.  The
@@ -84,8 +113,11 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # float32 outside the tensor cores
+GIB = 1 << 30
 SEED = 7
 NQ = 28                        # the requests' width: full size, not cut
+NBIG = 33                      # the capacity tier's: the largest state one
+#                                80 GB card holds (two 32 GiB planes)
 CSRC = "quantum_simulations_tpu_torch/csrc"
 SRC = {"lane_panel": f"{CSRC}/panels.cu",
        "positioned_panel": f"{CSRC}/panels.cu",
@@ -96,7 +128,9 @@ SRC = {"lane_panel": f"{CSRC}/panels.cu",
        "bitperm_cross": f"{CSRC}/bitperm.cu",
        "pair_update": f"{CSRC}/pair.cu",
        "mixed_pair": f"{CSRC}/pair.cu",
-       "mixed_low_pair": f"{CSRC}/pair.cu"}
+       "mixed_low_pair": f"{CSRC}/pair.cu",
+       "midpair": f"{CSRC}/pair.cu",
+       "bitperm_involution": f"{CSRC}/bitperm.cu"}
 KERNELS = list(SRC)
 PALLAS = "quantum_simulations_tpu/ops/pallas_kernels.py"
 REPLACES = {"lane_panel": f"{PALLAS}:93",
@@ -108,7 +142,9 @@ REPLACES = {"lane_panel": f"{PALLAS}:93",
             "bitperm_cross": f"{PALLAS}:1890",
             "pair_update": f"{PALLAS}:898",
             "mixed_pair": f"{PALLAS}:1107",
-            "mixed_low_pair": f"{PALLAS}:1692"}
+            "mixed_low_pair": f"{PALLAS}:1692",
+            "midpair": f"{PALLAS}:1187",
+            "bitperm_involution": f"{PALLAS}:2147"}
 # The request whose launches each kernel reports; each request has
 # counts of its own.  A panel's launches count its "+diag" key too.
 PATH = {"lane_panel": "qft28",
@@ -120,7 +156,9 @@ PATH = {"lane_panel": "qft28",
         "bitperm_cross": "qft28 nodecomp",
         "pair_update": "deutsch_jozsa28",
         "mixed_pair": "qpe28",
-        "mixed_low_pair": "w_qft28"}
+        "mixed_low_pair": "w_qft28",
+        "midpair": "qpe33",
+        "bitperm_involution": "qft33"}
 # Launches of each request, by counter key (keys not listed: 0).
 WANT = {"nonstab28": {"dual_panel": 2, "positioned_panel": 3},
         "hadamard_wall28": {"lane_panel": 1, "positioned_panel": 3},
@@ -145,9 +183,72 @@ WANT.update({
                        "bitperm_cross": 1}})
 WANT["qft28 random state"] = WANT["qft28"]
 WANT["qpe28 random state"] = WANT["qpe28"]
+# The same requests in place (SimulatorConfig(mode="capacity")): every
+# kernel's aliasing instance (" inplace" keys; midpair and
+# bitperm_involution run in place only), routed as the reference's
+# capacity tier routes them.
+WANT.update({
+    "nonstab28 capacity": {"positioned_panel inplace": 3,
+                           "dual_panel inplace": 2},
+    "hadamard_wall28 capacity": {"lane_panel inplace": 1,
+                                 "positioned_panel inplace": 3},
+    "qft28 capacity": {"lane_panel inplace": 1, "positioned_panel inplace": 1,
+                       "positioned_panel+diag inplace": 3,
+                       "bitperm_involution": 1,
+                       "bitperm_transpose inplace": 1},
+    "qaoa28 capacity": {"positioned_panel inplace": 8,
+                        "positioned_panel+diag inplace": 2,
+                        "dual_panel inplace": 3, "fused_diag inplace": 2},
+    "qpe28 capacity": {"lane_panel+diag inplace": 1,
+                       "positioned_panel inplace": 5,
+                       "positioned_panel+diag inplace": 1,
+                       "dual_panel inplace": 1, "fused_diag inplace": 3,
+                       "mixed_pair inplace": 7, "midpair": 3},
+    "qft_adder28 capacity": {"lane_panel inplace": 1,
+                             "lane_panel+diag inplace": 1,
+                             "positioned_panel inplace": 3,
+                             "positioned_panel+diag inplace": 5,
+                             "fused_diag inplace": 3, "pair_update inplace": 2,
+                             "mixed_pair inplace": 14, "midpair": 6},
+    "deutsch_jozsa28 capacity": {"positioned_panel inplace": 4,
+                                 "dual_panel inplace": 2,
+                                 "pair_update inplace": 11,
+                                 "mixed_pair inplace": 7, "midpair": 3},
+    "w_qft28 capacity": {"lane_panel inplace": 2, "positioned_panel inplace": 5,
+                         "positioned_panel+diag inplace": 3,
+                         "bitperm_involution": 1,
+                         "bitperm_transpose inplace": 1,
+                         "mixed_low_pair inplace": 2},
+    "qft28 nodecomp capacity": {"lane_panel inplace": 1,
+                                "positioned_panel inplace": 1,
+                                "positioned_panel+diag inplace": 3,
+                                "bitperm_cross inplace": 1,
+                                "pair_update inplace": 1, "midpair": 3}})
+WANT["qft28 random state capacity"] = WANT["qft28 capacity"]
+WANT["qpe28 random state capacity"] = WANT["qpe28 capacity"]
+# Phase 5, n = 33 in place: every op of the four requests on a kernel.
+CAPACITY33 = ("ghz33", "nonstab33", "qft33", "qpe33")
+WANT.update({
+    "ghz33": {"lane_panel inplace": 1, "positioned_panel inplace": 6,
+              "mixed_low_pair inplace": 1},
+    "nonstab33": {"positioned_panel inplace": 12, "dual_panel inplace": 3},
+    "nonstab33 inverse": {"positioned_panel inplace": 12,
+                          "dual_panel inplace": 3, "fused_diag inplace": 2},
+    "qft33": {"lane_panel inplace": 1, "positioned_panel inplace": 2,
+              "positioned_panel+diag inplace": 4, "bitperm_involution": 1,
+              "bitperm_transpose inplace": 1},
+    "qpe33": {"lane_panel+diag inplace": 1, "positioned_panel inplace": 6,
+              "positioned_panel+diag inplace": 2, "dual_panel inplace": 1,
+              "fused_diag inplace": 3, "pair_update inplace": 3,
+              "mixed_pair inplace": 7, "midpair": 3}})
+WANT_CAPACITY33 = CAPACITY33 + ("nonstab33 inverse",)
+# qpe(32) with theta = 1/8: eigenstate bit 32 and counting bit 29 set.
+QPE33_ANSWER = (1 << 32) | (1 << 29)
+PEAK_LIMIT = 65 * GIB          # the two planes (64 GiB) + 1 GiB
 # The requests timed end to end.
 E2E = ("nonstab28", "qft28", "qaoa28", "qpe28", "qft_adder28")
 TOL_L2 = 1e-5
+TOL_CAPACITY = 1e-6            # capacity-tier state against the window run's
 
 RECORD: dict = {"cases": [], "times": []}
 
@@ -168,6 +269,59 @@ def circuits() -> dict:
             "qft_adder28": library.qft_adder(NQ),
             "deutsch_jozsa28": library.deutsch_jozsa(NQ),
             "w_qft28": library.w_qft(NQ)}
+
+
+def circuits33() -> dict:
+    """The capacity requests at width NBIG."""
+    from quantum_simulations_tpu_torch.circuit import library
+
+    return {"ghz33": library.ghz(NBIG),
+            "nonstab33": library.non_stabilizer(NBIG, depth=4, seed=7),
+            "qft33": library.qft(NBIG),
+            "qpe33": library.qpe(NBIG - 1)}
+
+
+def inverse(cd: dict) -> dict:
+    """The circuit's inverse: its gates reversed, T <-> TDG (H and CNOT
+    are their own inverses)."""
+    swap = {"T": "TDG", "TDG": "T"}
+    gates = [dict(g, gate=swap.get(g["gate"], g["gate"]))
+             for g in reversed(cd["gates"])]
+    if not {g["gate"] for g in gates} <= {"H", "CNOT", "T", "TDG"}:
+        raise ValueError("inverse: H / CNOT / T / TDG circuits only")
+    return {"number_of_qubits": cd["number_of_qubits"], "gates": gates}
+
+
+def chunks(re, im):
+    """(start, re chunk, im chunk) views of at most 2^28 amplitudes (the
+    capacity readout's chunk): no temporary of a whole plane."""
+    from quantum_simulations_tpu_torch.ops import sampling
+
+    step = sampling._chunk(re)
+    for s in range(0, re.numel(), step):
+        yield s, re[s:s + step], im[s:s + step]
+
+
+def uniform_distance(re, im) -> float:
+    """||psi - 2^(-n/2) (1, ..., 1)||_2 in float64, chunk by chunk."""
+    import torch
+
+    a = 2.0 ** (-(re.numel().bit_length() - 1) / 2)
+    acc = torch.zeros((), dtype=torch.float64, device=re.device)
+    for _, r, i in chunks(re, im):
+        acc += ((r.double() - a) ** 2).sum() + (i.double() ** 2).sum()
+    return math.sqrt(float(acc))
+
+
+def plane_distance(a, b) -> float:
+    """||a - b||_2 of two plane pairs in float64, chunk by chunk."""
+    import torch
+
+    acc = torch.zeros((), dtype=torch.float64, device=a[0].device)
+    for (s, r, i), (_, r2, i2) in zip(chunks(*a), chunks(*b)):
+        acc += ((r.double() - r2.double()) ** 2).sum()
+        acc += ((i.double() - i2.double()) ** 2).sum()
+    return math.sqrt(float(acc))
 
 
 class env_switch:
@@ -220,7 +374,11 @@ def plain_calls() -> dict:
 
 
 def kernel_of(key: str) -> str:
-    return key.removesuffix("+diag")
+    return key.split(" ")[0].removesuffix("+diag")
+
+
+def is_inplace(key: str) -> bool:
+    return key.endswith(" inplace") or key in ("midpair", "bitperm_involution")
 
 
 def card_line() -> str:
@@ -318,6 +476,13 @@ def bound(N: int, dims: list[int], straddles=(), diag=None):
                 + (0 if diag is None else 6))
     t_b, t_f = nbytes / HBM_BYTES_PER_S, flop / FP32_FLOP_PER_S
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def moved_rows(n: int, src) -> int:
+    """Rows (of 128 amplitudes) that an involution ``src`` of the bits
+    >= 7 moves: all but those equal in both bits of each 2-cycle."""
+    pairs = sum(1 for b in range(7, n) if src[b] > b)
+    return (1 << (n - 7)) - (1 << (n - 7 - pairs))
 
 
 def phase_table(N: int, dterms, dev, fdtype=None):
@@ -609,11 +774,145 @@ def pair_case(label: str, gate):
                 lambda x: pq.pair_gate_plain(*x, qa, qb, U))
 
 
+def inplace_cases(n: int, rng) -> list:
+    """The phase-2 in-place cases at size n (random operands): each
+    ``fn(re, im, inplace)`` runs a kernel's aliasing instance or its
+    out-of-place one; ``twin(x)`` is the plain twin."""
+    import numpy as np
+
+    from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
+    from quantum_simulations_tpu_torch.ops import dense
+    from quantum_simulations_tpu_torch.ops import diag_kernels as dk
+    from quantum_simulations_tpu_torch.ops import pair_kernels as pq
+    from quantum_simulations_tpu_torch.ops import panel_kernels as pk
+
+    Wa, Wb, W64 = rand_unitary(128, rng), rand_unitary(128, rng), rand_unitary(64, rng)
+    terms = rand_terms(n, 60, rng)
+    strad = dict(straddle=(6, 10, rand_unitary(4, rng)),
+                 post_straddle=(6, 13, rand_unitary(4, rng)))
+    cases = [
+        case("lane", "lane_panel",
+             lambda re, im, ip: pk.lane_panel(re, im, Wb, inplace=ip),
+             lambda x: pk.lane_panel_plain(*x, Wb)),
+        case("lane +diag", "lane_panel",
+             lambda re, im, ip: pk.lane_panel(re, im, Wb, diag_terms=terms,
+                                              inplace=ip),
+             lambda x: pk.lane_panel_plain(*x, Wb, diag_terms=terms)),
+        case("positioned ragged dim64 pos14", "positioned_panel",
+             lambda re, im, ip: pk.positioned_panel(re, im, W64, n - 6, inplace=ip),
+             lambda x: pk.positioned_panel_plain(*x, W64, n - 6)),
+        case("dual (7,0)", "dual_panel",
+             lambda re, im, ip: pk.dual_panel(re, im, Wa, 7, Wb, 0, inplace=ip),
+             lambda x: pk.dual_panel_plain(*x, Wa, 7, Wb, 0)),
+        case("dual (0,7) pre + post +diag", "dual_panel",
+             lambda re, im, ip: pk.dual_panel(re, im, Wb, 0, Wa, 7, diag_terms=terms,
+                                              inplace=ip, **strad),
+             lambda x: pk.dual_panel_plain(*x, Wb, 0, Wa, 7, diag_terms=terms,
+                                           **strad)),
+        case(f"fused_diag ({len(terms)} terms)", "fused_diag",
+             lambda re, im, ip: dk.fused_diag(re, im, terms, inplace=ip),
+             lambda x: dk.fused_diag_plain(*x, terms)),
+        case("bitperm_transpose", "bitperm_transpose",
+             lambda re, im, ip: bk.bitperm_transpose(re, im, inplace=ip),
+             lambda x: bk.bitperm_transpose_plain(*x), exact=True),
+    ]
+    for pos, dt in ((7, None), (9, None), (13, terms)):
+        cases.append(case(
+            f"positioned pos{pos}" + (" +diag" if dt else ""), "positioned_panel",
+            lambda re, im, ip, p=pos, dt=dt: pk.positioned_panel(
+                re, im, Wa, p, diag_terms=dt, inplace=ip),
+            lambda x, p=pos, dt=dt: pk.positioned_panel_plain(*x, Wa, p, diag_terms=dt)))
+    cross = (19, 13, 17, 14, 18, 16, 15)
+    cases.append(case(f"bitperm_cross {cross}", "bitperm_cross",
+                      lambda re, im, ip: bk.bitperm_cross(re, im, cross, inplace=ip),
+                      lambda x: bk.bitperm_cross_plain(*x, cross), exact=True))
+    for name, qa, qb in (("pair_update", 12, 16), ("pair_update", 17, 13),
+                         ("mixed_pair", 0, 19), ("mixed_pair", 15, 1),
+                         ("mixed_low_pair", 6, 7), ("mixed_low_pair", 9, 2)):
+        U = rand_unitary(4, rng)
+        cases.append(case(
+            f"{name} ({qa}, {qb})", name,
+            lambda re, im, ip, f=getattr(pq, name), qa=qa, qb=qb, U=U: f(
+                re, im, qa, qb, U, inplace=ip),
+            lambda x, qa=qa, qb=qb, U=U: pq.pair_gate_plain(*x, qa, qb, U)))
+    # midpair for lo 7, 8, 9 in both orders; out of place the same kernel.
+    for (qa, qb), U in zip(((7, 11), (11, 7), (8, 14), (14, 8), (9, 19), (19, 9),
+                            (9, 16)), [rand_unitary(4, rng) for _ in range(6)]
+                           + [dense._SWAP4]):
+        cases.append(case(
+            f"midpair ({qa}, {qb})", "midpair",
+            lambda re, im, ip, qa=qa, qb=qb, U=U: (
+                pq.midpair(re, im, qa, qb, U) if ip
+                else pq._pair_gate("midpair", re, im, qa, qb, U, False)),
+            lambda x, qa=qa, qb=qb, U=U: pq.pair_gate_plain(*x, qa, qb, U)))
+    # bitperm_involution on random involutions of the bits 7..n-1 (out of
+    # place: the same transpositions as one bitperm_swap gather), then
+    # bitperm_swap in place on random permutations (at most two passes).
+    for _ in range(3):
+        bits = [int(b) for b in rng.permutation(np.arange(7, n))]
+        k = int(rng.integers(1, (n - 7) // 2 + 1))
+        pairs = tuple((bits[2 * i], bits[2 * i + 1]) for i in range(k))
+        src = bk.bit_sources(n, pairs, {})
+        cases.append(case(
+            f"bitperm_involution {k} random pairs", "bitperm_involution",
+            lambda re, im, ip, p=pairs, s=src: (
+                bk.bitperm_involution(re, im, s) if ip
+                else bk.bitperm_swap(re, im, p, {})),
+            lambda x, p=pairs: bk.bitperm_swap_plain(*x, p, {}), exact=True))
+    for _ in range(3):
+        top = [int(b) for b in rng.permutation(np.arange(10, n))]
+        gm = {10 + i: b for i, b in enumerate(top)}
+        pairs = (tuple(int(b) for b in rng.choice([7, 8, 9], 2, replace=False)),)
+        cases.append(case(
+            "bitperm_swap in place, random permutation", "bitperm_involution",
+            lambda re, im, ip, p=pairs, g=gm: bk.bitperm_swap(re, im, p, g,
+                                                               inplace=ip),
+            lambda x, p=pairs, g=gm: bk.bitperm_swap_plain(*x, p, g), exact=True))
+    return cases
+
+
+def check_inplace(dev, n: int, rng, worst: dict) -> None:
+    """Each in-place case on a copy of one state: the result is the given
+    planes, equal bit for bit to the out-of-place run and within TOL_L2
+    of the plain twin (equal for a bit permutation)."""
+    import torch
+
+    x = unit_state(n, SEED + 100 + n, dev)
+    for c in inplace_cases(n, rng):
+        out = c["kern"](x[0], x[1], False)
+        re, im = x[0].clone(), x[1].clone()
+        got = c["kern"](re, im, True)
+        torch.cuda.synchronize()
+        want = c["twin"](x)
+        mx, l2 = diff((re, im), want)
+        aliased = got[0] is re and got[1] is im
+        same = torch.equal(re, out[0]) and torch.equal(im, out[1])
+        ok = (aliased and same and l2 <= TOL_L2
+              and bool(torch.isfinite(re).all() and torch.isfinite(im).all()))
+        if c["exact"]:
+            ok = ok and torch.equal(re, want[0]) and torch.equal(im, want[1])
+        log(f"check n={n} inplace {c['label']:<34} max_abs_err={mx:.3e} "
+            f"l2_diff={l2:.3e} aliased={aliased} =out_of_place={same}"
+            f"{' exact' if c['exact'] else ''} {'ok' if ok else 'FAIL'}")
+        RECORD["cases"].append(dict(n=n, case="inplace " + c["label"],
+                                    kernel=c["kernel"], max_abs_err=mx,
+                                    l2_diff=l2, equals_out_of_place=same))
+        if not ok:
+            raise AssertionError(f"{c['kernel']} in place ({c['label']}, n={n}) "
+                                 f"disagrees: aliased={aliased}, equal to out of "
+                                 f"place={same}, ||diff||_2 = {l2:.3e}")
+        worst[c["kernel"]] = max(worst.get(c["kernel"], 0.0), mx)
+        del out, got, want, re, im
+    del x
+    torch.cuda.empty_cache()
+
+
 def check_kernels(dev, scheds) -> dict:
     import numpy as np
     import torch
 
     worst: dict = {}
+    check_inplace(dev, 20, np.random.default_rng(SEED + 1), worst)
     rng = np.random.default_rng(SEED)
     for n in (20, NQ):
         x = unit_state(n, SEED + n, dev)
@@ -697,29 +996,50 @@ def main_path(dev) -> dict:
     import torch
 
     from quantum_simulations_tpu_torch import SimulatorConfig, api
-    from quantum_simulations_tpu_torch.runtime import simulator
+    from quantum_simulations_tpu_torch.runtime import capacity, simulator
 
     cfg = SimulatorConfig(mode="window")
+    cap = SimulatorConfig(mode="capacity")
     counts: dict = {}
     main: dict = {}
     cds = circuits()
+
+    def in_place(label, cd, psi, psi0=None):
+        """The request once more through the capacity tier (every pass in
+        place): its state equals the window run's ``psi`` within
+        TOL_CAPACITY.  From ``psi0``: copies of its planes, updated in
+        place."""
+        if psi0 is None:
+            run = lambda: api.simulate(cd, cap, device=dev)  # noqa: E731
+        else:
+            run = lambda: capacity.simulate_capacity(  # noqa: E731
+                cd, device=dev, initial_planes=(psi0.real.contiguous(),
+                                                psi0.imag.contiguous()))
+        key = label + " capacity"
+        res, counts[key], wall = request(key, run)
+        ref = torch.as_tensor(psi, device=dev)
+        l2 = plane_distance((res.re, res.im), (ref.real, ref.imag))
+        del res, ref
+        log(f"main {key}: ||psi_capacity - psi_window||_2 = {l2:.3e}")
+        if not l2 <= TOL_CAPACITY:
+            raise AssertionError(f"{key} is off the window-mode state")
+        main[key] = dict(first_call_s=wall, l2_vs_window=l2)
 
     cd = cds["nonstab28"]
     psi, counts["nonstab28"], wall = request(
         "nonstab28", lambda: api.simulate(cd, cfg, device=dev))
     main["nonstab28"] = dict(first_call_s=wall, **against_f64(
         "nonstab28", psi, cd, dev))
+    in_place("nonstab28", cd, psi)
     del psi
 
     # The unpaired-panel schedule, whose pos-0 panel runs lane_panel.
     # H on every qubit: every amplitude is 2^-14.
-    os.environ["QST_PANEL_PAIR_FUSE"] = "0"
-    try:
+    with env_switch("QST_PANEL_PAIR_FUSE", "0"):
         wall_psi, counts["hadamard_wall28"], wall = request(
             "hadamard_wall28",
             lambda: api.simulate(cds["hadamard_wall28"], cfg, device=dev))
-    finally:
-        del os.environ["QST_PANEL_PAIR_FUSE"]
+        in_place("hadamard_wall28", cds["hadamard_wall28"], wall_psi)
     exact = 2.0 ** (-NQ / 2)
     hw_err = float(np.max(np.abs(wall_psi - exact)))
     del wall_psi
@@ -739,6 +1059,7 @@ def main_path(dev) -> dict:
         raise AssertionError("qft28 of |0> is off the uniform state")
     main["qft28"] = dict(first_call_s=wall, max_err_vs_exact=qft_err,
                          **against_f64("qft28", psi, qft, dev))
+    in_place("qft28", qft, psi)
     del psi
 
     qaoa = cds["qaoa28"]
@@ -746,6 +1067,7 @@ def main_path(dev) -> dict:
         "qaoa28", lambda: api.simulate(qaoa, cfg, device=dev))
     main["qaoa28"] = dict(first_call_s=wall, **against_f64(
         "qaoa28", psi, qaoa, dev))
+    in_place("qaoa28", qaoa, psi)
     del psi
 
     re0, im0 = unit_state(NQ, SEED + 1, dev)
@@ -757,6 +1079,7 @@ def main_path(dev) -> dict:
                                    initial_state=psi0))
     main["qft28 random state"] = dict(first_call_s=wall, **against_f64(
         "qft28 random state", psi, qft, dev, initial_state=psi0))
+    in_place("qft28 random state", qft, psi, psi0)
     del psi
 
     # The two-qubit gate requests.
@@ -765,6 +1088,7 @@ def main_path(dev) -> dict:
         psi, counts[label], wall = request(
             label, lambda cd=cd: api.simulate(cd, cfg, device=dev))
         main[label] = dict(first_call_s=wall, **against_f64(label, psi, cd, dev))
+        in_place(label, cd, psi)
         del psi
 
     # qft28 with its SWAP network as one BitPermOp: still uniform.
@@ -779,6 +1103,7 @@ def main_path(dev) -> dict:
         main["qft28 nodecomp"] = dict(
             first_call_s=wall, max_err_vs_exact=nd_err,
             **against_f64("qft28 nodecomp", psi, qft, dev))
+        in_place("qft28 nodecomp", qft, psi)
         del psi
 
     qpe = cds["qpe28"]
@@ -788,6 +1113,7 @@ def main_path(dev) -> dict:
                                    initial_state=psi0))
     main["qpe28 random state"] = dict(first_call_s=wall, **against_f64(
         "qpe28 random state", psi, qpe, dev, initial_state=psi0))
+    in_place("qpe28 random state", qpe, psi, psi0)
     del psi, psi0
     torch.cuda.empty_cache()
     RECORD["main"] = dict(launches=counts, **main)
@@ -799,12 +1125,14 @@ def main_path(dev) -> dict:
 # ---------------------------------------------------------------------------
 
 def times(dev, scheds) -> dict:
+    import numpy as np
     import torch
 
     from quantum_simulations_tpu_torch.circuit.panelize import (
         DualPanelOp, WindowPanelOp,
     )
     from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
+    from quantum_simulations_tpu_torch.ops import dense
     from quantum_simulations_tpu_torch.ops import diag_kernels as dk
     from quantum_simulations_tpu_torch.ops import pair_kernels as pq
     from quantum_simulations_tpu_torch.ops import panel_kernels as pk
@@ -820,22 +1148,30 @@ def times(dev, scheds) -> dict:
     rows: dict = {}
 
     def row(name, label, kern, twin, lib, dims, straddles=(), diag=None,
-            panel=None):
+            panel=None, inplace=None, bnd=None):
         """One timed row; ``panel``: the same panel without its diag
-        epilogue, timed beside it."""
+        epilogue, ``inplace``: the kernel's in-place instance on the same
+        operands, each timed beside it; ``bnd``: a (bound_ms, bound_by)
+        that :func:`bound` does not cover.  An in-place call updates
+        ``x``: every one is unitary or a permutation, so ``x`` stays a
+        unit-norm state."""
         ms = cuda_ms(kern, reps=10)
         plain_ms = cuda_ms(twin, reps=3)
         lib_ms = None if lib is None else cuda_ms(lib, reps=5)
         panel_ms = None if panel is None else cuda_ms(panel, reps=10)
-        b_ms, b_by = bound(N, dims, straddles, diag)
+        ip_ms = None if inplace is None else cuda_ms(inplace, reps=10)
+        b_ms, b_by = bnd or bound(N, dims, straddles, diag)
         log(f"time {label:<30} ms={ms:.3f} plain_ms={plain_ms:.3f} "
             f"library_ms={'none' if lib_ms is None else f'{lib_ms:.3f}'} "
             + ("" if panel_ms is None else f"panel_ms={panel_ms:.3f} ")
+            + ("" if ip_ms is None else f"inplace_ms={ip_ms:.3f} ")
             + f"bound_ms={b_ms:.3f} ({b_by}) bound/ms={b_ms / ms:.3f}")
         rec = dict(kernel=name, case=label, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
         if panel_ms is not None:
             rec["panel_ms"] = panel_ms
+        if ip_ms is not None:
+            rec["inplace_ms"] = ip_ms
         RECORD["times"].append(rec)
         rows.setdefault(name, rec)
 
@@ -846,7 +1182,9 @@ def times(dev, scheds) -> dict:
             row("positioned_panel", f"positioned pos{op.pos}",
                 lambda op=op, w=(wr, wi): pk.positioned_panel(*x, w, op.pos),
                 lambda op=op, w=(wr, wi): pk.positioned_panel_plain(*x, w, op.pos),
-                panel_library(xc, cw(op.W), op.pos), [128])
+                panel_library(xc, cw(op.W), op.pos), [128],
+                inplace=lambda op=op, w=(wr, wi): pk.positioned_panel(
+                    *x, w, op.pos, inplace=True))
     # The dual rows: op 0 (no straddler) first, so it is the JSON row.
     duals = sorted((op for op in ops if isinstance(op, DualPanelOp)),
                    key=lambda o: o.pre_straddle is not None)
@@ -859,11 +1197,15 @@ def times(dev, scheds) -> dict:
                 *x, w1, op.first.pos, w2, op.second.pos, straddle=s),
             lambda w1=w1, w2=w2, op=op, s=s: pk.dual_panel_plain(
                 *x, w1, op.first.pos, w2, op.second.pos, straddle=s),
-            dual_library(xc, op, cw), [128, 128], [s] if s else [])
+            dual_library(xc, op, cw), [128, 128], [s] if s else [],
+            inplace=lambda w1=w1, w2=w2, op=op, s=s: pk.dual_panel(
+                *x, w1, op.first.pos, w2, op.second.pos, straddle=s,
+                inplace=True))
     w0 = pk.w_planes(ops[0].first.W, dev, torch.float32)
     row("lane_panel", "lane (2^21, 128)",
         lambda: pk.lane_panel(*x, w0), lambda: pk.lane_panel_plain(*x, w0),
-        panel_library(xc, cw(ops[0].first.W), 0), [128])
+        panel_library(xc, cw(ops[0].first.W), 0), [128],
+        inplace=lambda: pk.lane_panel(*x, w0, inplace=True))
 
     # fused_diag on qaoa28's 43-term run.  Its library call multiplies by
     # a 2^28 complex64 phase table built outside the timing: that reads
@@ -875,7 +1217,8 @@ def times(dev, scheds) -> dict:
     row("fused_diag", f"fused_diag qaoa28 ({len(diag43.terms)} terms)",
         lambda: dk.fused_diag(*x, diag43),
         lambda: dk.fused_diag_plain(*x, diag43),
-        lambda: xc * ph, [], diag=diag43)
+        lambda: xc * ph, [], diag=diag43,
+        inplace=lambda: dk.fused_diag(*x, diag43, inplace=True))
 
     # The three diag epilogues with qft28's 147-term run, each beside the
     # same panel without it.  Their library call is one einsum of the
@@ -890,14 +1233,17 @@ def times(dev, scheds) -> dict:
         lambda: pk.positioned_panel(*x, wd, pd, diag_terms=d147),
         lambda: pk.positioned_panel_plain(*x, wd, pd, diag_terms=d147),
         panel_library(xc, cw(opd.W), pd, ph), [128], diag=d147,
-        panel=lambda: pk.positioned_panel(*x, wd, pd))
+        panel=lambda: pk.positioned_panel(*x, wd, pd),
+        inplace=lambda: pk.positioned_panel(*x, wd, pd, diag_terms=d147,
+                                            inplace=True))
     op0, _ = find(scheds["qft28"], "WindowPanelOp", pos=0)
     wq0 = pk.w_planes(op0.W, dev, torch.float32)
     row("lane_panel+diag", f"lane +diag{len(d147.terms)} (qft28 @0 W)",
         lambda: pk.lane_panel(*x, wq0, diag_terms=d147),
         lambda: pk.lane_panel_plain(*x, wq0, diag_terms=d147),
         panel_library(xc, cw(op0.W), 0, ph), [128], diag=d147,
-        panel=lambda: pk.lane_panel(*x, wq0))
+        panel=lambda: pk.lane_panel(*x, wq0),
+        inplace=lambda: pk.lane_panel(*x, wq0, diag_terms=d147, inplace=True))
     dop = duals[0]
     dw1 = pk.w_planes(dop.first.W, dev, torch.float32)
     dw2 = pk.w_planes(dop.second.W, dev, torch.float32)
@@ -906,7 +1252,9 @@ def times(dev, scheds) -> dict:
         lambda: pk.dual_panel(*x, *dargs, diag_terms=d147),
         lambda: pk.dual_panel_plain(*x, *dargs, diag_terms=d147),
         dual_library(xc, dop, cw, ph), [128, 128], diag=d147,
-        panel=lambda: pk.dual_panel(*x, *dargs))
+        panel=lambda: pk.dual_panel(*x, *dargs),
+        inplace=lambda: pk.dual_panel(*x, *dargs, diag_terms=d147,
+                                      inplace=True))
     del ph
 
     # The bit permutations of qft28.
@@ -921,7 +1269,21 @@ def times(dev, scheds) -> dict:
     xt = xc.view(128, -1, 128)
     row("bitperm_transpose", "bitperm_transpose",
         lambda: bk.bitperm_transpose(*x), lambda: bk.bitperm_transpose_plain(*x),
-        lambda: xt.transpose(0, 2).contiguous(), [])
+        lambda: xt.transpose(0, 2).contiguous(), [],
+        inplace=lambda: bk.bitperm_transpose(*x, inplace=True))
+
+    # The in-place permutation: qft28's BitPermGridOp at capacity is one
+    # involution (its pairs and its grid_map's 2-cycles); the bound counts
+    # the rows it moves.  Its library call is the same permute as above.
+    src = bk.bit_sources(n, swap.pairs, gm)
+    inv, = bk.involution_factors(src)
+    moved = moved_rows(n, inv)
+    row("bitperm_involution",
+        f"bitperm_involution qft28 ({moved} of {N >> 7} rows move)",
+        lambda: bk.bitperm_involution(*x, inv),
+        lambda: bk.bitperm_involution(*x, inv, plain=True),
+        lambda: xs.permute(dims).contiguous(), [],
+        bnd=(1e3 * moved * 128 * 4 * 4 / HBM_BYTES_PER_S, "bytes"))
     del xs, xt
 
     # The pair kernel at its classes, with the requests' gates; the
@@ -936,6 +1298,18 @@ def times(dev, scheds) -> dict:
         row(name, f"{name} {label}",
             lambda qa=qa, qb=qb, U=U, f=getattr(pq, name): f(*x, qa, qb, U),
             lambda qa=qa, qb=qb, U=U: pq.pair_gate_plain(*x, qa, qb, U),
+            pair_library(xc, qa, qb, U), [4],
+            # pair_update runs in place from bit 10 on (midpair below)
+            inplace=None if name == "pair_update" and min(qa, qb) < 10 else (
+                lambda qa=qa, qb=qb, U=U, f=getattr(pq, name): f(
+                    *x, qa, qb, U, inplace=True)))
+    # midpair: qpe28's multiswap pair (9, 17) at capacity (a SWAP), and a
+    # random unitary on (8, 27); in place only.
+    for qa, qb, U in ((9, 17, dense._SWAP4),
+                      (8, NQ - 1, rand_unitary(4, np.random.default_rng(SEED)))):
+        row("midpair", f"midpair ({qa}, {qb})",
+            lambda qa=qa, qb=qb, U=U: pq.midpair(*x, qa, qb, U),
+            lambda qa=qa, qb=qb, U=U: pq.midpair(*x, qa, qb, U, plain=True),
             pair_library(xc, qa, qb, U), [4])
     bp, _ = find(scheds["qft28 nodecomp"], "BitPermOp")
     tables = bk.CrossTables.of(bp.cross)
@@ -943,7 +1317,8 @@ def times(dev, scheds) -> dict:
     row("bitperm_cross", "bitperm_cross qft28 nodecomp",
         lambda: bk.bitperm_cross(*x, tables),
         lambda: bk.bitperm_cross_plain(*x, tables),
-        cross_library(xc, tables.cross), [])
+        cross_library(xc, tables.cross), [],
+        inplace=lambda: bk.bitperm_cross(*x, tables, inplace=True))
     del xc
 
     # Every pass of qft28 and qaoa28, operands already on the card.
@@ -1008,6 +1383,120 @@ def e2e(label: str, cd: dict, dev) -> dict:
                 gates=gates)
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the capacity tier at n = 33
+# ---------------------------------------------------------------------------
+
+def chain_s(fn, re, im, k: int) -> float:
+    """Wall seconds of ``k`` in-place runs of ``fn`` from |0>, the planes
+    reset outside the timing."""
+    import torch
+
+    re.zero_()
+    im.zero_()
+    re[0] = 1.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(k):
+        fn(re, im)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def zero_distance(res) -> float:
+    """||psi - |0>||_2 from the planes: norm2 - |psi_0|^2 + |psi_0 - 1|^2."""
+    a = complex(float(res.re[0]), float(res.im[0]))
+    return math.sqrt(max(res.norm2() - abs(a) ** 2 + abs(a - 1) ** 2, 0.0))
+
+
+def capacity33(dev) -> dict:
+    """ghz33, nonstab33 (then its inverse), qft33 and qpe33 through
+    ``api.simulate(cd, SimulatorConfig(mode="capacity"))`` on two 32 GiB
+    planes.  No float64 twin exists at this size (it would be 128 GiB), so
+    each state is held to what is known of it exactly."""
+    import gc
+
+    import torch
+
+    from quantum_simulations_tpu_torch import SimulatorConfig, api
+    from quantum_simulations_tpu_torch.runtime import capacity, simulator
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    free, total = torch.cuda.mem_get_info()
+    log(f"capacity n={NBIG}: memory_allocated={held / GIB:.3f} GiB before, "
+        f"card free={free / GIB:.3f} / total={total / GIB:.3f} GiB")
+    if not held < GIB:
+        raise AssertionError(f"{held / GIB:.3f} GiB still allocated before n = {NBIG}")
+    cfg = SimulatorConfig(mode="capacity")
+    cds = circuits33()
+    counts: dict = {}
+    out: dict = {"allocated_before_gib": held / GIB, "card_total_gib": total / GIB}
+    amp = 2.0 ** -0.5
+    for label in CAPACITY33:
+        cd = cds[label]
+        torch.cuda.reset_peak_memory_stats()
+        res, counts[label], wall = request(
+            label, lambda cd=cd: api.simulate(cd, cfg, device=dev))
+        peak = torch.cuda.max_memory_allocated()
+        rec = dict(first_call_s=wall, peak_gib=peak / GIB, gates=len(cd["gates"]))
+        nrm2 = res.norm2()
+        rec["norm2"] = nrm2
+        ok = abs(nrm2 - 1) <= 1e-5 and peak <= PEAK_LIMIT
+        if label == "ghz33":
+            ends = [complex(float(res.re[i]), float(res.im[i]))
+                    for i in (0, (1 << NBIG) - 1)]
+            top = sorted(i for i, _ in res.top_amplitudes(2))
+            rec.update(end_err=max(abs(a - amp) for a in ends), top2=top)
+            ok = ok and rec["end_err"] <= 1e-6 and top == [0, (1 << NBIG) - 1]
+        elif label == "qft33":
+            rec["l2_vs_exact"] = uniform_distance(res.re, res.im)
+            ok = ok and rec["l2_vs_exact"] <= 1e-5
+        elif label == "qpe33":
+            (idx, a), = res.top_amplitudes(1)
+            rec.update(top_index=idx, top_prob=abs(a) ** 2)
+            ok = ok and idx == QPE33_ANSWER and abs(a) ** 2 >= 1 - 1e-5
+        else:  # nonstab33, then its inverse on the same planes
+            inv = inverse(cd)
+            torch.cuda.reset_peak_memory_stats()
+            res, counts["nonstab33 inverse"], rec["inverse_first_call_s"] = request(
+                "nonstab33 inverse", lambda: capacity.simulate_capacity(
+                    inv, device=dev, initial_planes=(res.re, res.im)))
+            rec["inverse_peak_gib"] = torch.cuda.max_memory_allocated() / GIB
+            rec["l2_vs_zero"] = zero_distance(res)
+            ok = (ok and rec["l2_vs_zero"] <= 1e-5
+                  and rec["inverse_peak_gib"] * GIB <= PEAK_LIMIT)
+        # Times: the schedule is compiled and its operands are on the card.
+        fn = simulator.build_window_circuit_fn(cd, planar_io=True, inplace=True,
+                                               device=dev)
+        if label in ("nonstab33", "qft33"):
+            chain_s(fn, res.re, res.im, 1)
+            t1 = chain_s(fn, res.re, res.im, 1)
+            t2 = chain_s(fn, res.re, res.im, 2)
+            dt = t2 - t1
+            rec.update(t_1=t1, t_2=t2, how="(t(2) - t(1)) / 1")
+        else:
+            dt = chain_s(fn, res.re, res.im, 1)
+            rec["how"] = "one run"
+        rec.update(ms=dt * 1e3, amp_updates_per_s=len(cd["gates"]) * (1 << NBIG) / dt)
+        log(f"capacity {label}: " + " ".join(
+            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in rec.items()) + f" {'ok' if ok else 'FAIL'}")
+        log(f"e2e {label} capacity: {dt * 1e3:.3f} ms per run ({rec['how']}), "
+            f"{rec['amp_updates_per_s']:.4e} amp-updates/s ({rec['gates']} gates "
+            f"x 2^{NBIG} / t), peak {peak / GIB:.3f} GiB")
+        out[label] = rec
+        del res, fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not ok:
+            raise AssertionError(f"{label} fails its check: {rec}")
+    RECORD["capacity33"] = dict(launches=counts, **out)
+    return counts
+
+
 def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
     """One record per kernel: its launches in the request that runs it
     (a panel's "+diag" launches included), its worst error in phase 2
@@ -1017,10 +1506,14 @@ def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
         r = rows[name]
         by_path = {p: {k: v for k, v in c.items() if kernel_of(k) == name}
                    for p, c in counts.items()}
+        inplace = {p: sum(v for k, v in c.items() if is_inplace(k))
+                   for p, c in by_path.items()
+                   if p.endswith(" capacity") or p in WANT_CAPACITY33}
         kernels.append(dict(
             name=name, route="cuda", source=SRC[name], replaces=REPLACES[name],
             launches=sum(by_path[PATH[name]].values()), path=PATH[name],
-            launches_by_path=by_path, max_abs_err=worst[name], ms=r["ms"],
+            launches_by_path=by_path, inplace_launches=inplace,
+            max_abs_err=worst[name], ms=r["ms"], inplace_ms=r.get("inplace_ms"),
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
     RECORD["kernels"] = kernels
@@ -1073,6 +1566,7 @@ def main() -> int:
         return 0
     counts = main_path(dev)
     rows = times(dev, scheds)
+    counts.update(capacity33(dev))
     kernels = kernels_line(counts, rows, worst)
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)

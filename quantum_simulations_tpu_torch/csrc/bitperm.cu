@@ -31,14 +31,36 @@
 //                      once a block): the tile load reads row f(y), the
 //                      store reads column g(x).  No arithmetic, so exact.
 //
+//   bitperm_involution in place: rows r <-> P(r) for an involution P of the
+//                      row bits (a product of disjoint bit transpositions).
+//                      Replaces bitperm_swap_planar's split_planes mode
+//                      (:2126-2132, _bitperm_swap_one_kernel :2147), which
+//                      runs the gather one plane at a time and so still
+//                      holds a third plane: 32 GiB at n = 33, where the
+//                      card has about 15 GiB beside the two planes.  The
+//                      warp of row r swaps rows r and P(r) of both planes
+//                      when P(r) > r and leaves fixed rows alone; the
+//                      2-cycles are disjoint, so the pass is race-free with
+//                      no temporary.  The host factors any permutation of
+//                      the row bits into at most two involutions
+//                      (ops/bitperm_kernels.involution_factors).
+//
 // Bound on an H100 SXM: bytes.  Both planes are read and written once,
-// 4.3 GB at n = 28, 1.28 ms at 3.35 TB/s; there is no arithmetic.  All
-// are out of place and exact (they only move floats).
+// 4.3 GB at n = 28, 1.28 ms at 3.35 TB/s; there is no arithmetic (the
+// involution moves only its non-fixed rows).  All are exact (they only
+// move floats).  bitperm_swap is out of place only: a block writes rows it
+// did not read.  bitperm_transpose and bitperm_cross also run in place
+// (alias.cuh): block m reads the whole slab (*, m, *) of a plane into
+// shared memory (the tables f and g are permutations, so its reads and its
+// writes cover the same 128 rows of 128 floats), a barrier orders those
+// loads before the slab is written, and no two blocks share a slab.
 //
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises if that is not 0.
 
 #include <cuda_runtime.h>
+
+#include "alias.cuh"
 
 namespace {
 
@@ -88,6 +110,28 @@ bitperm_swap_kernel(const float4* __restrict__ re, const float4* __restrict__ im
   }
 }
 
+// The same 4 rows a warp as bitperm_swap; perm is an involution, so
+// gather_row(r) = P(r).  Only the lower row of each 2-cycle moves the pair.
+__global__ void __launch_bounds__(SWAP_NT)
+bitperm_involution_kernel(float4* re, float4* im, long long rows, RowPerm perm) {
+  const int lane = threadIdx.x % 32;
+  const long long r0 =
+      ((long long)blockIdx.x * (SWAP_NT / 32) + threadIdx.x / 32) * SWAP_RPW;
+#pragma unroll
+  for (int k = 0; k < SWAP_RPW; ++k) {
+    const long long r = r0 + k;
+    if (r >= rows) break;
+    const long long p = gather_row(r, perm);
+    if (p <= r) continue;
+    const long long a = r * (LANES / 4) + lane, b = p * (LANES / 4) + lane;
+    const float4 ar = re[a], br = re[b], ai = im[a], bi = im[b];
+    re[a] = br;
+    re[b] = ar;
+    im[a] = bi;
+    im[b] = ai;
+  }
+}
+
 // ---- bitperm_transpose / bitperm_cross: one block per m, the planes one
 // after the other.  TABLES = false: f and g are the identity.  Three
 // blocks fit an SM's shared memory; the register cap of 42 a thread lets
@@ -98,10 +142,12 @@ constexpr int TR_BLOCKS_PER_SM = 3;
 constexpr int TR_LD = LANES + 1;  // padded: both passes conflict-free
 constexpr size_t TR_SMEM = sizeof(float) * LANES * TR_LD;  // 66,048 B
 
-template <bool TABLES>
+template <bool TABLES, bool ALIAS>
 __global__ void __launch_bounds__(TR_NT, TR_BLOCKS_PER_SM)
-tile_cross_kernel(const float* __restrict__ re, const float* __restrict__ im,
-                  float* __restrict__ ore, float* __restrict__ oim,
+tile_cross_kernel(typename qst::Io<float, ALIAS>::In re,
+                  typename qst::Io<float, ALIAS>::In im,
+                  typename qst::Io<float, ALIAS>::Out ore,
+                  typename qst::Io<float, ALIAS>::Out oim,
                   long long M, const unsigned char* __restrict__ fg) {
   extern __shared__ float tile[];  // [y][c], LANES x TR_LD
   __shared__ unsigned char f[LANES], g[LANES];
@@ -112,8 +158,8 @@ tile_cross_kernel(const float* __restrict__ re, const float* __restrict__ im,
   __syncthreads();
   const long long m = blockIdx.x;
   for (int p = 0; p < 2; ++p) {
-    const float* __restrict__ x = p ? im : re;
-    float* __restrict__ o = p ? oim : ore;
+    const typename qst::Io<float, ALIAS>::In x = p ? im : re;
+    const typename qst::Io<float, ALIAS>::Out o = p ? oim : ore;
 #pragma unroll 8
     for (int e = threadIdx.x; e < LANES * LANES; e += TR_NT) {
       const int y = e / LANES, c = e % LANES;
@@ -131,16 +177,39 @@ tile_cross_kernel(const float* __restrict__ re, const float* __restrict__ im,
   }
 }
 
-template <bool TABLES>
+template <bool TABLES, bool ALIAS>
 int launch_tile_cross(const float* re, const float* im, float* ore, float* oim,
                       long long M, const unsigned char* fg, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      tile_cross_kernel<TABLES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)TR_SMEM);
+      tile_cross_kernel<TABLES, ALIAS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TR_SMEM);
   if (err != cudaSuccess) return (int)err;
-  tile_cross_kernel<TABLES><<<(unsigned)M, TR_NT, TR_SMEM, (cudaStream_t)stream>>>(
-      re, im, ore, oim, M, fg);
+  tile_cross_kernel<TABLES, ALIAS>
+      <<<(unsigned)M, TR_NT, TR_SMEM, (cudaStream_t)stream>>>(re, im, ore, oim,
+                                                              M, fg);
   return (int)cudaGetLastError();
+}
+
+template <bool TABLES>
+int launch_tile(const float* re, const float* im, float* ore, float* oim,
+                long long M, const unsigned char* fg, void* stream) {
+  const int alias = qst::alias_mode(re, im, ore, oim);
+  if (alias < 0) return (int)cudaErrorInvalidValue;
+  if (alias)
+    return launch_tile_cross<TABLES, true>(re, im, ore, oim, M, fg, stream);
+  return launch_tile_cross<TABLES, false>(re, im, ore, oim, M, fg, stream);
+}
+
+// The row map of a bit permutation: src[b] for the nbits row bits.
+int row_perm(const int* src, int nbits, RowPerm* perm) {
+  if (nbits < 0 || nbits > MAX_ROW_BITS) return (int)cudaErrorInvalidValue;
+  *perm = RowPerm{};
+  perm->nbits = nbits;
+  for (int b = 0; b < nbits; ++b) {
+    if (src[b] < 0 || src[b] >= nbits) return (int)cudaErrorInvalidValue;
+    perm->src[b] = (unsigned char)src[b];
+  }
+  return 0;
 }
 
 }  // namespace
@@ -158,14 +227,10 @@ int qst_bitperm_swap(const float* re, const float* im, float* ore, float* oim,
                      void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (nbits < 0 || nbits > MAX_ROW_BITS || rows != (1LL << nbits))
+  RowPerm perm;
+  if (qst::alias_mode(re, im, ore, oim) != 0 || row_perm(src, nbits, &perm) ||
+      rows != (1LL << nbits))
     return (int)cudaErrorInvalidValue;
-  RowPerm perm{};
-  perm.nbits = nbits;
-  for (int b = 0; b < nbits; ++b) {
-    if (src[b] < 0 || src[b] >= nbits) return (int)cudaErrorInvalidValue;
-    perm.src[b] = (unsigned char)src[b];
-  }
   const long long blocks = (rows + SWAP_ROWS - 1) / SWAP_ROWS;
   bitperm_swap_kernel<<<(unsigned)blocks, SWAP_NT, 0, (cudaStream_t)stream>>>(
       (const float4*)re, (const float4*)im, (float4*)ore, (float4*)oim, rows,
@@ -173,22 +238,43 @@ int qst_bitperm_swap(const float* re, const float* im, float* ore, float* oim,
   return (int)cudaGetLastError();
 }
 
-// The (128, M, 128) view, M = 2^(n - 14).
+// In place: rows and src as for qst_bitperm_swap, with src an involution
+// (src[src[b]] == b).  The planes must be 16-byte aligned.
+int qst_bitperm_involution(float* re, float* im, long long rows,
+                           const int* src, int nbits, int device,
+                           void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  RowPerm perm;
+  if (re == im || row_perm(src, nbits, &perm) || rows != (1LL << nbits))
+    return (int)cudaErrorInvalidValue;
+  for (int b = 0; b < nbits; ++b)
+    if (src[src[b]] != b) return (int)cudaErrorInvalidValue;
+  const long long blocks = (rows + SWAP_ROWS - 1) / SWAP_ROWS;
+  bitperm_involution_kernel<<<(unsigned)blocks, SWAP_NT, 0,
+                              (cudaStream_t)stream>>>(
+      (float4*)re, (float4*)im, rows, perm);
+  return (int)cudaGetLastError();
+}
+
+// The (128, M, 128) view, M = 2^(n - 14).  In place when ore == re and
+// oim == im.
 int qst_bitperm_transpose(const float* re, const float* im, float* ore,
                           float* oim, long long M, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  return launch_tile_cross<false>(re, im, ore, oim, M, nullptr, stream);
+  return launch_tile<false>(re, im, ore, oim, M, nullptr, stream);
 }
 
-// fg: the 256 bytes f[128] then g[128], on the device.
+// fg: the 256 bytes f[128] then g[128], on the device.  In place when
+// ore == re and oim == im.
 int qst_bitperm_cross(const float* re, const float* im, float* ore, float* oim,
                       long long M, const unsigned char* fg, int device,
                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (fg == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_tile_cross<true>(re, im, ore, oim, M, fg, stream);
+  return launch_tile<true>(re, im, ore, oim, M, fg, stream);
 }
 
 }  // extern "C"

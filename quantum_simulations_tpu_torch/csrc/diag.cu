@@ -16,11 +16,17 @@
 // 4 x 4 B x 2^28 = 4.3 GB at n = 28, 1.28 ms at 3.35 TB/s; the phase
 // costs one sincospif and a few adds per element.
 //
+// In place (the ALIAS instance, alias.cuh): hazard-free because each
+// thread loads its 8 elements of each plane into registers before it
+// computes their angles, and stores exactly those 8 after; no other thread
+// touches them.
+//
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises if that is not 0.
 
 #include <cuda_runtime.h>
 
+#include "alias.cuh"
 #include "phase.cuh"
 
 namespace {
@@ -30,9 +36,12 @@ constexpr int TSTEP = NT / qst::PHASE_LANES;  // rows a pass of the block covers
 constexpr int J = 8;                          // elements per thread and plane
 constexpr int ROWS = J * TSTEP;               // 32 rows of 128 lanes per block
 
+template <bool ALIAS>
 __global__ void __launch_bounds__(NT)
-fused_diag_kernel(const float* __restrict__ re, const float* __restrict__ im,
-                  float* __restrict__ ore, float* __restrict__ oim,
+fused_diag_kernel(typename qst::Io<float, ALIAS>::In re,
+                  typename qst::Io<float, ALIAS>::In im,
+                  typename qst::Io<float, ALIAS>::Out ore,
+                  typename qst::Io<float, ALIAS>::Out oim,
                   long long N, qst::Phase ph) {
   __shared__ uint32_t scratch[qst::phase_scratch_words(ROWS)];
   const int lane = threadIdx.x % qst::PHASE_LANES;
@@ -68,18 +77,23 @@ const char* qst_error_string(int err) {
 }
 
 // N = 2^n amplitudes (any n >= 0); phase: the packed DiagTerms operand
-// with G groups and T row-side terms.  Out of place.
+// with G groups and T row-side terms.  In place when ore == re and
+// oim == im, else out of place.
 int qst_fused_diag(const float* re, const float* im, float* ore, float* oim,
                    long long N, const void* phase, int G, int T, int device,
                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (phase == nullptr || N < 1) return (int)cudaErrorInvalidValue;
+  const int alias = qst::alias_mode(re, im, ore, oim);
+  if (alias < 0 || phase == nullptr || N < 1) return (int)cudaErrorInvalidValue;
   const qst::Phase ph{(const uint32_t*)phase, G, T};
   const long long per_block = (long long)ROWS * qst::PHASE_LANES;
   const long long blocks = (N + per_block - 1) / per_block;
-  fused_diag_kernel<<<(unsigned)blocks, NT, 0, (cudaStream_t)stream>>>(
-      re, im, ore, oim, N, ph);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (alias)
+    fused_diag_kernel<true><<<(unsigned)blocks, NT, 0, st>>>(re, im, ore, oim, N, ph);
+  else
+    fused_diag_kernel<false><<<(unsigned)blocks, NT, 0, st>>>(re, im, ore, oim, N, ph);
   return (int)cudaGetLastError();
 }
 

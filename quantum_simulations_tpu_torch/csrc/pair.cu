@@ -33,10 +33,21 @@
 // Every term is computed: for a permutation gate 1 * x + 0 * y is x, so a
 // SWAP or CNOT moves floats exactly.
 //
+// In place (the ALIAS instance, alias.cuh): it also replaces the in-place
+// bodies of the TPU, pair_update_planar's _pair_row_inplace_kernel (:944)
+// and midpair_planar's _midpair_kernel (:1187, :1221), and the aliased
+// calls of the mixed entries.  It is hazard-free because a thread owns
+// whole quads: it loads every amplitude of its quads into registers, and
+// its stores, which come after all its loads in program order and write
+// exactly those addresses, depend on all of them; no other thread touches
+// them.  Without __restrict__ the compiler keeps that order.
+//
 // The entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises if that is not 0.
 
 #include <cuda_runtime.h>
+
+#include "alias.cuh"
 
 namespace {
 
@@ -61,10 +72,12 @@ __device__ __forceinline__ constexpr int slot(int h, int l, int q) {
 }
 
 // lo4 / hi4: the gate bits in float4 units (bit - 2), where they are >= 2.
-template <int K, int LO>
+template <int K, int LO, bool ALIAS>
 __global__ void __launch_bounds__(NT)
-pair_gate_kernel(const float4* __restrict__ re, const float4* __restrict__ im,
-                 float4* __restrict__ ore, float4* __restrict__ oim,
+pair_gate_kernel(typename qst::Io<float4, ALIAS>::In re,
+                 typename qst::Io<float4, ALIAS>::In im,
+                 typename qst::Io<float4, ALIAS>::Out ore,
+                 typename qst::Io<float4, ALIAS>::Out oim,
                  long long threads, int lo4, int hi4, Coeffs c) {
   const long long t = (long long)blockIdx.x * NT + threadIdx.x;
   if (t >= threads) return;
@@ -115,15 +128,30 @@ pair_gate_kernel(const float4* __restrict__ re, const float4* __restrict__ im,
   }
 }
 
-template <int K, int LO>
+template <int K, int LO, bool ALIAS>
 int launch(const float* re, const float* im, float* ore, float* oim,
            long long n_amps, int lo4, int hi4, const Coeffs& c, void* stream) {
   const long long threads = n_amps / (4 * K);
   const long long blocks = (threads + NT - 1) / NT;
-  pair_gate_kernel<K, LO><<<(unsigned)blocks, NT, 0, (cudaStream_t)stream>>>(
-      (const float4*)re, (const float4*)im, (float4*)ore, (float4*)oim,
-      threads, lo4, hi4, c);
+  pair_gate_kernel<K, LO, ALIAS>
+      <<<(unsigned)blocks, NT, 0, (cudaStream_t)stream>>>(
+          (const float4*)re, (const float4*)im, (float4*)ore, (float4*)oim,
+          threads, lo4, hi4, c);
   return (int)cudaGetLastError();
+}
+
+template <bool ALIAS>
+int launch_class(const float* re, const float* im, float* ore, float* oim,
+                 long long n_amps, int lo, int hi, const Coeffs& c,
+                 void* stream) {
+  if (lo >= 2)
+    return launch<4, 0, ALIAS>(re, im, ore, oim, n_amps, lo - 2, hi - 2, c, stream);
+  if (hi >= 2) {
+    if (lo == 0)
+      return launch<2, 0, ALIAS>(re, im, ore, oim, n_amps, 0, hi - 2, c, stream);
+    return launch<2, 1, ALIAS>(re, im, ore, oim, n_amps, 0, hi - 2, c, stream);
+  }
+  return launch<1, 0, ALIAS>(re, im, ore, oim, n_amps, 0, 0, c, stream);
 }
 
 }  // namespace
@@ -136,26 +164,24 @@ const char* qst_error_string(int err) {
 
 // n_amps = 2^n >= 4; 0 <= lo < hi < n; coeffs: 16 real parts then 16
 // imaginary parts of C in (ho, lo_, h, l) order, on the host.  The planes
-// must be 16-byte aligned.
+// must be 16-byte aligned.  In place when ore == re and oim == im.
 int qst_pair_gate(const float* re, const float* im, float* ore, float* oim,
                   long long n_amps, int lo, int hi, const float* coeffs,
                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n_amps < 4 || (n_amps & (n_amps - 1)) || lo < 0 || lo >= hi ||
-      (1LL << hi) >= n_amps)
+  const int alias = qst::alias_mode(re, im, ore, oim);
+  if (alias < 0 || n_amps < 4 || (n_amps & (n_amps - 1)) || lo < 0 ||
+      lo >= hi || (1LL << hi) >= n_amps)
     return (int)cudaErrorInvalidValue;
   Coeffs c;
   for (int k = 0; k < 16; ++k) {
     c.re[k] = coeffs[k];
     c.im[k] = coeffs[16 + k];
   }
-  if (lo >= 2) return launch<4, 0>(re, im, ore, oim, n_amps, lo - 2, hi - 2, c, stream);
-  if (hi >= 2) {
-    if (lo == 0) return launch<2, 0>(re, im, ore, oim, n_amps, 0, hi - 2, c, stream);
-    return launch<2, 1>(re, im, ore, oim, n_amps, 0, hi - 2, c, stream);
-  }
-  return launch<1, 0>(re, im, ore, oim, n_amps, 0, 0, c, stream);
+  if (alias)
+    return launch_class<true>(re, im, ore, oim, n_amps, lo, hi, c, stream);
+  return launch_class<false>(re, im, ore, oim, n_amps, lo, hi, c, stream);
 }
 
 }  // extern "C"

@@ -47,11 +47,23 @@
 // tile after its last contraction (and post-straddler), before the store:
 // phase.cuh, with the freed W chunk as scratch.  It adds no traffic.
 //
+// In place (the capacity tier; alias.cuh).  Each kernel has an ALIAS
+// instance, launched when the output planes are the input planes.  It is
+// hazard-free because a block owns a disjoint slab of the state (a lane
+// panel's 128 rows, a positioned panel's (a, c-tile) column block, a dual
+// panel's (128, 128) tile): it reads the whole slab into shared memory,
+// the barrier at the top of contract() (dual_panel: the one after the
+// load) orders every one of those loads before any thread goes on, and
+// the stores come after the last barrier.  Each shared-memory store of
+// the load loop consumes its global load, so no load is still in flight
+// when the slab is overwritten.
+//
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises if that is not 0.
 
 #include <cuda_runtime.h>
 
+#include "alias.cuh"
 #include "phase.cuh"
 
 namespace {
@@ -211,11 +223,13 @@ __device__ void diag_epilogue(const qst::Phase& ph, unsigned long long row0,
 }
 
 // ---- lane_panel: view (R, DIM); tile = 128 rows (c) x DIM lanes (k). ----
-template <int DIM>
+template <int DIM, bool ALIAS>
 __global__ void __launch_bounds__(NT, 1)
-lane_panel_kernel(const float* __restrict__ re, const float* __restrict__ im,
+lane_panel_kernel(typename qst::Io<float, ALIAS>::In re,
+                  typename qst::Io<float, ALIAS>::In im,
                   const float* __restrict__ wr, const float* __restrict__ wi,
-                  float* __restrict__ ore, float* __restrict__ oim,
+                  typename qst::Io<float, ALIAS>::Out ore,
+                  typename qst::Io<float, ALIAS>::Out oim,
                   long long rows, qst::Phase ph) {
   const Smem s = smem_parts();
   const long long r0 = (long long)blockIdx.x * TILE;
@@ -239,13 +253,14 @@ lane_panel_kernel(const float* __restrict__ re, const float* __restrict__ im,
 }
 
 // ---- positioned_panel: view (A, DIM, C); tile = DIM rows (k) x 128 c. ----
-template <int DIM>
+template <int DIM, bool ALIAS>
 __global__ void __launch_bounds__(NT, 1)
-positioned_panel_kernel(const float* __restrict__ re,
-                        const float* __restrict__ im,
+positioned_panel_kernel(typename qst::Io<float, ALIAS>::In re,
+                        typename qst::Io<float, ALIAS>::In im,
                         const float* __restrict__ wr,
-                        const float* __restrict__ wi, float* __restrict__ ore,
-                        float* __restrict__ oim, long long C,
+                        const float* __restrict__ wi,
+                        typename qst::Io<float, ALIAS>::Out ore,
+                        typename qst::Io<float, ALIAS>::Out oim, long long C,
                         long long tiles_per_a, qst::Phase ph) {
   const Smem s = smem_parts();
   const long long a = blockIdx.x / tiles_per_a;
@@ -281,15 +296,17 @@ __device__ __forceinline__ void contract_mode(int mode, const float* wr,
     contract<TILE, LD, 1>(wr, wi, s);
 }
 
+template <bool ALIAS>
 __global__ void __launch_bounds__(NT, 1)
-dual_panel_kernel(const float* __restrict__ re, const float* __restrict__ im,
+dual_panel_kernel(typename qst::Io<float, ALIAS>::In re,
+                  typename qst::Io<float, ALIAS>::In im,
                   const float* __restrict__ w1r, const float* __restrict__ w1i,
                   int mode1, const float* __restrict__ w2r,
                   const float* __restrict__ w2i, int mode2,
                   const float* __restrict__ u_pre, int qb_pre,
                   const float* __restrict__ u_post, int qb_post,
-                  float* __restrict__ ore, float* __restrict__ oim,
-                  qst::Phase ph) {
+                  typename qst::Io<float, ALIAS>::Out ore,
+                  typename qst::Io<float, ALIAS>::Out oim, qst::Phase ph) {
   const Smem s = smem_parts();
   const long long base = (long long)blockIdx.x * TILE * TILE;
   for (int e = threadIdx.x; e < TILE * TILE; e += NT) {
@@ -316,28 +333,44 @@ cudaError_t allow_smem(K kernel) {
                               (int)SMEM_BYTES);
 }
 
-template <int DIM>
+template <int DIM, bool ALIAS>
 cudaError_t launch_lane(const float* re, const float* im, const float* wr,
                         const float* wi, float* ore, float* oim,
                         long long rows, const qst::Phase& ph, cudaStream_t st) {
-  cudaError_t err = allow_smem(lane_panel_kernel<DIM>);
+  cudaError_t err = allow_smem(lane_panel_kernel<DIM, ALIAS>);
   if (err != cudaSuccess) return err;
   const long long blocks = (rows + TILE - 1) / TILE;
-  lane_panel_kernel<DIM><<<(unsigned)blocks, NT, SMEM_BYTES, st>>>(
+  lane_panel_kernel<DIM, ALIAS><<<(unsigned)blocks, NT, SMEM_BYTES, st>>>(
       re, im, wr, wi, ore, oim, rows, ph);
   return cudaGetLastError();
 }
 
-template <int DIM>
+template <int DIM, bool ALIAS>
 cudaError_t launch_positioned(const float* re, const float* im,
                               const float* wr, const float* wi, float* ore,
                               float* oim, long long A, long long C,
                               const qst::Phase& ph, cudaStream_t st) {
-  cudaError_t err = allow_smem(positioned_panel_kernel<DIM>);
+  cudaError_t err = allow_smem(positioned_panel_kernel<DIM, ALIAS>);
   if (err != cudaSuccess) return err;
   const long long tpa = (C + TILE - 1) / TILE;
-  positioned_panel_kernel<DIM><<<(unsigned)(A * tpa), NT, SMEM_BYTES, st>>>(
-      re, im, wr, wi, ore, oim, C, tpa, ph);
+  positioned_panel_kernel<DIM, ALIAS>
+      <<<(unsigned)(A * tpa), NT, SMEM_BYTES, st>>>(re, im, wr, wi, ore, oim,
+                                                     C, tpa, ph);
+  return cudaGetLastError();
+}
+
+template <bool ALIAS>
+cudaError_t launch_dual(const float* re, const float* im, const float* w1r,
+                        const float* w1i, int mode1, const float* w2r,
+                        const float* w2i, int mode2, const float* u_pre,
+                        int qb_pre, const float* u_post, int qb_post,
+                        float* ore, float* oim, long long A,
+                        const qst::Phase& ph, cudaStream_t st) {
+  cudaError_t err = allow_smem(dual_panel_kernel<ALIAS>);
+  if (err != cudaSuccess) return err;
+  dual_panel_kernel<ALIAS><<<(unsigned)A, NT, SMEM_BYTES, st>>>(
+      re, im, w1r, w1i, mode1, w2r, w2i, mode2, u_pre, qb_pre, u_post,
+      qb_post, ore, oim, ph);
   return cudaGetLastError();
 }
 
@@ -353,6 +386,8 @@ const char* qst_error_string(int err) {
 // DiagTerms operand (phase.cuh) with G groups and T row-side terms, or
 // null.  The lane and positioned panels take it only at dim 128 (and the
 // positioned one only with C >= 128): their tile rows must be state rows.
+// Every entry runs in place when ore == re and oim == im (the ALIAS
+// instance) and refuses planes that alias otherwise.
 
 // dim in {1, 2, 4, ..., 128}; rows = 2^n / dim.  Returns a cudaError_t.
 int qst_lane_panel(const float* re, const float* im, const float* wr,
@@ -361,12 +396,17 @@ int qst_lane_panel(const float* re, const float* im, const float* wr,
                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (phase != nullptr && dim != TILE) return (int)cudaErrorInvalidValue;
+  const int alias = qst::alias_mode(re, im, ore, oim);
+  if (alias < 0 || (phase != nullptr && dim != TILE))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const qst::Phase ph{(const uint32_t*)phase, G, T};
   switch (dim) {
-#define QST_LANE(D) \
-    case D: return (int)launch_lane<D>(re, im, wr, wi, ore, oim, rows, ph, st);
+#define QST_LANE(D)                                                         \
+    case D:                                                                 \
+      return (int)(alias                                                    \
+          ? launch_lane<D, true>(re, im, wr, wi, ore, oim, rows, ph, st)    \
+          : launch_lane<D, false>(re, im, wr, wi, ore, oim, rows, ph, st));
     QST_LANE(1) QST_LANE(2) QST_LANE(4) QST_LANE(8)
     QST_LANE(16) QST_LANE(32) QST_LANE(64) QST_LANE(128)
 #undef QST_LANE
@@ -381,13 +421,17 @@ int qst_positioned_panel(const float* re, const float* im, const float* wr,
                          int T, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (phase != nullptr && (dim != TILE || C % TILE != 0))
+  const int alias = qst::alias_mode(re, im, ore, oim);
+  if (alias < 0 || (phase != nullptr && (dim != TILE || C % TILE != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const qst::Phase ph{(const uint32_t*)phase, G, T};
   switch (dim) {
-#define QST_POS(D) \
-    case D: return (int)launch_positioned<D>(re, im, wr, wi, ore, oim, A, C, ph, st);
+#define QST_POS(D)                                                           \
+    case D:                                                                  \
+      return (int)(alias                                                     \
+          ? launch_positioned<D, true>(re, im, wr, wi, ore, oim, A, C, ph, st) \
+          : launch_positioned<D, false>(re, im, wr, wi, ore, oim, A, C, ph, st));
     QST_POS(1) QST_POS(2) QST_POS(4) QST_POS(8)
     QST_POS(16) QST_POS(32) QST_POS(64) QST_POS(128)
 #undef QST_POS
@@ -405,13 +449,15 @@ int qst_dual_panel(const float* re, const float* im, const float* w1r,
                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(dual_panel_kernel);
-  if (err != cudaSuccess) return (int)err;
+  const int alias = qst::alias_mode(re, im, ore, oim);
+  if (alias < 0) return (int)cudaErrorInvalidValue;
   const qst::Phase ph{(const uint32_t*)phase, G, T};
-  dual_panel_kernel<<<(unsigned)A, NT, SMEM_BYTES, (cudaStream_t)stream>>>(
-      re, im, w1r, w1i, mode1, w2r, w2i, mode2, u_pre, qb_pre, u_post,
-      qb_post, ore, oim, ph);
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  return (int)(alias
+      ? launch_dual<true>(re, im, w1r, w1i, mode1, w2r, w2i, mode2, u_pre,
+                          qb_pre, u_post, qb_post, ore, oim, A, ph, st)
+      : launch_dual<false>(re, im, w1r, w1i, mode1, w2r, w2i, mode2, u_pre,
+                           qb_pre, u_post, qb_post, ore, oim, A, ph, st));
 }
 
 }  // extern "C"

@@ -2,23 +2,31 @@
 bit reversal and SWAP networks.  CUDA kernels for the card, a plain torch
 twin of each.
 
-=====================  ====================================================
-``bitperm_swap``       ``bitperm_swap_planar``: a permutation of the bits
-                       >= 7 (disjoint pairs plus a ``grid_map`` bijection
-                       on the bits >= 10), out of place
-``bitperm_transpose``  ``bitperm_transpose_planar``: lane bit l <-> bit
-                       n - 7 + l, out[x, m, y] = in[y, m, x] on the
-                       (128, M, 128) view, out of place
-``bitperm_cross``      ``bitperm_cross_planar``: the 7 transpositions lane
-                       l <-> top bit cross[l], out[x, m, y] = in[f(y), m,
-                       g(x)] on the (128, M, 128) view, out of place
-=====================  ====================================================
+======================  ===================================================
+``bitperm_swap``        ``bitperm_swap_planar``: a permutation of the bits
+                        >= 7 (disjoint pairs plus a ``grid_map`` bijection
+                        on the bits >= 10), out of place as one row
+                        gather; in place (instead of the reference's
+                        ``split_planes``) as at most two
+                        ``bitperm_involution`` passes
+``bitperm_involution``  the in-place pass: rows r <-> P(r) of an
+                        involution P of the bits >= 7
+``bitperm_transpose``   ``bitperm_transpose_planar``: lane bit l <-> bit
+                        n - 7 + l, out[x, m, y] = in[y, m, x] on the
+                        (128, M, 128) view
+``bitperm_cross``       ``bitperm_cross_planar``: the 7 transpositions lane
+                        l <-> top bit cross[l], out[x, m, y] = in[f(y), m,
+                        g(x)] on the (128, M, 128) view
+======================  ===================================================
 
 Each wrapper runs its CUDA kernel (``csrc/bitperm.cu``) on a CUDA tensor
 and its plain twin on a CPU tensor, and nothing else; ``plain=True`` asks
-for the twin on any device.  Every launch adds one to ``LAUNCHES[name]``,
-every twin call one to ``PLAIN_CALLS[name]``.  Both only move floats, so
-kernel and twin agree bit for bit.
+for the twin on any device.  ``inplace=True`` writes into the given
+planes (the transposes' aliasing instances; the twins copy their result
+back).  Every launch adds one to ``LAUNCHES[name]`` (``name + " inplace"``
+for an in-place transpose or crossing), every twin call one to
+``PLAIN_CALLS`` under the same key.  All only move floats, so kernel and
+twin agree bit for bit.
 """
 from __future__ import annotations
 
@@ -28,12 +36,14 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .cuda_build import check_aligned, launch, on_card
+from .cuda_build import check_aligned, launch, on_card, outputs, store
 
 LANE_BITS = 7
 LANES = 1 << LANE_BITS
 
-_KEYS = ("bitperm_swap", "bitperm_transpose", "bitperm_cross")
+_KEYS = ("bitperm_swap", "bitperm_transpose", "bitperm_cross",
+         "bitperm_involution", "bitperm_transpose inplace",
+         "bitperm_cross inplace")
 LAUNCHES = dict.fromkeys(_KEYS, 0)
 PLAIN_CALLS = dict.fromkeys(_KEYS, 0)
 
@@ -117,6 +127,37 @@ class CrossTables:
         return self.packed[key]
 
 
+def involution_factors(src) -> list[list[int]]:
+    """Involutions ``[t1, t2]`` of the bits with ``src[x] = t2[t1[x]]``,
+    identity factors left out (none for the identity, one for an
+    involution).
+
+    A bitperm pass with map ``t`` computes ``out[i] = in[S_t(i)]``, bit b
+    of ``S_t(i)`` bit ``t[b]`` of i, so a pass with ``t1`` then one with
+    ``t2`` computes the pass with ``src``.  Each cycle (c_0 ... c_{k-1})
+    of ``src`` (``src[c_i] = c_{i+1}``) is the product of two
+    reflections, ``t1: c_i -> c_{-i}`` then ``t2: c_j -> c_{1-j}``
+    (indices mod k); a reflection is its own inverse.
+    """
+    src = list(src)
+    n = len(src)
+    t1, t2 = list(range(n)), list(range(n))
+    seen = [False] * n
+    for b in range(n):
+        if seen[b]:
+            continue
+        cyc = [b]
+        seen[b] = True
+        while src[cyc[-1]] != b:
+            cyc.append(src[cyc[-1]])
+            seen[cyc[-1]] = True
+        k = len(cyc)
+        for i, c in enumerate(cyc):
+            t1[c] = cyc[-i % k]
+            t2[c] = cyc[(1 - i) % k]
+    return [t for t in (t1, t2) if t != list(range(n))]
+
+
 def cross_sources(n: int, cross) -> list[int]:
     """src[b] (as :func:`bit_sources`) of the transpositions lane l <->
     bit cross[l]."""
@@ -156,34 +197,48 @@ def permute_view(n: int, src: list[int]):
     return shape, dims
 
 
+def _permuted(re, im, src):
+    """out[i] = in[S(i)] of each plane, bit b of S(i) bit src[b] of i."""
+    shape, dims = permute_view(_n_of(re), src)
+    return tuple(x.reshape(shape).permute(dims).contiguous().reshape(-1)
+                 for x in (re, im))
+
+
 def bitperm_swap_plain(re, im, pairs, grid_map=None):
     """``permute(...).contiguous()`` of the factored view of each plane."""
     PLAIN_CALLS["bitperm_swap"] += 1
-    n = _n_of(re)
-    shape, dims = permute_view(n, bit_sources(n, pairs, grid_map))
-    return tuple(x.reshape(shape).permute(dims).contiguous().reshape(-1)
-                 for x in (re, im))
+    return _permuted(re, im, bit_sources(_n_of(re), pairs, grid_map))
 
 
-def bitperm_transpose_plain(re, im):
+def bitperm_involution_plain(re, im, src):
+    """The involution ``src`` out of place, copied back into the planes."""
+    PLAIN_CALLS["bitperm_involution"] += 1
+    return store(re, im, _permuted(re, im, src))
+
+
+def _key(name: str, inplace: bool) -> str:
+    return name + " inplace" if inplace else name
+
+
+def bitperm_transpose_plain(re, im, inplace=False):
     """``view(128, M, 128).transpose(0, 2)`` of each plane."""
-    PLAIN_CALLS["bitperm_transpose"] += 1
+    PLAIN_CALLS[_key("bitperm_transpose", inplace)] += 1
     n = _n_of(re)
     if n < 2 * LANE_BITS:
         raise ValueError("bitperm_transpose needs the (128, M, 128) view: n >= 14")
-    return tuple(x.reshape(LANES, -1, LANES).transpose(0, 2).contiguous()
-                 .reshape(-1) for x in (re, im))
+    out = tuple(x.reshape(LANES, -1, LANES).transpose(0, 2).contiguous()
+                .reshape(-1) for x in (re, im))
+    return store(re, im, out) if inplace else out
 
 
-def bitperm_cross_plain(re, im, cross):
+def bitperm_cross_plain(re, im, cross, inplace=False):
     """``permute(...).contiguous()`` of the factored view of each plane,
     the 7 transpositions lane l <-> bit cross[l]."""
-    PLAIN_CALLS["bitperm_cross"] += 1
+    PLAIN_CALLS[_key("bitperm_cross", inplace)] += 1
     tables = CrossTables.of(cross)
     n = _check_cross(re, tables)
-    shape, dims = permute_view(n, cross_sources(n, tables.cross))
-    return tuple(x.reshape(shape).permute(dims).contiguous().reshape(-1)
-                 for x in (re, im))
+    out = _permuted(re, im, cross_sources(n, tables.cross))
+    return store(re, im, out) if inplace else out
 
 
 def _check_cross(re, tables: CrossTables) -> int:
@@ -205,58 +260,92 @@ _SIGNATURES = {
     "qst_error_string": (ctypes.c_char_p, [_I]),
     "qst_bitperm_swap": (_I, [_P, _P, _P, _P, _LL, ctypes.POINTER(_I), _I,
                               _I, _P]),
+    "qst_bitperm_involution": (_I, [_P, _P, _LL, ctypes.POINTER(_I), _I,
+                                    _I, _P]),
     "qst_bitperm_transpose": (_I, [_P, _P, _P, _P, _LL, _I, _P]),
     "qst_bitperm_cross": (_I, [_P, _P, _P, _P, _LL, _P, _I, _P]),
 }
 
 
-def bitperm_swap(re, im, pairs, grid_map=None, *, plain: bool = False):
+def _row_map(src) -> ctypes.Array:
+    """The kernels' row-bit map of a bit map that fixes the lane bits."""
+    rows = [s - LANE_BITS for s in src[LANE_BITS:]]
+    return (_I * len(rows))(*rows)
+
+
+def bitperm_swap(re, im, pairs, grid_map=None, *, inplace: bool = False,
+                 plain: bool = False):
     """out[i] = in[sigma(i)] for the permutation of the bits >= 7 that
     ``pairs`` and ``grid_map`` make (:func:`bit_sources`): one row
-    gather of the (2^n / 128, 128) view, out of place."""
-    if plain or not on_card("bitperm_swap", re, im):
-        return bitperm_swap_plain(re, im, pairs, grid_map)
+    gather of the (2^n / 128, 128) view, out of place.  In place: the
+    :func:`involution_factors` of sigma, each one
+    :func:`bitperm_involution` pass (at most two, no temporary plane)."""
     n = _n_of(re)
     src = bit_sources(n, pairs, grid_map)
-    rows = [s - LANE_BITS for s in src[LANE_BITS:]]
+    if inplace:
+        for t in involution_factors(src):
+            bitperm_involution(re, im, t, plain=plain)
+        return re, im
+    if plain or not on_card("bitperm_swap", re, im):
+        return bitperm_swap_plain(re, im, pairs, grid_map)
     check_aligned("bitperm_swap", re, im)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     launch("bitperm", _SIGNATURES, "qst_bitperm_swap", re.device,
            re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-           re.numel() // LANES, (_I * len(rows))(*rows), len(rows))
+           re.numel() // LANES, _row_map(src), n - LANE_BITS)
     LAUNCHES["bitperm_swap"] += 1
     return ore, oim
 
 
-def bitperm_transpose(re, im, *, plain: bool = False):
+def bitperm_involution(re, im, src, *, plain: bool = False):
+    """In place: rows r <-> P(r) of the (2^n / 128, 128) view, P the
+    involution ``src`` of the bits >= 7 (``src[src[b]] == b``, the lane
+    bits fixed): out[i] = in[S(i)], bit b of S(i) bit src[b] of i."""
+    n = _n_of(re)
+    src = [int(s) for s in src]
+    if (len(src) != n or src[:LANE_BITS] != list(range(LANE_BITS))
+            or any(src[s] != b for b, s in enumerate(src))):
+        raise ValueError(f"bitperm_involution: {src} is not an involution of "
+                         f"the bits [7, {n})")
+    if plain or not on_card("bitperm_involution", re, im):
+        return bitperm_involution_plain(re, im, src)
+    check_aligned("bitperm_involution", re, im)
+    launch("bitperm", _SIGNATURES, "qst_bitperm_involution", re.device,
+           re.data_ptr(), im.data_ptr(), re.numel() // LANES, _row_map(src),
+           n - LANE_BITS)
+    LAUNCHES["bitperm_involution"] += 1
+    return re, im
+
+
+def bitperm_transpose(re, im, *, inplace: bool = False, plain: bool = False):
     """Lane bit l <-> bit n - 7 + l: out[x, m, y] = in[y, m, x] on the
-    (128, M, 128) view, 128 x 128 tile transposes, out of place."""
+    (128, M, 128) view, 128 x 128 tile transposes."""
     if plain or not on_card("bitperm_transpose", re, im):
-        return bitperm_transpose_plain(re, im)
+        return bitperm_transpose_plain(re, im, inplace)
     n = _n_of(re)
     if n < 2 * LANE_BITS:
         raise ValueError("bitperm_transpose needs the (128, M, 128) view: n >= 14")
-    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    ore, oim = outputs(re, im, inplace)
     launch("bitperm", _SIGNATURES, "qst_bitperm_transpose", re.device,
            re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
            re.numel() >> (2 * LANE_BITS))
-    LAUNCHES["bitperm_transpose"] += 1
+    LAUNCHES[_key("bitperm_transpose", inplace)] += 1
     return ore, oim
 
 
-def bitperm_cross(re, im, cross, *, plain: bool = False):
+def bitperm_cross(re, im, cross, *, inplace: bool = False,
+                  plain: bool = False):
     """Lane bit l <-> bit cross[l] (``cross`` a tuple or
     :class:`CrossTables`): out[x, m, y] = in[f(y), m, g(x)] on the
-    (128, M, 128) view, 128 x 128 tiles through shared memory, out of
-    place."""
+    (128, M, 128) view, 128 x 128 tiles through shared memory."""
     tables = CrossTables.of(cross)
     if plain or not on_card("bitperm_cross", re, im):
-        return bitperm_cross_plain(re, im, tables)
+        return bitperm_cross_plain(re, im, tables, inplace)
     _check_cross(re, tables)
     check_aligned("bitperm_cross", re, im)
-    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    ore, oim = outputs(re, im, inplace)
     launch("bitperm", _SIGNATURES, "qst_bitperm_cross", re.device,
            re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
            re.numel() >> (2 * LANE_BITS), tables.operand(re.device).data_ptr())
-    LAUNCHES["bitperm_cross"] += 1
+    LAUNCHES[_key("bitperm_cross", inplace)] += 1
     return ore, oim

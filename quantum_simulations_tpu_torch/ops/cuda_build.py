@@ -8,11 +8,12 @@ flags, so an edited source or header is rebuilt and a stale library is
 never loaded.  ``QST_TORCH_BUILD_DIR`` moves the build directory;
 ``QST_NVCC`` names the compiler.
 
-``on_card``, ``check_aligned`` and ``launch`` are the wrappers' shared
-halves: the first decides kernel (CUDA planes) or plain twin (CPU
-planes) and raises on planes no kernel takes, the second raises on
-planes a float4 kernel cannot take, the third calls a C entry on the
-current stream and raises on a CUDA error.
+``on_card``, ``check_aligned``, ``launch`` and ``store`` are the
+wrappers' shared halves: the first decides kernel (CUDA planes) or plain
+twin (CPU planes) and raises on planes no kernel takes, the second raises
+on planes a float4 kernel cannot take, the third calls a C entry on the
+current stream and raises on a CUDA error, the last gives a twin's
+out-of-place result the in-place contract (the caller's planes, updated).
 """
 from __future__ import annotations
 
@@ -142,6 +143,22 @@ def check_aligned(name: str, *planes) -> None:
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: planes must start on a 16-byte "
                              f"boundary (a view at an odd offset?)")
+
+
+def store(re: torch.Tensor, im: torch.Tensor, out) -> tuple:
+    """Copy a plain twin's out-of-place ``out`` into ``(re, im)`` and
+    return them: the in-place mode of every twin."""
+    re.copy_(out[0])
+    im.copy_(out[1])
+    return re, im
+
+
+def outputs(re: torch.Tensor, im: torch.Tensor, inplace: bool) -> tuple:
+    """A kernel's output planes: the input planes in place (the C entries
+    launch their aliasing instance when out == in), else fresh ones."""
+    if inplace:
+        return re, im
+    return torch.empty_like(re), torch.empty_like(im)
 
 
 def launch(source: str, signatures: dict, entry: str,

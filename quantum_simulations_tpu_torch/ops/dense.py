@@ -183,6 +183,20 @@ def contract_planar(re, im, qubits, U):
     return back(ur @ xr - ui @ xi), back(ur @ xi + ui @ xr)
 
 
+def planar_kind(qubits, U, n: int) -> str:
+    """Which plain path :func:`apply_gate_planar` takes: "diag", "lincomb"
+    or "contract" (the reference's complex fallback, where its
+    ``apply_gate_planar`` returns None)."""
+    qubits = tuple(qubits)
+    m = len(qubits)
+    U = np.asarray(U, dtype=np.complex128)
+    if m <= 12 and not (U - np.diag(np.diag(U))).any():
+        return "diag"
+    if m == 1 or (m == 2 and min(qubits) >= min(LANE, n)):
+        return "lincomb"
+    return "contract"
+
+
 def apply_gate_planar(re: torch.Tensor, im: torch.Tensor,
                       qubits: tuple[int, ...], U: np.ndarray):
     """Any gate on (re, im) planes in plain torch, dispatched as the
@@ -193,10 +207,10 @@ def apply_gate_planar(re: torch.Tensor, im: torch.Tensor,
     global GATE_CALLS
     GATE_CALLS += 1
     qubits = tuple(qubits)
-    n, m = re.numel().bit_length() - 1, len(qubits)
     U = np.asarray(U, dtype=np.complex128)
-    if m <= 12 and not (U - np.diag(np.diag(U))).any():
+    kind = planar_kind(qubits, U, re.numel().bit_length() - 1)
+    if kind == "diag":
         return diag_planar(re, im, qubits, np.diag(U))
-    if m == 1 or (m == 2 and min(qubits) >= min(LANE, n)):
+    if kind == "lincomb":
         return lincomb_planar(re, im, qubits, U)
     return contract_planar(re, im, qubits, U)

@@ -15,10 +15,12 @@ operand.
 
 ``fused_diag`` runs the kernel (``csrc/diag.cu``) on a CUDA tensor and the
 twin on a CPU tensor, and nothing else; ``plain=True`` asks for the twin
-on any device.  Every launch adds one to ``LAUNCHES["fused_diag"]``, every
-twin call one to ``PLAIN_CALLS["fused_diag"]``.  The twin sums theta in
-float64 (exact next to the kernel's fixed point) and rotates in the plane
-dtype.
+on any device, ``inplace=True`` writes into the given planes (the
+kernel's aliasing instance; the twin copies its result back).  Every
+launch adds one to ``LAUNCHES["fused_diag"]`` (``"fused_diag inplace"``
+in place), every twin call one to ``PLAIN_CALLS`` under the same key.
+The twin sums theta in float64 (exact next to the kernel's fixed point)
+and rotates in the plane dtype.
 """
 from __future__ import annotations
 
@@ -29,13 +31,13 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .cuda_build import launch, on_card
+from .cuda_build import launch, on_card, outputs, store
 
 LANES = 128
 LANE_BITS = 7
 
-LAUNCHES = {"fused_diag": 0}
-PLAIN_CALLS = {"fused_diag": 0}
+LAUNCHES = {"fused_diag": 0, "fused_diag inplace": 0}
+PLAIN_CALLS = dict(LAUNCHES)
 
 
 def reset_counts() -> None:
@@ -142,10 +144,15 @@ def apply_diag_plain(re, im, terms):
                                             re.device))
 
 
-def fused_diag_plain(re, im, terms):
+def _key(inplace: bool) -> str:
+    return "fused_diag inplace" if inplace else "fused_diag"
+
+
+def fused_diag_plain(re, im, terms, inplace=False):
     """The plain twin of ``fused_diag``."""
-    PLAIN_CALLS["fused_diag"] += 1
-    return apply_diag_plain(re, im, terms)
+    PLAIN_CALLS[_key(inplace)] += 1
+    out = apply_diag_plain(re, im, terms)
+    return store(re, im, out) if inplace else out
 
 
 # ---------------------------------------------------------------------------
@@ -166,15 +173,15 @@ def phase_args(dterms: "DiagTerms | None", device) -> tuple:
     return (dterms.operand(device).data_ptr(), dterms.G, dterms.T)
 
 
-def fused_diag(re, im, terms, *, plain: bool = False):
+def fused_diag(re, im, terms, *, inplace: bool = False, plain: bool = False):
     """psi *= exp(i theta) for a merged run's Möbius ``terms`` (a tuple
-    or a :class:`DiagTerms`), in one out-of-place pass."""
+    or a :class:`DiagTerms`), in one pass, in place with ``inplace``."""
     dterms = DiagTerms.of(terms)
     if plain or not on_card("fused_diag", re, im):
-        return fused_diag_plain(re, im, dterms)
-    ore, oim = torch.empty_like(re), torch.empty_like(im)
+        return fused_diag_plain(re, im, dterms, inplace)
+    ore, oim = outputs(re, im, inplace)
     launch("diag", _SIGNATURES, "qst_fused_diag", re.device, re.data_ptr(),
            im.data_ptr(), ore.data_ptr(), oim.data_ptr(), re.numel(),
            *phase_args(dterms, re.device))
-    LAUNCHES["fused_diag"] += 1
+    LAUNCHES[_key(inplace)] += 1
     return ore, oim

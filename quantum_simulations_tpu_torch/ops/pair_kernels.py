@@ -6,25 +6,32 @@ Counterparts of ``quantum_simulations_tpu/ops/pallas_kernels.py``:
 
 ===================  ======================================================
 ``pair_update``      ``pair_update_planar``: both bits >= 7 (column body
-                     for lo <= 12, row body above), out of place
+                     for lo <= 12, row body above; in place, as the
+                     reference's ``_pair_row_inplace_kernel``, for
+                     lo >= 10 only)
 ``mixed_pair``       ``mixed_pair_planar``: a lane bit (< 7) and a bit
                      >= 10
 ``mixed_low_pair``   ``mixed_low_pair_planar``: a lane bit and a bit in
                      7..9 (matmul body and lane-diagonal body)
+``midpair``          ``midpair_planar``: a bit in 7..9 and a bit >= 10,
+                     in place only (the reference calls it so)
 ===================  ======================================================
 
-The three compute one function, a 4x4 unitary on index bits (lo, hi):
+The four compute one function, a 4x4 unitary on index bits (lo, hi):
 ``out[i | ho 2^hi | l' 2^lo] = sum C[ho, l', h, l] in[i | h 2^hi | l 2^lo]``
 with ``C = pair_coeffs(U, qa, qb)`` (U big-endian, qa its MSB, as in the
 reference).  The TPU entries differ only in how they fit the (8, 128)
 tiling and the 128x128 MXU; on the card one kernel (``csrc/pair.cu``)
-serves every 0 <= lo < hi < n.  Each wrapper checks its reference
-predicate and keeps its own ``LAUNCHES`` / ``PLAIN_CALLS`` key.
+serves every 0 <= lo < hi < n, out of place or (its aliasing instance)
+in place.  Each wrapper checks its reference predicate and keeps its own
+``LAUNCHES`` / ``PLAIN_CALLS`` key, with ``" inplace"`` appended for an
+in-place call of the first three (``midpair`` is in place by nature).
 
 A wrapper runs the kernel on a CUDA tensor and the twin on a CPU tensor,
 and nothing else; ``plain=True`` asks for the twin on any device.  The
 twin is the strided (A, 2, B, 2, C) lincomb of the reference's
-``dense.apply_gate_planar`` (``ops/dense.lincomb_planar``).
+``dense.apply_gate_planar`` (``ops/dense.lincomb_planar``), copied back
+into the given planes in place.
 """
 from __future__ import annotations
 
@@ -34,12 +41,13 @@ import functools
 import numpy as np
 import torch
 
-from .cuda_build import check_aligned, launch, on_card
+from .cuda_build import check_aligned, launch, on_card, outputs, store
 from .dense import lincomb_planar
 
 LANE = 7
 
-_KEYS = ("pair_update", "mixed_pair", "mixed_low_pair")
+_KEYS = ("pair_update", "mixed_pair", "mixed_low_pair", "pair_update inplace",
+         "mixed_pair inplace", "mixed_low_pair inplace", "midpair")
 LAUNCHES = dict.fromkeys(_KEYS, 0)
 PLAIN_CALLS = dict.fromkeys(_KEYS, 0)
 
@@ -69,6 +77,11 @@ def mixed_pair_supported(qa: int, qb: int, lane: int = LANE) -> bool:
 def mixed_low_pair_supported(qa: int, qb: int, lane: int = LANE) -> bool:
     hi, lo = max(qa, qb), min(qa, qb)
     return lo < lane and lane <= hi <= 9
+
+
+def midpair_supported(qa: int, qb: int) -> bool:
+    hi, lo = max(qa, qb), min(qa, qb)
+    return 7 <= lo <= 9 and hi >= 10
 
 
 def pair_coeffs(U, qa: int, qb: int) -> np.ndarray:
@@ -115,46 +128,63 @@ _SIGNATURES = {
 }
 
 
-def _pair_gate(name: str, re, im, qa: int, qb: int, U, plain: bool):
+def _pair_gate(name: str, re, im, qa: int, qb: int, U, plain: bool,
+               inplace: bool = False):
     n = re.numel().bit_length() - 1
     if qa == qb or not (0 <= min(qa, qb) and max(qa, qb) < n):
         raise ValueError(f"{name}: qubits ({qa}, {qb}) on a {n}-qubit state")
+    key = name + " inplace" if inplace and name != "midpair" else name
     if plain or not on_card(name, re, im):
-        PLAIN_CALLS[name] += 1
-        return pair_gate_plain(re, im, qa, qb, U)
+        PLAIN_CALLS[key] += 1
+        out = pair_gate_plain(re, im, qa, qb, U)
+        return store(re, im, out) if inplace else out
     check_aligned(name, re, im)
     u = np.ascontiguousarray(np.asarray(U, dtype=np.complex128))
     if u.shape != (4, 4):
         raise ValueError(f"{name}: U must be 4x4, got {u.shape}")
-    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    ore, oim = outputs(re, im, inplace)
     launch("pair", _SIGNATURES, "qst_pair_gate", re.device,
            re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
            re.numel(), min(qa, qb), max(qa, qb),
            _packed(int(qa), int(qb), u.tobytes()))
-    LAUNCHES[name] += 1
+    LAUNCHES[key] += 1
     return ore, oim
 
 
-def pair_update(re, im, qa: int, qb: int, U, *, plain: bool = False):
-    """A 4x4 U on two bits >= 7 (``pair_update_supported``), out of
-    place."""
+def pair_update(re, im, qa: int, qb: int, U, *, inplace: bool = False,
+                plain: bool = False):
+    """A 4x4 U on two bits >= 7 (``pair_update_supported``); in place
+    only with both bits >= 10, as the reference asserts."""
     if not pair_update_supported(qa, qb):
         raise ValueError(f"pair_update: ({qa}, {qb}) fails pair_update_supported")
-    return _pair_gate("pair_update", re, im, qa, qb, U, plain)
+    if inplace and min(qa, qb) < 10:
+        raise ValueError(f"pair_update: in place needs both bits >= 10, not "
+                         f"{(qa, qb)} (midpair takes 7..9)")
+    return _pair_gate("pair_update", re, im, qa, qb, U, plain, inplace)
 
 
-def mixed_pair(re, im, qa: int, qb: int, U, *, plain: bool = False):
-    """A 4x4 U on a lane bit and a bit >= 10 (``mixed_pair_supported``),
-    out of place."""
+def mixed_pair(re, im, qa: int, qb: int, U, *, inplace: bool = False,
+               plain: bool = False):
+    """A 4x4 U on a lane bit and a bit >= 10 (``mixed_pair_supported``)."""
     if not mixed_pair_supported(qa, qb):
         raise ValueError(f"mixed_pair: ({qa}, {qb}) fails mixed_pair_supported")
-    return _pair_gate("mixed_pair", re, im, qa, qb, U, plain)
+    return _pair_gate("mixed_pair", re, im, qa, qb, U, plain, inplace)
 
 
-def mixed_low_pair(re, im, qa: int, qb: int, U, *, plain: bool = False):
+def mixed_low_pair(re, im, qa: int, qb: int, U, *, inplace: bool = False,
+                   plain: bool = False):
     """A 4x4 U on a lane bit and a bit in 7..9
-    (``mixed_low_pair_supported``), out of place."""
+    (``mixed_low_pair_supported``)."""
     if not mixed_low_pair_supported(qa, qb):
         raise ValueError(f"mixed_low_pair: ({qa}, {qb}) fails "
                          f"mixed_low_pair_supported")
-    return _pair_gate("mixed_low_pair", re, im, qa, qb, U, plain)
+    return _pair_gate("mixed_low_pair", re, im, qa, qb, U, plain, inplace)
+
+
+def midpair(re, im, qa: int, qb: int, U, *, plain: bool = False):
+    """A 4x4 U on a bit in 7..9 and a bit >= 10 (``midpair_supported``),
+    in place: the capacity tier's route for such gates and SWAPs
+    (the reference's ``midpair_planar(..., inplace=True)``)."""
+    if not midpair_supported(qa, qb):
+        raise ValueError(f"midpair: ({qa}, {qb}) fails midpair_supported")
+    return _pair_gate("midpair", re, im, qa, qb, U, plain, inplace=True)

@@ -20,10 +20,14 @@ two passes instead: the panel kernel, then ``fused_diag``.
 Each wrapper runs its CUDA kernel (``csrc/panels.cu``) on a CUDA tensor
 and its plain twin on a CPU tensor, and nothing else: on the card it
 launches or raises, with no fallback.  ``plain=True`` asks for the twin
-on any device (the float64 reference run on the card).  Every launch
-adds one to ``LAUNCHES[name]``, ``name + "+diag"`` with an epilogue;
-every twin call adds one to ``PLAIN_CALLS`` under the same key.  A twin
-with ``diag_terms`` runs the panel and then the diag twin's arithmetic
+on any device (the float64 reference run on the card).  ``inplace=True``
+(the reference's ``inplace``, the capacity tier) writes the result into
+the given planes and returns them: on the card the kernel's aliasing
+instance, in the twin an out-of-place result copied back.  Every launch
+adds one to ``LAUNCHES[name]``, ``name + "+diag"`` with an epilogue, and
+``" inplace"`` after either in place; every twin call adds one to
+``PLAIN_CALLS`` under the same key.  A twin with ``diag_terms`` runs the
+panel and then the diag twin's arithmetic
 (``ops/diag_kernels.apply_diag_plain``).
 
 The kernels take float32 planes only (the TPU kernels never ran float64
@@ -38,7 +42,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from .cuda_build import launch, on_card
+from .cuda_build import launch, on_card, outputs, store
 from .diag_kernels import DiagTerms, apply_diag_plain, fused_diag, phase_args
 
 # The reference holds panels to full float32 precision (HIGHEST); a
@@ -50,8 +54,9 @@ torch.backends.cudnn.allow_tf32 = False
 LANES = 128
 TILE_ELEMS = LANES * LANES
 
-_KEYS = ("lane_panel", "lane_panel+diag", "positioned_panel",
-         "positioned_panel+diag", "dual_panel", "dual_panel+diag")
+_KEYS = tuple(k + mode for mode in ("", " inplace") for k in (
+    "lane_panel", "lane_panel+diag", "positioned_panel",
+    "positioned_panel+diag", "dual_panel", "dual_panel+diag"))
 LAUNCHES = dict.fromkeys(_KEYS, 0)
 PLAIN_CALLS = dict.fromkeys(_KEYS, 0)
 
@@ -170,35 +175,41 @@ def _cmm(ar, ai, br, bi):
     return ar @ br - ai @ bi, ar @ bi + ai @ br
 
 
-def _key(name: str, diag_terms) -> str:
-    return name if diag_terms is None else name + "+diag"
+def _key(name: str, diag_terms, inplace: bool = False) -> str:
+    return (name + ("" if diag_terms is None else "+diag")
+            + (" inplace" if inplace else ""))
 
 
-def _epilogue_plain(re, im, diag_terms):
-    if diag_terms is None:
-        return re, im
-    return apply_diag_plain(re, im, diag_terms)
+def _epilogue_plain(re, im, out, diag_terms, inplace):
+    """The twin's diag run on ``out``, then the in-place copy into
+    ``(re, im)``."""
+    if diag_terms is not None:
+        out = apply_diag_plain(*out, diag_terms)
+    return store(re, im, out) if inplace else out
 
 
-def lane_panel_plain(re, im, W, diag_terms=None):
+def lane_panel_plain(re, im, W, diag_terms=None, inplace=False):
     """out[r, i] = sum_k W[i, k] x[r, k] over the view (R, dim), then the
     diag run ``diag_terms`` if given."""
-    PLAIN_CALLS[_key("lane_panel", diag_terms)] += 1
+    PLAIN_CALLS[_key("lane_panel", diag_terms, inplace)] += 1
     wr, wi = w_planes(W, re.device, re.dtype)
     dim = wr.shape[0]
     o_re, o_im = _cmm(re.reshape(-1, dim), im.reshape(-1, dim), wr.T, wi.T)
-    return _epilogue_plain(o_re.reshape(-1), o_im.reshape(-1), diag_terms)
+    return _epilogue_plain(re, im, (o_re.reshape(-1), o_im.reshape(-1)),
+                           diag_terms, inplace)
 
 
-def positioned_panel_plain(re, im, W, pos: int, diag_terms=None):
+def positioned_panel_plain(re, im, W, pos: int, diag_terms=None,
+                           inplace=False):
     """out[a, i, c] = sum_k W[i, k] x[a, k, c] over the view (A, dim, 2^pos),
     then the diag run ``diag_terms`` if given."""
-    PLAIN_CALLS[_key("positioned_panel", diag_terms)] += 1
+    PLAIN_CALLS[_key("positioned_panel", diag_terms, inplace)] += 1
     wr, wi = w_planes(W, re.device, re.dtype)
     dim = wr.shape[0]
     shape = (-1, dim, 1 << pos)
     o_re, o_im = _cmm(wr, wi, re.reshape(shape), im.reshape(shape))
-    return _epilogue_plain(o_re.reshape(-1), o_im.reshape(-1), diag_terms)
+    return _epilogue_plain(re, im, (o_re.reshape(-1), o_im.reshape(-1)),
+                           diag_terms, inplace)
 
 
 def _straddle_plain(xr, xi, s: Straddle):
@@ -242,14 +253,14 @@ def _straddle_plain(xr, xi, s: Straddle):
 
 
 def dual_panel_plain(re, im, W1, p1, W2, p2, straddle=None,
-                     post_straddle=None, diag_terms=None):
+                     post_straddle=None, diag_terms=None, inplace=False):
     """[pre] W1@p1, W2@p2 [post] [diag] on the (A, 128, 128) view, in op
     order.
 
     Mode "lane" (pos 0): out[a, d, l] = sum_m W[l, m] x[a, d, m];
     mode "full" (pos 7): out[a, i, k] = sum_j W[i, j] x[a, j, k].
     """
-    PLAIN_CALLS[_key("dual_panel", diag_terms)] += 1
+    PLAIN_CALLS[_key("dual_panel", diag_terms, inplace)] += 1
     xr = re.reshape(-1, LANES, LANES)
     xi = im.reshape(-1, LANES, LANES)
     if straddle is not None:
@@ -262,7 +273,8 @@ def dual_panel_plain(re, im, W1, p1, W2, p2, straddle=None,
             xr, xi = _cmm(wr, wi, xr, xi)
     if post_straddle is not None:
         xr, xi = _straddle_plain(xr, xi, Straddle.of(post_straddle))
-    return _epilogue_plain(xr.reshape(-1), xi.reshape(-1), diag_terms)
+    return _epilogue_plain(re, im, (xr.reshape(-1), xi.reshape(-1)),
+                           diag_terms, inplace)
 
 
 # ---------------------------------------------------------------------------
@@ -287,51 +299,53 @@ def _check_dim(name: str, dim: int, N: int, view: int) -> None:
         raise ValueError(f"{name}: W of width {dim} does not fit 2^n = {N}")
 
 
-def lane_panel(re, im, W, *, diag_terms=None, plain: bool = False):
+def lane_panel(re, im, W, *, diag_terms=None, inplace: bool = False,
+               plain: bool = False):
     """W on the low bits: out[r, i] = sum_k W[i, k] x[r, k], view (R, dim),
     then the merged diag run ``diag_terms`` if given."""
     diag_terms = DiagTerms.of(diag_terms)
     if plain or not on_card("lane_panel", re, im):
-        return lane_panel_plain(re, im, W, diag_terms)
+        return lane_panel_plain(re, im, W, diag_terms, inplace)
     wr, wi = w_planes(W, re.device, re.dtype)
     dim, N = wr.shape[0], re.numel()
     _check_dim("lane_panel", dim, N, dim)
     fuse = diag_terms if dim == LANES else None
-    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    ore, oim = outputs(re, im, inplace)
     launch("panels", _SIGNATURES, "qst_lane_panel", re.device,
            re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
            ore.data_ptr(), oim.data_ptr(), N // dim, dim,
            *phase_args(fuse, re.device))
-    LAUNCHES[_key("lane_panel", fuse)] += 1
+    LAUNCHES[_key("lane_panel", fuse, inplace)] += 1
     if diag_terms is not None and fuse is None:
-        return fused_diag(ore, oim, diag_terms)
+        return fused_diag(ore, oim, diag_terms, inplace=inplace)
     return ore, oim
 
 
 def positioned_panel(re, im, W, pos: int, *, diag_terms=None,
-                     plain: bool = False):
+                     inplace: bool = False, plain: bool = False):
     """W on the bit window [pos, pos + w): view (A, dim, C = 2^pos), then
     the merged diag run ``diag_terms`` if given."""
     diag_terms = DiagTerms.of(diag_terms)
     if plain or not on_card("positioned_panel", re, im):
-        return positioned_panel_plain(re, im, W, pos, diag_terms)
+        return positioned_panel_plain(re, im, W, pos, diag_terms, inplace)
     wr, wi = w_planes(W, re.device, re.dtype)
     dim, N, C = wr.shape[0], re.numel(), 1 << pos
     _check_dim("positioned_panel", dim, N, dim * C)
     fuse = diag_terms if dim == LANES and C >= LANES else None
-    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    ore, oim = outputs(re, im, inplace)
     launch("panels", _SIGNATURES, "qst_positioned_panel", re.device,
            re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
            ore.data_ptr(), oim.data_ptr(), N // (dim * C), dim, C,
            *phase_args(fuse, re.device))
-    LAUNCHES[_key("positioned_panel", fuse)] += 1
+    LAUNCHES[_key("positioned_panel", fuse, inplace)] += 1
     if diag_terms is not None and fuse is None:
-        return fused_diag(ore, oim, diag_terms)
+        return fused_diag(ore, oim, diag_terms, inplace=inplace)
     return ore, oim
 
 
 def dual_panel(re, im, W1, p1: int, W2, p2: int, *, straddle=None,
-               post_straddle=None, diag_terms=None, plain: bool = False):
+               post_straddle=None, diag_terms=None, inplace: bool = False,
+               plain: bool = False):
     """W1@p1 then W2@p2 ((p1, p2) a permutation of (0, 7)) in one pass,
     with an optional (6, qb) straddler gate before and after, then the
     merged diag run ``diag_terms`` if given."""
@@ -341,10 +355,10 @@ def dual_panel(re, im, W1, p1: int, W2, p2: int, *, straddle=None,
     diag_terms = DiagTerms.of(diag_terms)
     if re.numel() < TILE_ELEMS:
         return _dual_small(re, im, W1, p1, W2, p2, straddle, post_straddle,
-                           diag_terms, plain)
+                           diag_terms, inplace, plain)
     if plain or not on_card("dual_panel", re, im):
         return dual_panel_plain(re, im, W1, p1, W2, p2, straddle,
-                                post_straddle, diag_terms)
+                                post_straddle, diag_terms, inplace)
     dev = re.device
     w1r, w1i = w_planes(W1, dev, re.dtype)
     w2r, w2i = w_planes(W2, dev, re.dtype)
@@ -355,7 +369,7 @@ def dual_panel(re, im, W1, p1: int, W2, p2: int, *, straddle=None,
         return (None, 0) if s is None else (s.operand(dev).data_ptr(), s.qb)
 
     pre, post = strad(straddle), strad(post_straddle)
-    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    ore, oim = outputs(re, im, inplace)
     launch("panels", _SIGNATURES, "qst_dual_panel", dev,
            re.data_ptr(), im.data_ptr(),
            w1r.data_ptr(), w1i.data_ptr(), int(p1 != 0),
@@ -363,12 +377,12 @@ def dual_panel(re, im, W1, p1: int, W2, p2: int, *, straddle=None,
            pre[0], pre[1], post[0], post[1],
            ore.data_ptr(), oim.data_ptr(), re.numel() // TILE_ELEMS,
            *phase_args(diag_terms, dev))
-    LAUNCHES[_key("dual_panel", diag_terms)] += 1
+    LAUNCHES[_key("dual_panel", diag_terms, inplace)] += 1
     return ore, oim
 
 
 def _dual_small(re, im, W1, p1, W2, p2, straddle, post_straddle, diag_terms,
-                plain):
+                inplace, plain):
     """States below one (128, 128) tile (n < 14): the reference's
     two-pass branch, panels through their own wrappers (the second one
     with the diag run, unless a post-straddler follows it) and the
@@ -376,12 +390,15 @@ def _dual_small(re, im, W1, p1, W2, p2, straddle, post_straddle, diag_terms,
     from . import dense
 
     def strad(re, im, s):
-        return dense.apply_gate_planar(re, im, (6, s.qb), s.U)
+        out = dense.apply_gate_planar(re, im, (6, s.qb), s.U)
+        return store(re, im, out) if inplace else out
 
     def one(re, im, W, p, dt=None):
         if p == 0:
-            return lane_panel(re, im, W, diag_terms=dt, plain=plain)
-        return positioned_panel(re, im, W, p, diag_terms=dt, plain=plain)
+            return lane_panel(re, im, W, diag_terms=dt, inplace=inplace,
+                              plain=plain)
+        return positioned_panel(re, im, W, p, diag_terms=dt, inplace=inplace,
+                                plain=plain)
 
     if straddle is not None:
         re, im = strad(re, im, straddle)
@@ -391,5 +408,5 @@ def _dual_small(re, im, W1, p1, W2, p2, straddle, post_straddle, diag_terms,
     re, im = one(re, im, W2, p2)
     re, im = strad(re, im, post_straddle)
     if diag_terms is not None:
-        re, im = fused_diag(re, im, diag_terms, plain=plain)
+        re, im = fused_diag(re, im, diag_terms, inplace=inplace, plain=plain)
     return re, im

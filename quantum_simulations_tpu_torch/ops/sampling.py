@@ -1,0 +1,195 @@
+"""Planar readout of the capacity tier: norm, expectation values, qubit
+probabilities, top amplitudes and sampling on (re, im) planes, in plain
+torch.
+
+Port of the planar half of ``quantum_simulations_tpu/ops/sampling.py``
+(``_parity_fold`` / ``_bit_parity`` :28-42, :141-285).  The reference
+leans on XLA fusing ``re * re + im * im`` into each reduction.  Here every
+reduction runs over chunks of at most 2^``CHUNK_BITS`` = 2^28 amplitudes and no
+temporary is larger than a chunk: at n = 33 the probability vector alone
+would be 32 GiB, and the card holds about 15 GiB beside the two planes.
+Sums accumulate in float64 (the reference sums in float32).  Indices are
+int64 (the reference keeps int32 for n <= 31; qpe(32)'s answer lies above
+2^32), and random draws come from an explicit seeded ``torch.Generator``:
+samples follow the same distribution as the reference's, not its bits.
+"""
+from __future__ import annotations
+
+import torch
+
+CHUNK_BITS = 28
+
+
+def _n_of(re: torch.Tensor) -> int:
+    return re.numel().bit_length() - 1
+
+
+def _chunk(re: torch.Tensor, at_least: int = 1) -> int:
+    return min(re.numel(), max(1 << CHUNK_BITS, at_least))
+
+
+def _prob_chunks(re: torch.Tensor, im: torch.Tensor, at_least: int = 1):
+    """``(start, p)`` for each chunk [start, start + len): p = |psi|^2 of
+    its amplitudes, one float temporary of the chunk's length (at least
+    ``at_least`` amplitudes, a readout block)."""
+    step = _chunk(re, at_least)
+    for start in range(0, re.numel(), step):
+        r, i = re[start:start + step], im[start:start + step]
+        p = r * r
+        p.addcmul_(i, i)
+        yield start, p
+
+
+def _block_bits(n: int, floor: int = 3, cap: int = 15) -> int:
+    """Block width for hierarchical planar readout: ~sqrt(N), <= 2^15
+    (keeps per-shot gathered rows small), >= 2^3 (clamped to n)."""
+    return min(n, max(floor, min(cap, n // 2)))
+
+
+def _parity_fold(bits: torch.Tensor) -> torch.Tensor:
+    """Popcount parity of each element by xor folds (int32 or int64)."""
+    if bits.dtype == torch.int64:
+        bits = bits ^ (bits >> 32)
+    for s in (16, 8, 4, 2, 1):
+        bits = bits ^ (bits >> s)
+    return (bits & 1).to(torch.int32)
+
+
+def _bit_parity(n_amps: int, mask: int, device) -> torch.Tensor:
+    """Parity of ``i & mask`` for i < n_amps (int32 indices up to 2^31)."""
+    dt = torch.int32 if n_amps <= (1 << 31) else torch.int64
+    idx = torch.arange(n_amps, dtype=dt, device=device)
+    return _parity_fold(idx & mask)
+
+
+def norm2_planar(re: torch.Tensor, im: torch.Tensor) -> float:
+    acc = torch.zeros((), dtype=torch.float64, device=re.device)
+    for _, p in _prob_chunks(re, im):
+        acc += p.sum(dtype=torch.float64)
+    return float(acc)
+
+
+def expectation_z_planar(re: torch.Tensor, im: torch.Tensor, qubits) -> float:
+    """<Z...Z> on planes: the parity signs of the bits below the chunk
+    width are one table shared by every chunk; those above give each
+    chunk one sign."""
+    mask = 0
+    for q in qubits:
+        mask |= 1 << q
+    L = _chunk(re)
+    signs = 1.0 - 2.0 * _bit_parity(L, mask & (L - 1), re.device).to(re.dtype)
+    acc = torch.zeros((), dtype=torch.float64, device=re.device)
+    for start, p in _prob_chunks(re, im):
+        sign = -1.0 if bin(start & mask).count("1") & 1 else 1.0
+        acc += sign * p.mul_(signs).sum(dtype=torch.float64)
+    return float(acc)
+
+
+def qubit_probability_planar(re: torch.Tensor, im: torch.Tensor, q: int) -> float:
+    """P(qubit q = 1) from the planes."""
+    acc = torch.zeros((), dtype=torch.float64, device=re.device)
+    step = _chunk(re)
+    for start, p in _prob_chunks(re, im):
+        if (1 << q) >= step:
+            if (start >> q) & 1:
+                acc += p.sum(dtype=torch.float64)
+        else:
+            acc += p.view(-1, 2, 1 << q)[:, 1].sum(dtype=torch.float64)
+    return float(acc)
+
+
+def top_amplitudes_planar(re: torch.Tensor, im: torch.Tensor, k: int = 8):
+    """Global top-k |amplitude|^2 indices + complex values, hierarchical.
+
+    Two-level top-k: per-block maxima (one chunked pass, only the (B,)
+    maxima stay), the top-k blocks, then top-k within those blocks and a
+    top-k of the k*k candidates.  Exact: any global top-k item is top-k
+    within its own block, and its block is among the top-k blocks by max
+    (otherwise k larger items exist).  Returns (idx int64, probs, amp_re,
+    amp_im) as (k,) tensors.
+    """
+    n = _n_of(re)
+    lb = _block_bits(n)
+    L = 1 << lb
+    B = re.numel() >> lb
+    kb = min(k, B)
+    kl = min(k, L)
+    bm = torch.empty(B, dtype=re.dtype, device=re.device)
+    for start, p in _prob_chunks(re, im, L):
+        rows = p.view(-1, L)
+        bm[start >> lb:(start >> lb) + rows.shape[0]] = rows.amax(dim=1)
+    _, blocks = torch.topk(bm, kb)
+    rr = re.view(B, L)[blocks]
+    ri = im.view(B, L)[blocks]
+    pr = rr * rr + ri * ri                          # (kb, L): small
+    vals, loc = torch.topk(pr, kl, dim=1)
+    cand_idx = blocks[:, None].to(torch.int64) * L + loc
+    topv, sel = torch.topk(vals.reshape(-1), min(k, kb * kl))
+    idx = cand_idx.reshape(-1)[sel]
+    row = sel // kl
+    col = loc.reshape(-1)[sel]
+    return idx, topv, rr[row, col], ri[row, col]
+
+
+def _chunked_invcdf(cdf, prob_rows, u_b, u_l, shots: int, L: int, B: int,
+                    chunk: int = 512):
+    """Exact two-level inverse-CDF draw with a bounded working set.
+
+    ``cdf`` is the (B,) cumulative block mass; ``prob_rows(blk)`` returns
+    the (chunk, L) probability rows of a chunk of block picks.  Shots go
+    in chunks, so the gathered footprint is (chunk, L) whatever the shot
+    count.  Returns per-shot (block, offset) int64 tensors.
+    """
+    blks, locs = [], []
+    for s in range(0, shots, chunk):
+        blk = torch.searchsorted(cdf, u_b[s:s + chunk], right=True).clamp_(0, B - 1)
+        c = torch.cumsum(prob_rows(blk), dim=1)
+        tgt = u_l[s:s + chunk, None].to(c.dtype) * c[:, -1:]
+        loc = (c < tgt).sum(dim=1).clamp_(0, L - 1)
+        blks.append(blk)
+        locs.append(loc)
+    return torch.cat(blks), torch.cat(locs)
+
+
+def _hier_sample(re, im, generator: torch.Generator, shots: int, n: int):
+    """Hierarchical exact sampler over (re, im) planes.
+
+    Level 1: block masses (one chunked pass; only (B,) stays) and an
+    inverse-CDF block pick per shot.  Level 2: a chunked within-block
+    inverse CDF on the gathered rows.  Both use the exact cumulative
+    distribution (float64), so this samples |psi|^2 with O(B + chunk * L)
+    memory.  Returns (blocks, offsets, block_bits).
+    """
+    lb = _block_bits(n)
+    L = 1 << lb
+    B = re.numel() >> lb
+    s = torch.empty(B, dtype=torch.float64, device=re.device)
+    for start, p in _prob_chunks(re, im, L):
+        rows = p.view(-1, L)
+        s[start >> lb:(start >> lb) + rows.shape[0]] = rows.sum(
+            dim=1, dtype=torch.float64)
+    cdf = torch.cumsum(s, dim=0)
+    kw = dict(generator=generator, dtype=torch.float64, device=re.device)
+    u_b = torch.rand(shots, **kw) * cdf[-1]
+    u_l = torch.rand(shots, **kw)
+    rr, ri = re.view(B, L), im.view(B, L)
+
+    def prob_rows(blk):
+        r, i = rr[blk].double(), ri[blk].double()
+        return r * r + i * i
+
+    blocks, local = _chunked_invcdf(cdf, prob_rows, u_b, u_l, shots, L, B)
+    return blocks, local, lb
+
+
+def sample_bits_planar(re: torch.Tensor, im: torch.Tensor,
+                       generator: torch.Generator, shots: int,
+                       n: int) -> torch.Tensor:
+    """Bitstring samples from the planes, hierarchical inverse CDF: no
+    2^n probability vector and no (shots, B) noise tensor.  Returns
+    (shots, n) int8, column q = qubit q."""
+    blocks, local, lb = _hier_sample(re, im, generator, shots, n)
+    idx = blocks * (1 << lb) + local
+    qs = torch.arange(n, dtype=torch.int64, device=idx.device)
+    return ((idx[:, None] >> qs[None, :]) & 1).to(torch.int8)
+

@@ -11,11 +11,16 @@ run the reference's XLA paths in plain torch (``ops/dense.py``).  The
 state is split once into two float planes and stays planar for the
 whole run.
 
-Execution is out of place: each pass writes fresh planes, so the card
-holds input and output of one pass (4 planes, 16 GiB in float32 at
-n = 30).  Compiled schedules, with their W planes already on the device,
-and diag operands already on the device, are cached by circuit hash,
-dtype, device and the ``QST_*`` switches.
+Execution is out of place (each pass writes fresh planes, so the card
+holds input and output of one pass: 4 planes, 16 GiB in float32 at
+n = 30) or, with ``inplace`` (the reference's capacity tier), in place:
+every pass updates the two planes through a kernel's aliasing instance,
+routed as the reference routes its capacity tier, and no op holds a
+full-plane temporary.  On an 80 GB card that is what lets n = 33 run at
+all (two planes of 32 GiB; an out-of-place pass would need 128 GiB).
+Compiled schedules, with their W planes already on the device, and diag
+operands already on the device, are cached by circuit hash, dtype,
+device, the execution mode and the ``QST_*`` switches.
 """
 from __future__ import annotations
 
@@ -29,13 +34,14 @@ from ..circuit.contract import circuit_hash, validate_circuit_dict
 from ..circuit.gates import is_diagonal
 from ..circuit.panelize import (
     BitPermGridOp, BitPermOp, DiagOp, DualPanelOp, MultiSwapOp, PhysGateOp,
-    TransposeCrossOp, WindowPanelOp, compile_window_schedule,
+    TransposeCrossOp, WindowPanelOp, compile_window_schedule, diag_phase_terms,
 )
 from ..ops import bitperm_kernels as bk
 from ..ops import dense
 from ..ops import diag_kernels as dk
 from ..ops import pair_kernels as pq
 from ..ops import panel_kernels as pk
+from ..ops.cuda_build import store
 from ..utils.device import complex_dtype, float_dtype, resolve_device
 
 _COMPILE_CACHE: dict = {}
@@ -48,7 +54,8 @@ def _diag_terms(op):
     return op.terms
 
 
-def apply_window_op(re, im, op, diag_terms=None, *, plain: bool = False):
+def apply_window_op(re, im, op, diag_terms=None, *, inplace: bool = False,
+                    plain: bool = False):
     """Dispatch ONE window-schedule op on (re, im) planes.
 
     As the reference dispatches (its ``apply_window_op``): panels at pos
@@ -64,65 +71,170 @@ def apply_window_op(re, im, op, diag_terms=None, *, plain: bool = False):
     pass, where the reference runs a multi-axis XLA transpose
     (``apply_multiswap_planar``); a ``BitPermOp`` runs its middle pairs
     so, then ``bitperm_cross``.
+
+    ``inplace=True`` (the capacity tier) updates the given planes and
+    returns them, every op through a kernel's in-place form: the
+    ``BitPermGridOp`` as at most two ``bitperm_involution`` passes (the
+    reference's ``split_planes`` holds a third plane), a ``MultiSwapOp``
+    pair by pair as the reference routes it (simulator.py:225-251).
     ``plain=True`` runs the plain torch twins on any device.
     """
+    kw = dict(inplace=inplace, plain=plain)
     if isinstance(op, DualPanelOp):
         return pk.dual_panel(
             re, im, op.first.W, op.first.pos, op.second.W, op.second.pos,
             straddle=op.pre_straddle, post_straddle=op.post_straddle,
-            diag_terms=diag_terms, plain=plain)
+            diag_terms=diag_terms, **kw)
     if isinstance(op, WindowPanelOp):
         if op.pos == 0:
-            return pk.lane_panel(re, im, op.W, diag_terms=diag_terms,
-                                 plain=plain)
+            return pk.lane_panel(re, im, op.W, diag_terms=diag_terms, **kw)
         return pk.positioned_panel(re, im, op.W, op.pos,
-                                   diag_terms=diag_terms, plain=plain)
+                                   diag_terms=diag_terms, **kw)
     if diag_terms is not None:
         raise ValueError(f"a diag epilogue rides a panel, not a "
                          f"{type(op).__name__}")
     if isinstance(op, DiagOp):
-        return dk.fused_diag(re, im, _diag_terms(op), plain=plain)
+        return dk.fused_diag(re, im, _diag_terms(op), **kw)
     if isinstance(op, BitPermGridOp):
-        return bk.bitperm_swap(re, im, op.pairs, dict(op.grid_map),
-                               plain=plain)
+        return bk.bitperm_swap(re, im, op.pairs, dict(op.grid_map), **kw)
     if isinstance(op, TransposeCrossOp):
-        return bk.bitperm_transpose(re, im, plain=plain)
+        return bk.bitperm_transpose(re, im, **kw)
     if isinstance(op, PhysGateOp):
-        return apply_gate(re, im, op.qubits, op.U, plain=plain)
+        return apply_gate(re, im, op.qubits, op.U, name=op.name, **kw)
     if isinstance(op, MultiSwapOp):
+        if inplace:
+            return _multiswap_inplace(re, im, op.pairs, plain)
         return bk.bitperm_swap(re, im, op.pairs, {}, plain=plain)
     if isinstance(op, BitPermOp):
         if op.mid_pairs:
-            re, im = bk.bitperm_swap(re, im, op.mid_pairs, {}, plain=plain)
-        return bk.bitperm_cross(re, im, op.cross, plain=plain)
+            re, im = apply_window_op(re, im, MultiSwapOp(op.mid_pairs), **kw)
+        return bk.bitperm_cross(re, im, op.cross, **kw)
     raise TypeError(f"no window op {type(op).__name__}")
 
 
-def apply_gate(re, im, qubits, U, *, plain: bool = False):
-    """One gate, routed as the reference's standard tier routes it
-    (simulator.py:293-345): a non-diagonal 2q gate that is not a SWAP
-    to ``pair_update`` when both bits are >= 7 and
+def _multiswap_inplace(re, im, pairs, plain: bool):
+    """The capacity tier's MultiSwapOp, one in-place pass per SWAP as the
+    reference routes it: ``pair_update`` with both bits >= 10,
+    ``midpair`` for (7..9, >= 10), else (span < 7, as (8, 9) or
+    (10, 12)) a one-gate positioned panel."""
+    for qa, qb in pairs:
+        if pq.pair_update_supported(qa, qb) and min(qa, qb) >= 10:
+            pq.pair_update(re, im, qa, qb, dense._SWAP4, inplace=True,
+                           plain=plain)
+        elif pq.midpair_supported(qa, qb):
+            pq.midpair(re, im, qa, qb, dense._SWAP4, plain=plain)
+        else:
+            _panel_gate(re, im, (qa, qb), dense._SWAP4, plain)
+    return re, im
+
+
+def _panel_gate(re, im, qubits, U, plain: bool):
+    """One gate on a window of at most 7 bits as a one-gate panel, in
+    place: the lane panel when every bit is < 7, else a positioned panel
+    at the lowest bit."""
+    lo, hi = min(qubits), max(qubits)
+    if hi < dense.LANE:
+        W = dense.compose_low_panel([(tuple(qubits), U)], hi + 1)
+        return pk.lane_panel(re, im, W, inplace=True, plain=plain)
+    W = dense.compose_low_panel([(tuple(q - lo for q in qubits), U)],
+                                hi - lo + 1)
+    return pk.positioned_panel(re, im, W, lo, inplace=True, plain=plain)
+
+
+def gate_route(qubits, U, n: int, inplace: bool = False) -> str:
+    """The wrapper a gate runs through, by the reference's predicates:
+    "fused_diag", "pair_update", "midpair", "mixed_pair",
+    "mixed_low_pair", "bitperm_swap", "panel" or "dense"
+    (``ops/dense.py``).
+
+    Out of place (the standard tier, simulator.py:293-345): a
+    non-diagonal 2q gate that is not a SWAP to ``pair_update`` when
     ``pair_update_supported``; any non-diagonal 2q gate with a lane bit
     to ``mixed_pair`` (other bit >= 10) or, from n = 10, to
     ``mixed_low_pair`` (other bit 7..9); a SWAP of two bits >= 7 to
     ``bitperm_swap`` with one pair from n = 10 (the reference's XLA
-    swapaxes); everything else to the plain torch gate paths of
-    ``ops/dense.py``."""
+    swapaxes).  In place (the capacity tier, :281-324): every diagonal
+    gate to ``fused_diag`` from its Möbius terms, SWAPs too to
+    ``pair_update`` but only with both bits >= 10, (7..9, >= 10) to
+    ``midpair``, then the mixed kernels; no ``bitperm_swap``.  What the
+    reference then runs as an in-place XLA lincomb (a 1q gate, a 2q gate
+    on two close bits >= 7) goes to a one-gate panel ("panel"): in plain
+    torch it would hold full-plane temporaries, which an n = 33 state
+    leaves no room for.
+    """
     qubits = tuple(qubits)
-    U = np.asarray(U)
-    n = re.numel().bit_length() - 1
+    if inplace and is_diagonal(U):
+        return "fused_diag"
     if len(qubits) == 2 and not is_diagonal(U):
         qa, qb = qubits
         swap = np.array_equal(np.asarray(U, np.complex128), dense._SWAP4)
-        if not swap and pq.pair_update_supported(qa, qb):
-            return pq.pair_update(re, im, qa, qb, U, plain=plain)
+        if ((not swap or inplace) and pq.pair_update_supported(qa, qb)
+                and (not inplace or min(qa, qb) >= 10)):
+            return "pair_update"
+        if inplace and pq.midpair_supported(qa, qb):
+            return "midpair"
         if pq.mixed_pair_supported(qa, qb):
-            return pq.mixed_pair(re, im, qa, qb, U, plain=plain)
+            return "mixed_pair"
         if pq.mixed_low_pair_supported(qa, qb) and n >= 10:
-            return pq.mixed_low_pair(re, im, qa, qb, U, plain=plain)
-        if swap and min(qa, qb) >= 7 and n >= 10:
-            return bk.bitperm_swap(re, im, (qubits,), {}, plain=plain)
-    return dense.apply_gate_planar(re, im, qubits, U)
+            return "mixed_low_pair"
+        if swap and min(qa, qb) >= 7 and n >= 10 and not inplace:
+            return "bitperm_swap"
+    if inplace and dense.planar_kind(qubits, U, n) == "lincomb":
+        return "panel"
+    return "dense"
+
+
+def _capacity_guard_min() -> int:
+    """State size (amplitudes) from which the capacity tier refuses the
+    dense contraction (the reference's complex fallback) instead of
+    risking an allocation failure: 2^27, ``QST_CAPACITY_GUARD_MIN``
+    overrides (the reference's rule and default)."""
+    return int(os.environ.get("QST_CAPACITY_GUARD_MIN", str(1 << 27)))
+
+
+def capacity_guard(qubits, U, n: int, name=None) -> None:
+    """Raise the reference's ``ValueError`` for a gate that the capacity
+    tier would run through the dense contraction at 2^n >=
+    ``_capacity_guard_min()``: it holds a full copy of the state."""
+    qubits = tuple(qubits)
+    if (1 << n) < _capacity_guard_min() or (
+            dense.planar_kind(qubits, U, n) != "contract"):
+        return
+    name = (name if name not in (None, "?") else None) or f"{len(qubits)}q unitary"
+    raise ValueError(
+        f"capacity mode: gate {name} on qubits {qubits} has "
+        f"no in-place planar kernel (non-diagonal {len(qubits)}-qubit "
+        f"gate straddling the lane window). Decompose it into 1q/2q "
+        f"gates (e.g. CCX -> H/T/CNOT) or run below n=29 where the "
+        f"complex fallback fits."
+    )
+
+
+def apply_gate(re, im, qubits, U, *, inplace: bool = False,
+               plain: bool = False, name=None):
+    """One gate, routed by :func:`gate_route`; everything no kernel takes
+    runs the plain torch gate paths of ``ops/dense.py`` (in place: their
+    result copied back, after :func:`capacity_guard`)."""
+    qubits = tuple(qubits)
+    U = np.asarray(U)
+    n = re.numel().bit_length() - 1
+    route = gate_route(qubits, U, n, inplace)
+    if route == "fused_diag":
+        terms = tuple(diag_phase_terms(qubits, np.diag(U)).items())
+        return dk.fused_diag(re, im, terms, inplace=True, plain=plain)
+    if route == "midpair":
+        return pq.midpair(re, im, *qubits, U, plain=plain)
+    if route in ("pair_update", "mixed_pair", "mixed_low_pair"):
+        return getattr(pq, route)(re, im, *qubits, U, inplace=inplace,
+                                  plain=plain)
+    if route == "bitperm_swap":
+        return bk.bitperm_swap(re, im, (qubits,), {}, plain=plain)
+    if route == "panel":
+        return _panel_gate(re, im, qubits, U, plain)
+    if not inplace:
+        return dense.apply_gate_planar(re, im, qubits, U)
+    capacity_guard(qubits, U, n, name)
+    return store(re, im, dense.apply_gate_planar(re, im, qubits, U))
 
 
 def pair_panel_diag(ops, enabled: bool | None = None):
@@ -189,12 +301,14 @@ def _prepare_terms(terms, device):
     return dterms
 
 
-def schedule(cd: dict, window: int = 7) -> list:
+def schedule(cd: dict, window: int = 7, inplace: bool = False) -> list:
     """The circuit's window schedule as ``[(op, diag_terms | None)]``:
-    ``compile_window_schedule`` (terms-only diag merges from n = 10,
-    unless ``QST_DIAG_TERMS_ONLY=0``), then ``pair_panel_diag``."""
+    ``compile_window_schedule`` (terms-only diag merges in place and from
+    n = 10, unless ``QST_DIAG_TERMS_ONLY=0`` out of place), then
+    ``pair_panel_diag``."""
     n = cd["number_of_qubits"]
-    terms_only = n >= 10 and os.environ.get("QST_DIAG_TERMS_ONLY", "1") == "1"
+    terms_only = inplace or (
+        n >= 10 and os.environ.get("QST_DIAG_TERMS_ONLY", "1") == "1")
     return pair_panel_diag(compile_window_schedule(
         cd, window=window, diag_terms_only=terms_only))
 
@@ -210,7 +324,21 @@ def _switches() -> tuple:
     return tuple(env(k, "") for k in (
         "QST_DIAG_TERMS_ONLY", "QST_PANEL_DIAG_FUSE", "QST_PANEL_DIAG_FUSE_MIN",
         "QST_BITPERM_DECOMP", "QST_PANEL_PAIR_FUSE", "QST_STRADDLE_FOLD",
-        "QST_PANEL_GLOBAL_COALESCE"))
+        "QST_PANEL_GLOBAL_COALESCE", "QST_CAPACITY_GUARD_MIN"))
+
+
+def resolve_inplace(inplace, n: int, device, fdtype=torch.float32) -> bool:
+    """``inplace=None``: in place when the card cannot hold the four planes
+    of an out-of-place pass with 2 GiB to spare (on an 80 GB H100, from
+    n = 33); on the CPU the reference's rule, n >= 29 (a 16 GiB chip's)."""
+    if inplace is not None:
+        return bool(inplace)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return n >= 29
+    total = torch.cuda.mem_get_info(dev)[1]
+    itemsize = torch.empty((), dtype=fdtype).element_size()
+    return 4 * (1 << n) * itemsize + (2 << 30) > total
 
 
 def build_window_circuit_fn(
@@ -226,31 +354,40 @@ def build_window_circuit_fn(
     """``fn(psi) -> psi`` (or ``fn(re, im) -> (re, im)`` with
     ``planar_io``) running the circuit's window schedule.
 
-    ``inplace=True`` (the reference's capacity tier) raises
-    ``NotImplementedError`` until the capacity slice; ``None`` means
-    False.  Execution is out of place, so the caller's planes are never
-    written (the reference's ``donate`` has nothing to do here).
-    ``plain=True`` runs every op through the plain torch twins (the
-    float64 reference on the card).
+    ``inplace=True`` (the reference's capacity tier) runs every pass in
+    place: with ``planar_io`` the planes given to ``fn`` are updated and
+    returned (the reference donates them).  Before anything runs, a gate
+    that would need the dense contraction on a state of at least
+    ``QST_CAPACITY_GUARD_MIN`` amplitudes raises the reference's
+    ``ValueError`` (:func:`capacity_guard`).  ``inplace=None`` resolves by
+    :func:`resolve_inplace`.  Out of place, the caller's planes are never
+    written.  ``plain=True`` runs every op through the plain torch twins
+    (the float64 reference on the card).
     """
-    if inplace:
-        raise NotImplementedError(
-            "inplace=True (capacity tier) waits for the in-place kernels")
     dev = resolve_device(device)
     cdtype = complex_dtype(dtype)
     fdtype = float_dtype(cdtype)
     cd = validate_circuit_dict(circuit_dict)
+    n = cd["number_of_qubits"]
+    inplace = resolve_inplace(inplace, n, dev, fdtype)
     key = ("window", circuit_hash(cd), str(cdtype), window, planar_io,
-           str(dev), plain, _switches())
+           str(dev), plain, inplace, _switches())
     cached = _COMPILE_CACHE.get(key)
     if cached is not None:
         return cached
 
-    prepared = prepare_schedule(schedule(cd, window), dev, fdtype)
+    paired = schedule(cd, window, inplace)
+    if inplace:
+        for op, _ in paired:
+            if (isinstance(op, PhysGateOp)
+                    and gate_route(op.qubits, op.U, n, True) == "dense"):
+                capacity_guard(op.qubits, op.U, n, op.name)
+    prepared = prepare_schedule(paired, dev, fdtype)
 
     def body(re, im):
         for op, dterms in prepared:
-            re, im = apply_window_op(re, im, op, dterms, plain=plain)
+            re, im = apply_window_op(re, im, op, dterms, inplace=inplace,
+                                     plain=plain)
         return re, im
 
     if planar_io:

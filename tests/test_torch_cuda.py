@@ -260,3 +260,163 @@ def test_bitperm_cross_exact(dev, n, cross):
     assert bk.LAUNCHES["bitperm_cross"] == before + 1
     want = bk.bitperm_cross_plain(*x, cross)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ---------------------------------------------------------------------------
+# In place (the capacity tier): each kernel's aliasing instance against its
+# out-of-place instance (bit for bit) and its plain twin
+# ---------------------------------------------------------------------------
+
+def _inplace_check(fn, x, key, mod, twin=None, exact=False):
+    """``fn(re, im, inplace=...)`` in place on copies of ``x``: the result
+    is the given planes, equal bit for bit to the out-of-place run, one
+    launch under ``key``, and within TOL_L2 of ``twin(x)`` (or equal)."""
+    out = fn(*x, inplace=False)
+    re, im = x[0].clone(), x[1].clone()
+    before = mod.LAUNCHES[key]
+    got = fn(re, im, inplace=True)
+    assert got[0] is re and got[1] is im
+    assert mod.LAUNCHES[key] == before + 1
+    assert torch.equal(re, out[0]) and torch.equal(im, out[1])
+    if twin is not None:
+        want = twin(x)
+        if exact:
+            assert torch.equal(re, want[0]) and torch.equal(im, want[1])
+        else:
+            assert _l2((re, im), want) < TOL_L2
+
+
+@pytest.mark.parametrize("n,w,diag", [(14, 7, False), (9, 3, False),
+                                      (20, 7, True)])
+def test_lane_panel_inplace(dev, n, w, diag):
+    x, W = _state(n, n, dev), _unitary(1 << w, w)
+    dt = _terms(n, 40, n) if diag else None
+    key = "lane_panel+diag inplace" if diag else "lane_panel inplace"
+    _inplace_check(lambda re, im, inplace: pk.lane_panel(
+        re, im, W, diag_terms=dt, inplace=inplace), x, key, pk,
+        lambda x: pk.lane_panel_plain(*x, W, diag_terms=dt))
+
+
+@pytest.mark.parametrize("n,pos,w,diag", [(16, 7, 7, False), (17, 10, 7, True),
+                                          (12, 7, 5, False), (10, 8, 2, False),
+                                          (20, 13, 7, True)])
+def test_positioned_panel_inplace(dev, n, pos, w, diag):
+    x, W = _state(n, pos, dev), _unitary(1 << w, pos + w)
+    dt = _terms(n, 40, pos) if diag else None
+    key = "positioned_panel+diag inplace" if diag else "positioned_panel inplace"
+    _inplace_check(lambda re, im, inplace: pk.positioned_panel(
+        re, im, W, pos, diag_terms=dt, inplace=inplace), x, key, pk,
+        lambda x: pk.positioned_panel_plain(*x, W, pos, diag_terms=dt))
+
+
+@pytest.mark.parametrize("order", [(0, 7), (7, 0)])
+@pytest.mark.parametrize("diag", [False, True])
+def test_dual_panel_inplace(dev, order, diag):
+    x = _state(16, 5, dev)
+    W1, W2 = _unitary(128, 1), _unitary(128, 2)
+    kw = dict(straddle=(6, 9, _unitary(4, 9)),
+              post_straddle=(6, 12, _unitary(4, 12)),
+              diag_terms=_terms(16, 50, 2) if diag else None)
+    key = "dual_panel+diag inplace" if diag else "dual_panel inplace"
+    _inplace_check(lambda re, im, inplace: pk.dual_panel(
+        re, im, W1, order[0], W2, order[1], inplace=inplace, **kw), x, key, pk,
+        lambda x: pk.dual_panel_plain(*x, W1, order[0], W2, order[1], **kw))
+
+
+@pytest.mark.parametrize("n,count", [(20, 43), (9, 20)])
+def test_fused_diag_inplace(dev, n, count):
+    x, terms = _state(n, n, dev), _terms(n, count, n + count)
+    _inplace_check(lambda re, im, inplace: dk.fused_diag(
+        re, im, terms, inplace=inplace), x, "fused_diag inplace", dk,
+        lambda x: dk.fused_diag_plain(*x, terms))
+
+
+@pytest.mark.parametrize("name,qa,qb", [
+    ("pair_update", 12, 16), ("pair_update", 16, 12), ("pair_update", 13, 19),
+    ("mixed_pair", 0, 19), ("mixed_pair", 15, 1), ("mixed_low_pair", 6, 7),
+    ("mixed_low_pair", 9, 2)])
+def test_pair_wrappers_inplace(dev, name, qa, qb):
+    x, U = _state(20, qa + 20 * qb, dev), _unitary(4, qa * 7 + qb)
+    _inplace_check(lambda re, im, inplace: getattr(pq, name)(
+        re, im, qa, qb, U, inplace=inplace), x, name + " inplace", pq,
+        lambda x: pq.pair_gate_plain(*x, qa, qb, U))
+
+
+@pytest.mark.parametrize("qa,qb", [(7, 11), (11, 7), (8, 14), (14, 8),
+                                   (9, 19), (19, 9)])
+def test_midpair(dev, qa, qb):
+    """lo 7, 8, 9 in both qubit orders: in place, equal bit for bit to the
+    pair kernel out of place, and to its twin within TOL_L2."""
+    from quantum_simulations_tpu_torch.ops import dense
+
+    for U in (_unitary(4, qa * qb), dense._SWAP4):
+        x = _state(20, qa + qb, dev)
+        out = pq._pair_gate("midpair", *x, qa, qb, U, False)
+        re, im = x[0].clone(), x[1].clone()
+        before = pq.LAUNCHES["midpair"]
+        got = pq.midpair(re, im, qa, qb, U)
+        assert got[0] is re and got[1] is im
+        assert pq.LAUNCHES["midpair"] == before + 1
+        assert torch.equal(re, out[0]) and torch.equal(im, out[1])
+        assert _l2((re, im), pq.pair_gate_plain(*x, qa, qb, U)) < TOL_L2
+
+
+@pytest.mark.parametrize("n", [14, 20])
+def test_bitperm_transpose_inplace(dev, n):
+    _inplace_check(lambda re, im, inplace: bk.bitperm_transpose(
+        re, im, inplace=inplace), _state(n, n, dev),
+        "bitperm_transpose inplace", bk,
+        lambda x: bk.bitperm_transpose_plain(*x), exact=True)
+
+
+def test_bitperm_cross_inplace(dev):
+    cross = (19, 13, 17, 14, 18, 16, 15)
+    _inplace_check(lambda re, im, inplace: bk.bitperm_cross(
+        re, im, cross, inplace=inplace), _state(20, 4, dev),
+        "bitperm_cross inplace", bk,
+        lambda x: bk.bitperm_cross_plain(*x, cross), exact=True)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bitperm_swap_inplace_random_permutations(dev, seed):
+    """A random permutation of the bits >= 7 as pairs plus a grid_map: at
+    most two bitperm_involution passes, equal bit for bit to the
+    out-of-place gather."""
+    rng = np.random.default_rng(seed)
+    n = 20
+    perm = [int(b) for b in rng.permutation(np.arange(10, n))]
+    grid_map = {10 + i: perm[i] for i in range(n - 10)}
+    pairs = (((7, 9),), ((8, 9),))[seed % 2]
+    x = _state(n, seed, dev)
+    want = bk.bitperm_swap(*x, pairs, grid_map)
+    re, im = x[0].clone(), x[1].clone()
+    before = bk.LAUNCHES["bitperm_involution"]
+    got = bk.bitperm_swap(re, im, pairs, grid_map, inplace=True)
+    assert got[0] is re and got[1] is im
+    src = bk.bit_sources(n, pairs, grid_map)
+    assert (bk.LAUNCHES["bitperm_involution"] - before
+            == len(bk.involution_factors(src)))
+    assert torch.equal(re, want[0]) and torch.equal(im, want[1])
+
+
+@pytest.mark.parametrize("name", ["qft", "qpe", "non_stabilizer", "ghz"])
+def test_simulate_capacity_on_card_matches_window(dev, name):
+    """The capacity tier in place on the card: only in-place launches, and
+    the state of the out-of-place window run within TOL_L2."""
+    from quantum_simulations_tpu_torch.runtime import capacity, simulator
+
+    n = 20
+    cd = library.qpe(n - 1) if name == "qpe" else getattr(library, name)(n)
+    for m in (pk, dk, bk, pq):
+        m.reset_counts()
+    res = capacity.simulate_capacity(cd, device=dev)
+    counts = {k: v for m in (pk, dk, bk, pq) for k, v in m.LAUNCHES.items() if v}
+    assert counts and all(k.endswith(" inplace")
+                          or k in ("midpair", "bitperm_involution")
+                          for k in counts), counts
+    assert not any({**pk.PLAIN_CALLS, **dk.PLAIN_CALLS, **bk.PLAIN_CALLS,
+                    **pq.PLAIN_CALLS}.values())
+    want = simulator.simulate(cd, mode="window", device=dev)
+    assert _l2((res.re, res.im), (want.real.contiguous(),
+                                  want.imag.contiguous())) < TOL_L2
+    assert abs(res.norm2() - 1) < 1e-5

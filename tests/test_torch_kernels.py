@@ -123,10 +123,8 @@ def test_dual_panel_small_state_branch(order):
     pre, post = (6, 9, _cnot(True)), (6, 8, _unitary(4, 8))
     pk.reset_counts()
     got = _port(pk.dual_panel, psi, *args, straddle=pre, post_straddle=post)
-    assert pk.PLAIN_CALLS == {"lane_panel": 1, "lane_panel+diag": 0,
-                              "positioned_panel": 1,
-                              "positioned_panel+diag": 0, "dual_panel": 0,
-                              "dual_panel+diag": 0}
+    assert {k: v for k, v in pk.PLAIN_CALLS.items() if v} == {
+        "lane_panel": 1, "positioned_panel": 1}
     _check(got, _ref(rk.dual_panel_planar, psi, *args, straddle=pre,
                      post_straddle=post))
 

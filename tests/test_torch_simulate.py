@@ -139,7 +139,9 @@ def test_diag_op_raises_naming_the_op():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(mode="fused"), "mode='fused'"),
-    (dict(mode="capacity"), "capacity"),
+    # The capacity tier runs (tests/test_torch_capacity.py); across four
+    # devices it is the sharded tier, whose error names the tiers that run.
+    (dict(mode="capacity", n_devices=4), "capacity"),
     (dict(mode="window", sparse=True), "sparse"),
     (dict(mode="window", stripe_qubits=10), "spill"),
     (dict(mode="window", n_devices=4), "sharded"),
@@ -150,14 +152,23 @@ def test_unported_tiers_raise(kw, match):
 
 
 def test_inplace_and_diag_epilogue_raise():
-    """inplace=True still raises.  A MultiSwapOp, which raised before,
-    is prepared and runs as one bitperm_swap pass, like the reference's
-    multi-axis transpose."""
+    """inplace=True (the capacity tier), which raised before, runs in
+    place and equals the out-of-place run.  A MultiSwapOp, which raised
+    before, is prepared and runs as one bitperm_swap pass, like the
+    reference's multi-axis transpose."""
     from quantum_simulations_tpu_torch.circuit.panelize import MultiSwapOp
 
     cd = rlib.non_stabilizer(14)
-    with pytest.raises(NotImplementedError, match="capacity"):
-        PS.build_window_circuit_fn(cd, inplace=True, device=CPU)
+    psi0 = _random_state(14, 4)
+    re, im = convert.planes_from_numpy(psi0, CPU)
+    fn = PS.build_window_circuit_fn(cd, dtype="complex128", planar_io=True,
+                                    inplace=True, device=CPU)
+    out = fn(re, im)
+    assert out[0] is re and out[1] is im
+    want = PS.simulate(cd, dtype="complex128", mode="window", device=CPU,
+                       initial_state=psi0)
+    np.testing.assert_allclose(convert.to_numpy(re, im), want.numpy(),
+                               atol=1e-10, rtol=0)
     pairs = ((7, 9), (8, 12))
     (op, _), = PS.prepare_schedule([(MultiSwapOp(pairs), None)],
                                    torch.device(CPU), torch.float64)
