@@ -32,7 +32,12 @@ Phases (any failure exits non-zero):
    ``bitperm_involution`` on random involutions and ``bitperm_swap`` in
    place on random bit permutations, each on a copy of one state: the
    result must be the given planes, equal bit for bit to the
-   out-of-place run, and within 1e-5 of the plain twin.  Fails on
+   out-of-place run, and within 1e-5 of the plain twin.  Panel mode's
+   two kernels: ``tiled_transpose`` at n = 28 on the (2^21, 2^7),
+   (2^7, 2^21) and (2^14, 2^14) views, at n = 20 on (2^11, 2^9) and at
+   n = 10 on every (2^(10 - r), 2^r) (ragged tiles), bit for bit; the
+   lane panel's rotated store on nonstab28's first panel at n = 28 and
+   on random W at n = 20 and n = 10 (R = 8 rows).  Fails on
    ||diff||_2 > 1e-5, or on any difference for a bit permutation.
 3. The main path, five requests through the entry points, the counters
    set to 0 just before each request and read just after it, no plain
@@ -60,6 +65,18 @@ Phases (any failure exits non-zero):
    ``runtime.capacity.simulate_capacity`` from copies of that state):
    only in-place launches (the ``" inplace"`` keys, ``midpair``,
    ``bitperm_involution``), and a state within 1e-6 of the window run's.
+   Then panel mode (``SimulatorConfig(mode="panel")``, the CLI's
+   default) for nonstab28 (lane_panel+rotate 9, lane_panel 1,
+   tiled_transpose 7), ghz28 (4, 1, 10) and qft28 (34, 27, 63,
+   mixed_pair 8; 210 plain torch gate calls for its diagonal gates), and
+   fused mode (``SimulatorConfig()``, the API's default) for nonstab28
+   (lane_panel 9, pair_update 27, mixed_low_pair 1; 89 plain calls) and
+   ghz28 (1, 14, 1; 6), each counted from 0 with no plain twin called,
+   within 1e-5 of its float64 twins (the same mode's schedule) and of
+   its window-mode state; nonstab28 panel's peak memory at most 4
+   planes + 1 GiB above what was held before it.  Last,
+   ``python -m quantum_simulations_tpu_torch run ghz28.json`` as a
+   subprocess: top two 0x0 and 0xfffffff at 0.5 each.
 4. Times at n = 28: per kernel the median CUDA-event ms, the plain
    twin's ms, one torch library call computing the same function
    (timed here, never used by the port; for a diag run, with or without
@@ -80,7 +97,14 @@ Phases (any failure exits non-zero):
    Each kernel row also times the in-place instance on the same
    operands (``inplace_ms``); ``midpair`` on qpe28's (9, 17) SWAP and a
    random (8, 27) gate, ``bitperm_involution`` on qft28's grid
-   permutation (its bound counts only the rows it moves).
+   permutation (its bound counts only the rows it moves).  Panel mode:
+   ``tiled_transpose`` at the three phase-2 shapes (library:
+   ``.t().contiguous()``), the rotated lane panel beside the separate
+   form (the panel, then the transpose; library: ``(x @ W.T).t()
+   .contiguous()``), every pass of nonstab28's panel schedule, and e2e
+   of nonstab28 panel (also with the panel and the rotation as two
+   passes), qft28
+   panel and nonstab28 fused.
 5. The capacity tier at n = 33, the largest state an 80 GB card holds
    (two 32 GiB planes; an out-of-place pass would need 128 GiB).  With
    under 1 GiB allocated before it, ghz(33), non_stabilizer(33, depth=4,
@@ -130,7 +154,8 @@ SRC = {"lane_panel": f"{CSRC}/panels.cu",
        "mixed_pair": f"{CSRC}/pair.cu",
        "mixed_low_pair": f"{CSRC}/pair.cu",
        "midpair": f"{CSRC}/pair.cu",
-       "bitperm_involution": f"{CSRC}/bitperm.cu"}
+       "bitperm_involution": f"{CSRC}/bitperm.cu",
+       "tiled_transpose": f"{CSRC}/bitperm.cu"}
 KERNELS = list(SRC)
 PALLAS = "quantum_simulations_tpu/ops/pallas_kernels.py"
 REPLACES = {"lane_panel": f"{PALLAS}:93",
@@ -144,10 +169,15 @@ REPLACES = {"lane_panel": f"{PALLAS}:93",
             "mixed_pair": f"{PALLAS}:1107",
             "mixed_low_pair": f"{PALLAS}:1692",
             "midpair": f"{PALLAS}:1187",
-            "bitperm_involution": f"{PALLAS}:2147"}
+            "bitperm_involution": f"{PALLAS}:2147",
+            "tiled_transpose": f"{PALLAS}:2198"}
+# lane_panel's rotate option replaces the transposed store of
+# _panel_kernel (the kernels line reports it inside lane_panel's record).
+ROTATE_REPLACES = f"{PALLAS}:116"
 # The request whose launches each kernel reports; each request has
-# counts of its own.  A panel's launches count its "+diag" key too.
-PATH = {"lane_panel": "qft28",
+# counts of its own.  A panel's launches count its "+diag" and
+# "+rotate" keys too.
+PATH = {"lane_panel": "nonstab28 panel",
         "positioned_panel": "qaoa28",
         "dual_panel": "qaoa28",
         "fused_diag": "qaoa28",
@@ -158,7 +188,8 @@ PATH = {"lane_panel": "qft28",
         "mixed_pair": "qpe28",
         "mixed_low_pair": "w_qft28",
         "midpair": "qpe33",
-        "bitperm_involution": "qft33"}
+        "bitperm_involution": "qft33",
+        "tiled_transpose": "nonstab28 panel"}
 # Launches of each request, by counter key (keys not listed: 0).
 WANT = {"nonstab28": {"dual_panel": 2, "positioned_panel": 3},
         "hadamard_wall28": {"lane_panel": 1, "positioned_panel": 3},
@@ -242,10 +273,31 @@ WANT.update({
               "fused_diag inplace": 3, "pair_update inplace": 3,
               "mixed_pair inplace": 7, "midpair": 3}})
 WANT_CAPACITY33 = CAPACITY33 + ("nonstab33 inverse",)
+# Panel mode (SimulatorConfig(mode="panel"), the CLI's default) and fused
+# mode (SimulatorConfig(), the API's default) at n = 28, out of place.  A
+# 128-wide panel followed by a rotation by 7 is one rotated lane panel;
+# every other rotation step, the final un-rotation's too, one
+# tiled_transpose.  Gates no kernel takes (diagonal gates, 1q gates above
+# the lane window, CNOTs of close bits >= 7) run the plain torch paths of
+# ops/dense.py as the reference's XLA paths: DENSE counts those calls.
+PANEL28 = ("nonstab28 panel", "ghz28 panel", "qft28 panel")
+FUSED28 = ("nonstab28 fused", "ghz28 fused")
+WANT.update({
+    "nonstab28 panel": {"lane_panel+rotate": 9, "lane_panel": 1,
+                        "tiled_transpose": 7},
+    "ghz28 panel": {"lane_panel+rotate": 4, "lane_panel": 1,
+                    "tiled_transpose": 10},
+    "qft28 panel": {"lane_panel+rotate": 34, "lane_panel": 27,
+                    "tiled_transpose": 63, "mixed_pair": 8},
+    "nonstab28 fused": {"lane_panel": 9, "pair_update": 27,
+                        "mixed_low_pair": 1},
+    "ghz28 fused": {"lane_panel": 1, "pair_update": 14, "mixed_low_pair": 1}})
+DENSE = {"qft28 panel": 210, "nonstab28 fused": 89, "ghz28 fused": 6}
+PANEL_PEAK_PLANES = 4          # input and output planes of one pass
+# The requests timed end to end (window mode) and in panel / fused mode.
 # qpe(32) with theta = 1/8: eigenstate bit 32 and counting bit 29 set.
 QPE33_ANSWER = (1 << 32) | (1 << 29)
 PEAK_LIMIT = 65 * GIB          # the two planes (64 GiB) + 1 GiB
-# The requests timed end to end.
 E2E = ("nonstab28", "qft28", "qaoa28", "qpe28", "qft_adder28")
 TOL_L2 = 1e-5
 TOL_CAPACITY = 1e-6            # capacity-tier state against the window run's
@@ -269,6 +321,25 @@ def circuits() -> dict:
             "qft_adder28": library.qft_adder(NQ),
             "deutsch_jozsa28": library.deutsch_jozsa(NQ),
             "w_qft28": library.w_qft(NQ)}
+
+
+def panel_circuits() -> dict:
+    """The panel- and fused-mode requests' circuits at width NQ."""
+    from quantum_simulations_tpu_torch.circuit import library
+
+    return {"nonstab28": library.non_stabilizer(NQ, depth=4, seed=7),
+            "ghz28": library.ghz(NQ),
+            "qft28": library.qft(NQ)}
+
+
+def pass_name(op, rotated: bool = False) -> str:
+    """A short name of one pass of a panel schedule."""
+    kind = type(op).__name__
+    if kind == "PanelOp":
+        return "Panel" + ("+rotate" if rotated else "")
+    if kind == "RotateOp":
+        return f"Rotate{op.r}"
+    return f"{op.name}{op.qubits}"
 
 
 def circuits33() -> dict:
@@ -374,7 +445,7 @@ def plain_calls() -> dict:
 
 
 def kernel_of(key: str) -> str:
-    return key.split(" ")[0].removesuffix("+diag")
+    return key.split(" ")[0].removesuffix("+diag").removesuffix("+rotate")
 
 
 def is_inplace(key: str) -> bool:
@@ -679,6 +750,23 @@ def kernel_cases(n: int, scheds, rng):
                           lambda x: bk.bitperm_cross(*x, bp.cross),
                           lambda x: bk.bitperm_cross_plain(*x, bp.cross),
                           exact=True))
+        # Panel mode: a rotation step's transpose at the shapes of r = 7,
+        # 21 and 14, and nonstab28's first panel with the rotated store.
+        for rb in (7, 21, 14):
+            cases.append(transpose_case(n, rb))
+        Wp = panel_W(scheds["nonstab28 panel"])
+        cases.append(case("lane +rotate (nonstab28 panel 1)", "lane_panel",
+                          lambda x: pk.lane_panel(*x, Wp, rotate=True),
+                          lambda x: pk.lane_panel_plain(*x, Wp, rotate=True)))
+        return cases
+    if n < 14:
+        # Ragged: every rotation step of a small state (a dim below 128)
+        # and the rotated store of R < 128 rows.
+        cases = [transpose_case(n, rb) for rb in range(1, n)]
+        W = rand_unitary(128, rng)
+        cases.append(case("lane +rotate ragged", "lane_panel",
+                          lambda x: pk.lane_panel(*x, W, rotate=True),
+                          lambda x: pk.lane_panel_plain(*x, W, rotate=True)))
         return cases
     for pos in (7, 8, 9):
         W = rand_unitary(128, rng)
@@ -729,7 +817,27 @@ def kernel_cases(n: int, scheds, rng):
         U = rand_unitary(4, rng)
         cases.append(pair_case(f"random U ({qa}, {qb})",
                                ((qa, qb), U)))
+    cases.append(transpose_case(n, 9))
+    cases.append(case("lane +rotate random", "lane_panel",
+                      lambda x: pk.lane_panel(*x, Wb, rotate=True),
+                      lambda x: pk.lane_panel_plain(*x, Wb, rotate=True)))
     return cases
+
+
+def transpose_case(n: int, rb: int):
+    """``tiled_transpose`` of the (2^(n - rb), 2^rb) view (the rotation
+    step r = rb) against its twin, bit for bit."""
+    from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
+
+    rows, cols = 1 << (n - rb), 1 << rb
+    return case(f"tiled_transpose (2^{n - rb}, 2^{rb})", "tiled_transpose",
+                lambda x: bk.tiled_transpose(*x, rows, cols),
+                lambda x: bk.tiled_transpose_plain(*x, rows, cols), exact=True)
+
+
+def panel_W(items):
+    """The W of the first PanelOp of a panel schedule [(op, rotated)]."""
+    return next(op.W for op, _ in items if type(op).__name__ == "PanelOp")
 
 
 # deutsch_jozsa28's gates for pair_update's column body (lo <= 12) and
@@ -914,7 +1022,7 @@ def check_kernels(dev, scheds) -> dict:
     worst: dict = {}
     check_inplace(dev, 20, np.random.default_rng(SEED + 1), worst)
     rng = np.random.default_rng(SEED)
-    for n in (20, NQ):
+    for n in (10, 20, NQ):
         x = unit_state(n, SEED + n, dev)
         for c in kernel_cases(n, scheds, rng):
             got = c["kern"](x)
@@ -946,7 +1054,8 @@ def check_kernels(dev, scheds) -> dict:
 
 def request(label: str, run) -> tuple:
     """Run one request with the counters set to 0 just before it; check
-    its launches against WANT and that no plain twin ran."""
+    its launches against WANT, that no plain twin ran and that the plain
+    torch gate paths ran DENSE[label] times (0 unless listed)."""
     reset_counts()
     t0 = time.perf_counter()
     out = run()
@@ -956,16 +1065,19 @@ def request(label: str, run) -> tuple:
     got, plain, gates = launches(), plain_calls(), dense.GATE_CALLS
     log(f"main {label}: {wall:.3f} s (first call: schedule, operand upload, "
         f"host copy) launches={got} plain_calls={plain} dense_gate_calls={gates}")
-    if got != WANT[label] or plain or gates:
+    want_dense = DENSE.get(label, 0)
+    if got != WANT[label] or plain or gates != want_dense:
         raise AssertionError(f"{label} launch counts {got} / plain {plain} / "
-                             f"dense {gates}, want {WANT[label]} and no plain "
-                             f"or dense call")
+                             f"dense {gates}, want {WANT[label]}, no plain "
+                             f"call and {want_dense} dense calls")
     return out, got, wall
 
 
-def against_f64(label: str, psi, cd, dev, initial_state=None) -> dict:
+def against_f64(label: str, psi, cd, dev, initial_state=None,
+                mode: str = "window") -> dict:
     """|norm2 - 1| and ||psi - psi_f64||_2 against the plain twins in
-    float64 on the card, from the same initial state."""
+    float64 on the card running the same mode's schedule, from the same
+    initial state."""
     import numpy as np
     import torch
 
@@ -977,7 +1089,7 @@ def against_f64(label: str, psi, cd, dev, initial_state=None) -> dict:
     del psi
     nrm2 = norm2(got.real, got.imag)
     finite = bool(torch.isfinite(torch.view_as_real(got)).all())
-    ref = simulator.simulate(cd, dtype="complex128", mode="window",
+    ref = simulator.simulate(cd, dtype="complex128", mode=mode,
                              device=dev, plain=True, initial_state=initial_state)
     l2 = float(torch.linalg.vector_norm(got - ref))
     mx = float((got - ref).abs().max())
@@ -1120,6 +1232,83 @@ def main_path(dev) -> dict:
     return counts
 
 
+def panel_path(dev) -> dict:
+    """Phase 3, panel and fused mode: each request of PANEL28 and FUSED28
+    through ``api.simulate`` (``SimulatorConfig(mode="panel")``, the CLI's
+    default, and ``SimulatorConfig()``, the API's), counted from 0, with
+    its peak device memory above what was held before it, its distance
+    to the float64 twins of the same schedule and to the window run's
+    state; then ``python -m quantum_simulations_tpu_torch run ghz28.json``
+    as a subprocess (a process of its own: its launches are not counted
+    here; ghz28 panel above runs the same path)."""
+    import gc
+
+    import torch
+
+    from quantum_simulations_tpu_torch import SimulatorConfig, api
+
+    cds = panel_circuits()
+    counts: dict = {}
+    out: dict = {}
+    plane = 4 << NQ                  # one float32 plane, bytes
+    for label in PANEL28 + FUSED28:
+        name, mode = label.split()
+        cd = cds[name]
+        cfg = SimulatorConfig(mode="panel") if mode == "panel" else SimulatorConfig()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        psi, counts[label], wall = request(
+            label, lambda cd=cd, cfg=cfg: api.simulate(cd, cfg, device=dev))
+        peak = torch.cuda.max_memory_allocated() - held
+        rec = dict(first_call_s=wall, peak_gib=peak / GIB,
+                   peak_planes=peak / plane,
+                   **against_f64(label, psi, cd, dev, mode=mode))
+        a = torch.from_numpy(psi).to(dev)
+        del psi
+        b = torch.from_numpy(api.simulate(cd, SimulatorConfig(mode="window"),
+                                          device=dev)).to(dev)
+        rec["l2_vs_window"] = plane_distance((a.real, a.imag), (b.real, b.imag))
+        del a, b
+        log(f"main {label}: peak {peak / GIB:.3f} GiB above {held / GIB:.3f} "
+            f"GiB held ({peak / plane:.3f} planes), ||psi - psi_window||_2 = "
+            f"{rec['l2_vs_window']:.3e}")
+        ok = rec["l2_vs_window"] <= TOL_L2
+        if label == "nonstab28 panel":
+            ok = ok and peak <= PANEL_PEAK_PLANES * plane + GIB
+        if not ok:
+            raise AssertionError(f"{label} fails its check: {rec}")
+        out[label] = rec
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    path = root / "chiprun_out" / "ghz28.json"
+    path.parent.mkdir(exist_ok=True)
+    path.write_text(json.dumps(cds["ghz28"]))
+    cmd = [sys.executable, "-m", "quantum_simulations_tpu_torch", "run",
+           str(path), "--top", "2", "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI exited {proc.returncode}:\n{proc.stderr}")
+    res = json.loads(proc.stdout)
+    top = sorted(i for i, _ in res["top"])
+    ok = (top == ["0x0", hex((1 << NQ) - 1)] and abs(res["norm2"] - 1) <= 1e-5
+          and all(abs(p - 0.5) <= 1e-5 for _, p in res["top"]))
+    log(f"main cli run ghz28.json (mode panel, a subprocess): {wall:.3f} s, "
+        f"norm2={res['norm2']:.9f} top={res['top']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the CLI's ghz28 output is off: {res}")
+    out["cli ghz28"] = dict(wall_s=wall, **res)
+    RECORD["panel_fused"] = dict(launches=counts, **out)
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: times
 # ---------------------------------------------------------------------------
@@ -1148,30 +1337,29 @@ def times(dev, scheds) -> dict:
     rows: dict = {}
 
     def row(name, label, kern, twin, lib, dims, straddles=(), diag=None,
-            panel=None, inplace=None, bnd=None):
+            panel=None, inplace=None, bnd=None, separate=None):
         """One timed row; ``panel``: the same panel without its diag
         epilogue, ``inplace``: the kernel's in-place instance on the same
-        operands, each timed beside it; ``bnd``: a (bound_ms, bound_by)
-        that :func:`bound` does not cover.  An in-place call updates
-        ``x``: every one is unitary or a permutation, so ``x`` stays a
-        unit-norm state."""
+        operands, ``separate``: the same function as two passes (a
+        rotated panel as the panel, then a transpose), each timed beside
+        it; ``bnd``: a (bound_ms, bound_by) that :func:`bound` does not
+        cover.  An in-place call updates ``x``: every one is unitary or a
+        permutation, so ``x`` stays a unit-norm state."""
         ms = cuda_ms(kern, reps=10)
         plain_ms = cuda_ms(twin, reps=3)
         lib_ms = None if lib is None else cuda_ms(lib, reps=5)
-        panel_ms = None if panel is None else cuda_ms(panel, reps=10)
-        ip_ms = None if inplace is None else cuda_ms(inplace, reps=10)
+        extra = {}
+        for key, fn in (("panel_ms", panel), ("inplace_ms", inplace),
+                        ("separate_ms", separate)):
+            if fn is not None:
+                extra[key] = cuda_ms(fn, reps=10)
         b_ms, b_by = bnd or bound(N, dims, straddles, diag)
         log(f"time {label:<30} ms={ms:.3f} plain_ms={plain_ms:.3f} "
             f"library_ms={'none' if lib_ms is None else f'{lib_ms:.3f}'} "
-            + ("" if panel_ms is None else f"panel_ms={panel_ms:.3f} ")
-            + ("" if ip_ms is None else f"inplace_ms={ip_ms:.3f} ")
+            + "".join(f"{k}={v:.3f} " for k, v in extra.items())
             + f"bound_ms={b_ms:.3f} ({b_by}) bound/ms={b_ms / ms:.3f}")
         rec = dict(kernel=name, case=label, ms=ms, plain_ms=plain_ms,
-                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-        if panel_ms is not None:
-            rec["panel_ms"] = panel_ms
-        if ip_ms is not None:
-            rec["inplace_ms"] = ip_ms
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra)
         RECORD["times"].append(rec)
         rows.setdefault(name, rec)
 
@@ -1319,7 +1507,28 @@ def times(dev, scheds) -> dict:
         lambda: bk.bitperm_cross_plain(*x, tables),
         cross_library(xc, tables.cross), [],
         inplace=lambda: bk.bitperm_cross(*x, tables, inplace=True))
-    del xc
+
+    # Panel mode: a rotation step's transpose at the shapes of r = 7, 21
+    # and 14 (the first is the JSON row), and nonstab28's first panel
+    # with the rotated store beside the separate form (the panel, then
+    # the r = 7 transpose).  Their library calls: `.t().contiguous()` of
+    # the complex64 view, and the product followed by it.
+    for rb in (7, 21, 14):
+        tr, tc = 1 << (n - rb), 1 << rb
+        xv = xc.view(tr, tc)
+        row("tiled_transpose", f"tiled_transpose (2^{n - rb}, 2^{rb})",
+            lambda tr=tr, tc=tc: bk.tiled_transpose(*x, tr, tc),
+            lambda tr=tr, tc=tc: bk.tiled_transpose_plain(*x, tr, tc),
+            lambda xv=xv: xv.t().contiguous(), [])
+    Wp = panel_W(scheds["nonstab28 panel"])
+    wp = pk.w_planes(Wp, dev, torch.float32)
+    Wpt, xl = cw(Wp).T.contiguous(), xc.view(-1, 128)
+    row("lane_panel+rotate", "lane +rotate (nonstab28 panel 1)",
+        lambda: pk.lane_panel(*x, wp, rotate=True),
+        lambda: pk.lane_panel_plain(*x, wp, rotate=True),
+        lambda: (xl @ Wpt).t().contiguous(), [128],
+        separate=lambda: bk.tiled_transpose(*pk.lane_panel(*x, wp), N >> 7, 128))
+    del xc, xv, xl
 
     # Every pass of qft28 and qaoa28, operands already on the card.
     RECORD["passes"] = {}
@@ -1341,16 +1550,44 @@ def times(dev, scheds) -> dict:
         total = sum(r["ms"] for r in recs)
         log(f"pass {label} sum of {len(recs)} pass medians: {total:.3f} ms")
         RECORD["passes"][label] = dict(passes=recs, sum_ms=total)
+    # Every pass of nonstab28's panel schedule.
+    label = "nonstab28 panel"
+    recs = []
+    for i, (op, rot) in enumerate(simulator.prepare_passes(
+            scheds[label], dev, torch.float32)):
+        ms = cuda_ms(lambda op=op, rot=rot: simulator.apply_panel_op(
+            *x, op, rot), reps=5)
+        recs.append(dict(op=pass_name(op, rot), ms=ms))
+        log(f"pass {label} {i + 1:>2} {recs[-1]['op']:<28} ms={ms:.3f}")
+    total = sum(r["ms"] for r in recs)
+    log(f"pass {label} sum of {len(recs)} pass medians: {total:.3f} ms")
+    RECORD["passes"][label] = dict(passes=recs, sum_ms=total)
     del x
     torch.cuda.empty_cache()
 
     RECORD["e2e"] = {label: e2e(label, cd, dev)
                      for label, cd in circuits().items() if label in E2E}
+    pcds = panel_circuits()
+    for label, R in (("nonstab28 panel", 3), ("qft28 panel", 1),
+                     ("nonstab28 fused", 1)):
+        name, mode = label.split()
+        RECORD["e2e"][label] = e2e(label, pcds[name], dev, mode, R)
+    # Whether the rotated store paid: the same schedule, the panel and
+    # the rotation by 7 as two passes.
+    body = simulator.run_passes(simulator.prepare_passes(
+        simulator.panel_schedule(pcds["nonstab28"], fuse_rotate=False), dev,
+        torch.float32))
+    RECORD["e2e"]["nonstab28 panel unfused"] = e2e(
+        "nonstab28 panel unfused", pcds["nonstab28"], dev, "panel",
+        fn=lambda re, im: body([re, im]))
     return rows
 
 
-def e2e(label: str, cd: dict, dev) -> dict:
-    """Two-point estimator: the fixed per-call cost cancels."""
+def e2e(label: str, cd: dict, dev, mode: str = "window", R: int = 3,
+        fn=None) -> dict:
+    """Two-point estimator (t(2R) - t(R)) / R: the fixed per-call cost
+    cancels.  ``mode``: window, panel or fused; ``fn``: a planar
+    ``fn(re, im)`` to time instead of the mode's."""
     import torch
 
     from quantum_simulations_tpu_torch.ops import dense
@@ -1358,7 +1595,11 @@ def e2e(label: str, cd: dict, dev) -> dict:
 
     n = cd["number_of_qubits"]
     N = 1 << n
-    fn = simulator.build_window_circuit_fn(cd, planar_io=True, device=dev)
+    if fn is None:
+        build = {"window": simulator.build_window_circuit_fn,
+                 "panel": simulator.build_panel_circuit_fn,
+                 "fused": simulator.build_circuit_fn}[mode]
+        fn = build(cd, planar_io=True, device=dev)
 
     def chain(k: int) -> float:
         st = dense.zero_state_planar(n, torch.float32, dev)
@@ -1370,13 +1611,13 @@ def e2e(label: str, cd: dict, dev) -> dict:
         return time.perf_counter() - t0
 
     chain(1)
-    R = 3
     t1 = min(chain(R) for _ in range(3))
     t2 = min(chain(2 * R) for _ in range(3))
     dt = (t2 - t1) / R
     gates = len(cd["gates"])
     rate = gates * N / dt
-    log(f"e2e {label} window: {dt * 1e3:.3f} ms per run "
+    tag = label if mode in label.split() else f"{label} {mode}"
+    log(f"e2e {tag}: {dt * 1e3:.3f} ms per run "
         f"(t({R})={t1:.4f} s, t({2 * R})={t2:.4f} s), "
         f"{rate:.4e} amp-updates/s ({gates} gates x 2^{n} / t)")
     return dict(ms=dt * 1e3, t_R=t1, t_2R=t2, R=R, amp_updates_per_s=rate,
@@ -1499,8 +1740,9 @@ def capacity33(dev) -> dict:
 
 def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
     """One record per kernel: its launches in the request that runs it
-    (a panel's "+diag" launches included), its worst error in phase 2
-    and its phase-4 row."""
+    (a panel's "+diag" and "+rotate" launches included; the requests
+    that launch it, by key), its worst error in phase 2 and its phase-4
+    row.  lane_panel's record holds its rotate option's row too."""
     kernels = []
     for name in KERNELS:
         r = rows[name]
@@ -1509,13 +1751,22 @@ def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
         inplace = {p: sum(v for k, v in c.items() if is_inplace(k))
                    for p, c in by_path.items()
                    if p.endswith(" capacity") or p in WANT_CAPACITY33}
-        kernels.append(dict(
+        rec = dict(
             name=name, route="cuda", source=SRC[name], replaces=REPLACES[name],
             launches=sum(by_path[PATH[name]].values()), path=PATH[name],
-            launches_by_path=by_path, inplace_launches=inplace,
+            launches_by_path={p: c for p, c in by_path.items() if c},
+            inplace_launches={p: v for p, v in inplace.items() if v},
             max_abs_err=worst[name], ms=r["ms"], inplace_ms=r.get("inplace_ms"),
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"]))
+            bound_by=r["bound_by"], library_ms=r["library_ms"])
+        if name == "lane_panel":
+            rr = rows["lane_panel+rotate"]
+            rec["rotate"] = dict(
+                replaces=ROTATE_REPLACES,
+                launches=by_path[PATH[name]].get("lane_panel+rotate", 0),
+                **{k: rr[k] for k in ("ms", "separate_ms", "plain_ms",
+                                      "bound_ms", "bound_by", "library_ms")})
+        kernels.append(rec)
     RECORD["kernels"] = kernels
     return kernels
 
@@ -1531,7 +1782,9 @@ def main() -> int:
         return 2
     try:
         from quantum_simulations_tpu_torch.ops import cuda_build
-        from quantum_simulations_tpu_torch.runtime.simulator import schedule
+        from quantum_simulations_tpu_torch.runtime.simulator import (
+            panel_schedule, schedule,
+        )
     except ImportError as e:
         log(f"FAIL: the port is not beside this script ({e})")
         return 2
@@ -1559,12 +1812,18 @@ def main() -> int:
             type(o).__name__ + (f"@{o.pos}" if hasattr(o, "pos") else "")
             + (" +pre" if getattr(o, "pre_straddle", None) else "")
             + ("" if dt is None else f" +diag{len(dt)}") for o, dt in paired))
+    for label, cd in panel_circuits().items():
+        scheds[label + " panel"] = panel_schedule(cd)
+        log(f"{label} panel schedule: " + ", ".join(
+            pass_name(o, r) for o, r in scheds[label + " panel"][:24])
+            + (" ..." if len(scheds[label + " panel"]) > 24 else ""))
 
     worst = check_kernels(dev, scheds)
     if quick:
         log("quick: build and kernel checks passed")
         return 0
     counts = main_path(dev)
+    counts.update(panel_path(dev))
     rows = times(dev, scheds)
     counts.update(capacity33(dev))
     kernels = kernels_line(counts, rows, worst)

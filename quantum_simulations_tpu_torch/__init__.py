@@ -8,9 +8,10 @@ CUDA kernel written for Hopper (``csrc/``, built with ``nvcc`` at first
 use).  Entry points run on the card unless the caller passes
 ``device="cpu"``, which runs each kernel's plain torch twin.
 
-So far the port covers window-mode ``simulate`` of circuits whose window
-schedule holds only panels (``WindowPanelOp`` / ``DualPanelOp``), such
-as ``library.non_stabilizer(28)``; see ROADMAP.md for what follows.
+The port runs the dense single-device tier in its four modes (fused, the
+default; panel, the CLI's default; window; auto), the capacity tier in
+place, their readout, and the CLI (``python -m
+quantum_simulations_tpu_torch``); see ROADMAP.md for what follows.
 """
 from .circuit.contract import (
     ENDIANNESS,

@@ -1,5 +1,5 @@
-"""High-level user API of the port: the dense single-device tier and the
-capacity tier.
+"""High-level user API of the port: the dense single-device tier (modes
+fused, panel, window and auto) and the capacity tier.
 
 Routes like ``quantum_simulations_tpu/api.py``; the tiers the port has
 not reached yet raise ``NotImplementedError`` naming the tier.
@@ -7,8 +7,9 @@ not reached yet raise ``NotImplementedError`` naming the tier.
 .. code-block:: python
 
     from quantum_simulations_tpu_torch import api, library, SimulatorConfig
-    psi = api.simulate(library.non_stabilizer(28),
-                       SimulatorConfig(mode="window"))  # on the card
+    psi = api.simulate(library.non_stabilizer(28))  # fused, on the card
+    psi = api.simulate(library.qft(28), SimulatorConfig(mode="panel"))
+    bits = api.sample(library.ghz(28), shots=100, seed=1)
     res = api.simulate(library.qft(33),
                        SimulatorConfig(mode="capacity"))  # in place
     res.norm2(), res.top_amplitudes(4), res.sample_bits(100)
@@ -16,15 +17,17 @@ not reached yet raise ``NotImplementedError`` naming the tier.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .circuit.contract import has_nonunitary, validate_circuit_dict
 from .utils.config import SimulatorConfig
 
 
-def _tier(name: str) -> NotImplementedError:
-    return NotImplementedError(f"the {name} tier is not ported yet: the port "
-                               f"runs the dense single-device and capacity "
-                               f"tiers only")
+def _tier(name: str, cfg: SimulatorConfig) -> NotImplementedError:
+    return NotImplementedError(
+        f"the {name} tier is not ported yet (mode={cfg.mode!r}): the port "
+        f"runs the dense-tier modes (fused, panel, window, auto) on one "
+        f"device and the capacity tier")
 
 
 def _is_capacity(cfg: SimulatorConfig, n: int, work_dir=None) -> bool:
@@ -37,21 +40,44 @@ def _is_capacity(cfg: SimulatorConfig, n: int, work_dir=None) -> bool:
 def _unported(circuit_dict: dict, cfg: SimulatorConfig, work_dir=None):
     """The error of a tier the port does not run yet, or None."""
     if has_nonunitary(circuit_dict):
-        return _tier("trajectory")
+        return _tier("trajectory", cfg)
     if cfg.sparse == "auto":
-        return _tier("adaptive sparse")
+        return _tier("adaptive sparse", cfg)
     if cfg.sparse:
-        return _tier("sparse")
+        return _tier("sparse", cfg)
     n = validate_circuit_dict(circuit_dict)["number_of_qubits"]
     if _is_capacity(cfg, n, work_dir):
         return None
     if cfg.stripe_qubits is not None:
-        return _tier("out-of-core spill")
+        return _tier("out-of-core spill", cfg)
     if work_dir is not None:
-        return _tier("runner (WAL)")
+        return _tier("runner (WAL)", cfg)
     if (cfg.n_devices or 1) > 1:
-        return _tier("sharded")
+        return _tier("sharded", cfg)
     return None
+
+
+def run(circuit_dict: dict, cfg: SimulatorConfig, *, work_dir=None,
+        device="cuda"):
+    """Run a circuit and keep the result on the device: the capacity
+    tier's ``CapacityResult``, or the dense tier's final state as a
+    complex tensor on ``device``."""
+    err = _unported(circuit_dict, cfg, work_dir)
+    if err is not None:
+        raise err
+    cd = validate_circuit_dict(circuit_dict)
+    if _is_capacity(cfg, cd["number_of_qubits"], work_dir):
+        from .runtime.capacity import simulate_capacity
+
+        return simulate_capacity(cd, dtype=cfg.dtype, device=device)
+
+    from .runtime import simulator
+
+    return simulator.simulate(
+        cd, dtype=cfg.dtype, mode=cfg.mode, use_fusion=cfg.use_fusion,
+        panel_width=cfg.panel_width, segment_gates=cfg.segment_gates,
+        device=device,
+    )
 
 
 def simulate(circuit_dict: dict, config: SimulatorConfig | None = None,
@@ -65,57 +91,38 @@ def simulate(circuit_dict: dict, config: SimulatorConfig | None = None,
     planes stay on the device, read out by norm, top amplitudes,
     sampling and Z-string expectations.
     """
-    cfg = config or SimulatorConfig()
-    err = _unported(circuit_dict, cfg, work_dir)
-    if err is not None:
-        raise err
-    cd = validate_circuit_dict(circuit_dict)
-    if _is_capacity(cfg, cd["number_of_qubits"], work_dir):
-        from .runtime.capacity import simulate_capacity
-
-        return simulate_capacity(cd, dtype=cfg.dtype, device=device)
-
-    from .runtime import simulator
-
-    psi = simulator.simulate(
-        cd, dtype=cfg.dtype, mode=cfg.mode, use_fusion=cfg.use_fusion,
-        panel_width=cfg.panel_width, segment_gates=cfg.segment_gates,
-        device=device,
-    )
-    return psi.cpu().numpy()
-
-
-def _capacity_result(circuit_dict: dict, cfg: SimulatorConfig, device, what):
-    """The capacity tier's result; the other tiers' readout is not
-    ported yet."""
-    err = _unported(circuit_dict, cfg)
-    if err is not None:
-        raise err
-    n = validate_circuit_dict(circuit_dict)["number_of_qubits"]
-    if not _is_capacity(cfg, n):
-        raise NotImplementedError(
-            f"{what} of a dense-tier state is not ported yet: the port reads "
-            f"out the capacity tier's planes (SimulatorConfig(mode="
-            f"'capacity'), or 'auto' at n >= 29)")
-    return simulate(circuit_dict, cfg, device=device)
+    res = run(circuit_dict, config or SimulatorConfig(), work_dir=work_dir,
+              device=device)
+    if isinstance(res, torch.Tensor):
+        return res.cpu().numpy()
+    return res
 
 
 def sample(circuit_dict: dict, shots: int, *, seed: int = 0,
            config: SimulatorConfig | None = None,
            device="cuda") -> np.ndarray:
     """Simulate then draw bitstring samples; (shots, n) int8 matrix,
-    column q = qubit q."""
-    cfg = config or SimulatorConfig()
-    res = _capacity_result(circuit_dict, cfg, device, "sampling")
-    return res.sample_bits(shots, res.n, seed=seed)
+    column q = qubit q.  The dense tier samples its state on the device
+    with a ``torch.Generator`` seeded by ``seed``."""
+    from .ops import sampling
+
+    res = run(circuit_dict, config or SimulatorConfig(), device=device)
+    n = validate_circuit_dict(circuit_dict)["number_of_qubits"]
+    if isinstance(res, torch.Tensor):
+        gen = torch.Generator(device=res.device).manual_seed(seed)
+        return sampling.sample_bits(res, gen, shots, n).cpu().numpy()
+    return res.sample_bits(shots, n, seed=seed)
 
 
 def expectation_z(circuit_dict: dict, qubits: list[int],
                   config: SimulatorConfig | None = None, *,
                   device="cuda") -> float:
     """<Z_q1 Z_q2 ...> of the circuit's final state."""
-    cfg = config or SimulatorConfig()
-    res = _capacity_result(circuit_dict, cfg, device, "expectation_z")
+    from .ops import sampling
+
+    res = run(circuit_dict, config or SimulatorConfig(), device=device)
+    if isinstance(res, torch.Tensor):
+        return sampling.expectation_z(res, qubits)
     return res.expectation_z(qubits)
 
 
@@ -127,8 +134,8 @@ def expectation_pauli(circuit_dict: dict, pauli: str | dict[int, str],
 
     Non-Z axes are rotated into Z by APPENDING the basis-change layer
     (H for X, S-dagger then H for Y) to the circuit, then taking the
-    Z-string expectation through :func:`expectation_z`, so the capacity
-    tier stays planar.
+    Z-string expectation through :func:`expectation_z`, so every tier
+    reads it out on its own state (the capacity tier stays planar).
     """
     from .ops.observables import parse_pauli
 

@@ -1,4 +1,4 @@
-"""Fixed-window panel scheduler (the window half of the JAX package's
+"""Panel schedulers (the JAX package's
 ``quantum_simulations_tpu/circuit/panelize.py``, copied and kept
 numpy-only: the port imports nothing of the JAX package).
 
@@ -10,8 +10,10 @@ gates.  The passes that shape the list read the same ``QST_*`` switches
 as the reference, so both packages emit the same op list for the same
 circuit and each kernel can be checked op against op.
 
-The rotating-panel schedule (``compile_panel_schedule``) waits for a
-later slice of the port.
+``compile_panel_schedule`` is the rotating-panel schedule of
+``mode="panel"``: panels on the low window (:class:`PanelOp`), bit
+rotations that slide the next qubits into it (:class:`RotateOp`) and
+generic gates, with the residual rotation to undo at the end.
 
 Every rate and time quoted in the comments below is the JAX package's,
 measured on a TPU v5e: it explains why the schedule has the shape it
@@ -29,6 +31,19 @@ from .contract import validate_circuit_dict
 from .fusion import GateOp
 
 PANEL_W = 7  # lane window width (128 = 2^7 lanes)
+
+
+@dataclass(frozen=True)
+class PanelOp:
+    """Fused 2^w x 2^w unitary on the current low window."""
+    W: np.ndarray
+    n_fused: int
+
+
+@dataclass(frozen=True)
+class RotateOp:
+    """Rotate index-bit positions down by r (one transpose)."""
+    r: int
 
 
 @dataclass(frozen=True)
@@ -83,6 +98,144 @@ def diag_phase_terms(qubits: tuple, d) -> dict:
             qs = tuple(qubits[j] for j in range(a) if (S >> (a - 1 - j)) & 1)
             terms[qs] = terms.get(qs, 0.0) + c
     return terms
+
+
+def compile_panel_schedule(
+    circuit_dict: dict,
+    *,
+    window: int = PANEL_W,
+    max_phases_without_progress: int | None = None,
+) -> tuple[list, int]:
+    """Compile a circuit into [PanelOp | RotateOp | PhysGateOp] ops.
+
+    Returns ``(ops, final_shift)``: after executing ``ops``, logical
+    qubit q sits at physical bit (q - final_shift) mod n; undo with
+    ``RotateOp(n - final_shift % n)`` or equivalently
+    ``rotate_bits_right(psi, (n - final_shift) % n)``.
+    """
+    from ..ops.dense import compose_low_panel
+
+    cd = validate_circuit_dict(circuit_dict)
+    n = cd["number_of_qubits"]
+    gates = cd["gates"]
+    w = min(window, n)
+
+    if n <= w:
+        # Whole state fits the window: a single fused panel.
+        ops_ = [(tuple(g["qubits"]), G.gate_matrix(g["gate"], g["params"]))
+                for g in gates]
+        if not ops_:
+            return [], 0
+        return [PanelOp(compose_low_panel(ops_, w), len(ops_))], 0
+
+    # DAG readiness bookkeeping.
+    per_qubit: dict[int, list[int]] = {}
+    for i, g in enumerate(gates):
+        for q in g["qubits"]:
+            per_qubit.setdefault(q, []).append(i)
+    head = {q: 0 for q in per_qubit}
+    pending = list(range(len(gates)))
+    shift = 0  # logical qubit q sits at physical (q - shift) mod n
+
+    def phys(q: int) -> int:
+        return (q - shift) % n
+
+    def is_ready(i: int) -> bool:
+        return all(per_qubit[q][head[q]] == i for q in gates[i]["qubits"])
+
+    def mark(i: int) -> None:
+        for q in gates[i]["qubits"]:
+            head[q] += 1
+
+    def never_fits(g: dict) -> bool:
+        qs = g["qubits"]
+        if len(qs) == 1:
+            return False
+        span = max(
+            min((qa - qb) % n, (qb - qa) % n)
+            for qa in qs for qb in qs if qa != qb
+        )
+        return span >= w
+
+    out: list = []
+
+    def emit_rotation(r: int) -> None:
+        nonlocal shift
+        r %= n
+        if r:
+            out.append(RotateOp(r))
+            shift = (shift + r) % n
+
+    stall_limit = max_phases_without_progress or (2 * ((n + w - 1) // w) + 4)
+    stalls = 0
+    while pending:
+        # Phase body: sweep pending in order, building panel runs and
+        # emitting never-fits gates generically; blocked qubits gate
+        # later gates exactly like the staging scheduler.
+        panel_run: list[tuple[tuple[int, ...], np.ndarray]] = []
+        progress = False
+        blocked: set[int] = set()
+
+        def flush_panel() -> None:
+            nonlocal panel_run
+            if panel_run:
+                out.append(PanelOp(compose_low_panel(panel_run, w), len(panel_run)))
+                panel_run = []
+
+        changed = True
+        while changed:
+            changed = False
+            still: list[int] = []
+            for i in pending:
+                g = gates[i]
+                if set(g["qubits"]) & blocked or not is_ready(i):
+                    still.append(i)
+                    blocked.update(g["qubits"])
+                    continue
+                pq = [phys(q) for q in g["qubits"]]
+                U = G.gate_matrix(g["gate"], g["params"])
+                if all(p < w for p in pq):
+                    panel_run.append((tuple(pq), U))
+                    mark(i)
+                    progress = changed = True
+                elif never_fits(g):
+                    flush_panel()
+                    out.append(PhysGateOp(tuple(pq), U, g["gate"]))
+                    mark(i)
+                    progress = changed = True
+                else:
+                    still.append(i)
+                    blocked.update(g["qubits"])
+            pending = still
+        flush_panel()
+
+        if not pending:
+            break
+        if progress:
+            stalls = 0
+            emit_rotation(w)
+        else:
+            stalls += 1
+            if stalls <= stall_limit:
+                # Default slide failed to expose the head gate (e.g. a
+                # pair straddling the window at this residue): rotate so
+                # the head gate's lowest physical qubit lands on 0.
+                head_gate = gates[pending[0]]
+                r = min(phys(q) for q in head_gate["qubits"])
+                emit_rotation(r if r else w)
+            else:
+                # Absolute fallback: run the head gate generically.
+                g = gates[pending[0]]
+                out.append(PhysGateOp(
+                    tuple(phys(q) for q in g["qubits"]),
+                    G.gate_matrix(g["gate"], g["params"]), g["gate"],
+                ))
+                mark(pending[0])
+                pending = pending[1:]
+                stalls = 0
+
+    return out, shift
+
 
 @dataclass(frozen=True)
 class WindowPanelOp:
@@ -832,4 +985,16 @@ def window_stats(circuit_dict: dict, *, window: int = PANEL_W,
         "bitperms": sum(1 for o in ops if isinstance(o, BitPermOp)),
         "gates": len(circuit_dict["gates"]),
         "hbm_passes": len(ops),
+    }
+
+
+def panel_stats(circuit_dict: dict, *, window: int = PANEL_W) -> dict:
+    ops, shift = compile_panel_schedule(circuit_dict, window=window)
+    return {
+        "panels": sum(1 for o in ops if isinstance(o, PanelOp)),
+        "rotations": sum(1 for o in ops if isinstance(o, RotateOp)),
+        "generic_gates": sum(1 for o in ops if isinstance(o, PhysGateOp)),
+        "gates": len(circuit_dict["gates"]),
+        "final_shift": shift,
+        "hbm_passes": len(ops) + (1 if shift else 0),
     }

@@ -44,6 +44,18 @@
 //                      no temporary.  The host factors any permutation of
 //                      the row bits into at most two involutions
 //                      (ops/bitperm_kernels.involution_factors).
+//   tiled_transpose    (rows, cols) -> (cols, rows) of both planes: a bit
+//                      rotation (the low log2(cols) bits move to the top),
+//                      the rotating-panel schedule's RotateOp.  Replaces
+//                      tiled_transpose (:2202) with _transpose_kernel
+//                      (:2198).  One block per 128 x 128 tile of one plane
+//                      through the padded shared-memory tile of
+//                      bitperm_transpose: rows of 128 floats read, columns
+//                      written as rows of 128 floats.  Any power-of-two
+//                      rows and cols (below n = 16 a rotation step may
+//                      leave a dim below 128): a ragged tile is masked.
+//                      Out of place only: the output tile (j, i) is not
+//                      the input tile (i, j).
 //
 // Bound on an H100 SXM: bytes.  Both planes are read and written once,
 // 4.3 GB at n = 28, 1.28 ms at 3.35 TB/s; there is no arithmetic (the
@@ -190,6 +202,33 @@ int launch_tile_cross(const float* re, const float* im, float* ore, float* oim,
   return (int)cudaGetLastError();
 }
 
+// ---- tiled_transpose: block (t, p) moves tile t of plane p (0: re, 1: im);
+// tile t is (t / col_tiles, t % col_tiles) in 128 x 128 units of the input.
+__global__ void __launch_bounds__(TR_NT, TR_BLOCKS_PER_SM)
+tiled_transpose_kernel(const float* __restrict__ re,
+                       const float* __restrict__ im, float* __restrict__ ore,
+                       float* __restrict__ oim, long long rows, long long cols,
+                       long long col_tiles) {
+  extern __shared__ float tile[];  // [y][c], LANES x TR_LD
+  const float* __restrict__ x = blockIdx.y ? im : re;
+  float* __restrict__ o = blockIdx.y ? oim : ore;
+  const long long r0 = (long long)(blockIdx.x / col_tiles) * LANES;
+  const long long c0 = (long long)(blockIdx.x % col_tiles) * LANES;
+  const int nr = (int)min((long long)LANES, rows - r0);
+  const int nc = (int)min((long long)LANES, cols - c0);
+#pragma unroll 8
+  for (int e = threadIdx.x; e < LANES * LANES; e += TR_NT) {
+    const int y = e / LANES, c = e % LANES;
+    if (y < nr && c < nc) tile[y * TR_LD + c] = x[(r0 + y) * cols + c0 + c];
+  }
+  __syncthreads();
+#pragma unroll 8
+  for (int e = threadIdx.x; e < LANES * LANES; e += TR_NT) {
+    const int c = e / LANES, y = e % LANES;
+    if (c < nc && y < nr) o[(c0 + c) * rows + r0 + y] = tile[y * TR_LD + c];
+  }
+}
+
 template <bool TABLES>
 int launch_tile(const float* re, const float* im, float* ore, float* oim,
                 long long M, const unsigned char* fg, void* stream) {
@@ -275,6 +314,26 @@ int qst_bitperm_cross(const float* re, const float* im, float* ore, float* oim,
   if (err != cudaSuccess) return (int)err;
   if (fg == nullptr) return (int)cudaErrorInvalidValue;
   return launch_tile<true>(re, im, ore, oim, M, fg, stream);
+}
+
+// Each plane (rows, cols) row-major -> (cols, rows); out of place only.
+int qst_tiled_transpose(const float* re, const float* im, float* ore,
+                        float* oim, long long rows, long long cols, int device,
+                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (qst::alias_mode(re, im, ore, oim) != 0 || rows < 1 || cols < 1)
+    return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(tiled_transpose_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)TR_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long long col_tiles = (cols + LANES - 1) / LANES;
+  const long long tiles = (rows + LANES - 1) / LANES * col_tiles;
+  tiled_transpose_kernel<<<dim3((unsigned)tiles, 2), TR_NT, TR_SMEM,
+                           (cudaStream_t)stream>>>(re, im, ore, oim, rows,
+                                                   cols, col_tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -9,7 +9,17 @@
 //                     out[r, i] = sum_k W[i, k] x[r, k].
 //                     Replaces panel_apply_planar / _panel_kernel
 //                     (quantum_simulations_tpu/ops/pallas_kernels.py:93,
-//                     :137), rotate=False.
+//                     :137).  ROTATE (its rotate=True, the transposed
+//                     store of :116-118): out[i, r] instead, the (dim, R)
+//                     flat result, so the pass also rotates the index bits
+//                     right by log2(dim) (the rotating-panel schedule's
+//                     panel + RotateOp(7) in one pass).  Tile element
+//                     (r, i) goes to out[i * R + r0 + r]: for each i a run
+//                     of up to 128 contiguous floats, read down a column
+//                     of the padded tile (LD = 129: conflict-free).  Out of
+//                     place only, as the reference asserts (:202): block b
+//                     writes a column slab of every output row, which other
+//                     blocks still read.
 //   positioned_panel  pos >= 7 (any pos works): the view (A, dim, C).
 //                     Replaces positioned_panel_planar (:636) and its
 //                     three Pallas bodies: _positioned_row_kernel (:553,
@@ -223,7 +233,7 @@ __device__ void diag_epilogue(const qst::Phase& ph, unsigned long long row0,
 }
 
 // ---- lane_panel: view (R, DIM); tile = 128 rows (c) x DIM lanes (k). ----
-template <int DIM, bool ALIAS>
+template <int DIM, bool ALIAS, bool ROTATE>
 __global__ void __launch_bounds__(NT, 1)
 lane_panel_kernel(typename qst::Io<float, ALIAS>::In re,
                   typename qst::Io<float, ALIAS>::In im,
@@ -231,6 +241,7 @@ lane_panel_kernel(typename qst::Io<float, ALIAS>::In re,
                   typename qst::Io<float, ALIAS>::Out ore,
                   typename qst::Io<float, ALIAS>::Out oim,
                   long long rows, qst::Phase ph) {
+  static_assert(!(ROTATE && ALIAS), "the rotated store is out of place only");
   const Smem s = smem_parts();
   const long long r0 = (long long)blockIdx.x * TILE;
   const int nr = (int)min((long long)TILE, rows - r0);
@@ -242,13 +253,23 @@ lane_panel_kernel(typename qst::Io<float, ALIAS>::In re,
     s.ti[r * LD + k] = ok ? im[base + e] : 0.f;
   }
   contract<DIM, 1, LD>(wr, wi, s);
-  if constexpr (DIM == TILE) {
+  if constexpr (DIM == TILE && !ROTATE) {
     if (ph.words != nullptr) diag_epilogue(ph, r0, 1, s);
   }
-  for (int e = threadIdx.x; e < nr * DIM; e += NT) {
-    const int r = e / DIM, k = e % DIM;
-    ore[base + e] = s.tr[r * LD + k];
-    oim[base + e] = s.ti[r * LD + k];
+  if constexpr (ROTATE) {
+    for (int e = threadIdx.x; e < DIM * TILE; e += NT) {
+      const int k = e / TILE, r = e % TILE;
+      if (r < nr) {
+        ore[k * rows + r0 + r] = s.tr[r * LD + k];
+        oim[k * rows + r0 + r] = s.ti[r * LD + k];
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < nr * DIM; e += NT) {
+      const int r = e / DIM, k = e % DIM;
+      ore[base + e] = s.tr[r * LD + k];
+      oim[base + e] = s.ti[r * LD + k];
+    }
   }
 }
 
@@ -333,15 +354,16 @@ cudaError_t allow_smem(K kernel) {
                               (int)SMEM_BYTES);
 }
 
-template <int DIM, bool ALIAS>
+template <int DIM, bool ALIAS, bool ROTATE>
 cudaError_t launch_lane(const float* re, const float* im, const float* wr,
                         const float* wi, float* ore, float* oim,
                         long long rows, const qst::Phase& ph, cudaStream_t st) {
-  cudaError_t err = allow_smem(lane_panel_kernel<DIM, ALIAS>);
+  cudaError_t err = allow_smem(lane_panel_kernel<DIM, ALIAS, ROTATE>);
   if (err != cudaSuccess) return err;
   const long long blocks = (rows + TILE - 1) / TILE;
-  lane_panel_kernel<DIM, ALIAS><<<(unsigned)blocks, NT, SMEM_BYTES, st>>>(
-      re, im, wr, wi, ore, oim, rows, ph);
+  lane_panel_kernel<DIM, ALIAS, ROTATE>
+      <<<(unsigned)blocks, NT, SMEM_BYTES, st>>>(re, im, wr, wi, ore, oim,
+                                                 rows, ph);
   return cudaGetLastError();
 }
 
@@ -389,24 +411,29 @@ const char* qst_error_string(int err) {
 // Every entry runs in place when ore == re and oim == im (the ALIAS
 // instance) and refuses planes that alias otherwise.
 
-// dim in {1, 2, 4, ..., 128}; rows = 2^n / dim.  Returns a cudaError_t.
+// dim in {1, 2, 4, ..., 128}; rows = 2^n / dim.  rotate: the transposed
+// (dim, rows) store, out of place and without a diag epilogue.  Returns a
+// cudaError_t.
 int qst_lane_panel(const float* re, const float* im, const float* wr,
                    const float* wi, float* ore, float* oim, long long rows,
-                   int dim, const void* phase, int G, int T, int device,
-                   void* stream) {
+                   int dim, int rotate, const void* phase, int G, int T,
+                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int alias = qst::alias_mode(re, im, ore, oim);
-  if (alias < 0 || (phase != nullptr && dim != TILE))
+  if (alias < 0 || (phase != nullptr && (dim != TILE || rotate)) ||
+      (rotate && alias))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const qst::Phase ph{(const uint32_t*)phase, G, T};
   switch (dim) {
-#define QST_LANE(D)                                                         \
-    case D:                                                                 \
-      return (int)(alias                                                    \
-          ? launch_lane<D, true>(re, im, wr, wi, ore, oim, rows, ph, st)    \
-          : launch_lane<D, false>(re, im, wr, wi, ore, oim, rows, ph, st));
+#define QST_LANE(D)                                                          \
+    case D:                                                                  \
+      return (int)(rotate                                                    \
+          ? launch_lane<D, false, true>(re, im, wr, wi, ore, oim, rows, ph, st) \
+          : alias                                                            \
+          ? launch_lane<D, true, false>(re, im, wr, wi, ore, oim, rows, ph, st) \
+          : launch_lane<D, false, false>(re, im, wr, wi, ore, oim, rows, ph, st));
     QST_LANE(1) QST_LANE(2) QST_LANE(4) QST_LANE(8)
     QST_LANE(16) QST_LANE(32) QST_LANE(64) QST_LANE(128)
 #undef QST_LANE

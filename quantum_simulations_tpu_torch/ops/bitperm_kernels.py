@@ -17,6 +17,10 @@ twin of each.
 ``bitperm_cross``       ``bitperm_cross_planar``: the 7 transpositions lane
                         l <-> top bit cross[l], out[x, m, y] = in[f(y), m,
                         g(x)] on the (128, M, 128) view
+``tiled_transpose``     ``tiled_transpose``: (rows, cols) -> (cols, rows)
+                        of both planes, the panel schedule's bit rotation
+                        (one step of ``dense.rotate_bits_right``), out of
+                        place
 ======================  ===================================================
 
 Each wrapper runs its CUDA kernel (``csrc/bitperm.cu``) on a CUDA tensor
@@ -43,7 +47,7 @@ LANES = 1 << LANE_BITS
 
 _KEYS = ("bitperm_swap", "bitperm_transpose", "bitperm_cross",
          "bitperm_involution", "bitperm_transpose inplace",
-         "bitperm_cross inplace")
+         "bitperm_cross inplace", "tiled_transpose")
 LAUNCHES = dict.fromkeys(_KEYS, 0)
 PLAIN_CALLS = dict.fromkeys(_KEYS, 0)
 
@@ -241,6 +245,13 @@ def bitperm_cross_plain(re, im, cross, inplace=False):
     return store(re, im, out) if inplace else out
 
 
+def tiled_transpose_plain(re, im, rows: int, cols: int):
+    """``view(rows, cols).t().contiguous()`` of each plane."""
+    PLAIN_CALLS["tiled_transpose"] += 1
+    return tuple(x.reshape(rows, cols).t().contiguous().reshape(-1)
+                 for x in (re, im))
+
+
 def _check_cross(re, tables: CrossTables) -> int:
     n = _n_of(re)
     if n < 2 * LANE_BITS:
@@ -264,6 +275,7 @@ _SIGNATURES = {
                                     _I, _P]),
     "qst_bitperm_transpose": (_I, [_P, _P, _P, _P, _LL, _I, _P]),
     "qst_bitperm_cross": (_I, [_P, _P, _P, _P, _LL, _P, _I, _P]),
+    "qst_tiled_transpose": (_I, [_P, _P, _P, _P, _LL, _LL, _I, _P]),
 }
 
 
@@ -348,4 +360,22 @@ def bitperm_cross(re, im, cross, *, inplace: bool = False,
            re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
            re.numel() >> (2 * LANE_BITS), tables.operand(re.device).data_ptr())
     LAUNCHES[_key("bitperm_cross", inplace)] += 1
+    return ore, oim
+
+
+def tiled_transpose(re, im, rows: int, cols: int, *, plain: bool = False):
+    """Each plane, read as ``(rows, cols)`` row-major, transposed to
+    ``(cols, rows)``: a rotation of the index bits right by log2(cols).
+    Out of place, 128 x 128 tiles through shared memory."""
+    rows, cols = int(rows), int(cols)
+    if rows < 1 or cols < 1 or rows * cols != re.numel():
+        raise ValueError(f"tiled_transpose: ({rows}, {cols}) is not a view of "
+                         f"{re.numel()} amplitudes")
+    if plain or not on_card("tiled_transpose", re, im):
+        return tiled_transpose_plain(re, im, rows, cols)
+    ore, oim = torch.empty_like(re), torch.empty_like(im)
+    launch("bitperm", _SIGNATURES, "qst_tiled_transpose", re.device,
+           re.data_ptr(), im.data_ptr(), ore.data_ptr(), oim.data_ptr(),
+           rows, cols)
+    LAUNCHES["tiled_transpose"] += 1
     return ore, oim

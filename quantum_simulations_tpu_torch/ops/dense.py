@@ -3,8 +3,10 @@ state construction and the gate paths that run outside the kernels.
 
 The counterparts of ``quantum_simulations_tpu/ops/dense.py``'s
 ``expand_to_low_block``, ``compose_low_panel``, ``_SWAP4``,
-``zero_state``, ``zero_state_planar`` and ``apply_gate_planar`` with the
-reference's complex ``apply_gate`` fallback behind it.  Those gate paths
+``_rotation_steps``, ``rotate_bits_right`` (the plain twin of the panel
+schedule's rotations), ``zero_state``, ``zero_state_planar`` and
+``apply_gate_planar`` with the reference's complex ``apply_gate``
+fallback behind it.  Those gate paths
 are XLA code in the reference, not Pallas kernels, so plain torch is
 their port: every call of :func:`apply_gate_planar` adds one to
 ``GATE_CALLS``.  The reference's diagonal-run helpers have no copy here:
@@ -55,6 +57,35 @@ def compose_low_panel(ops: list[tuple[tuple[int, ...], np.ndarray]], width: int)
     for qubits, U in ops:
         W = expand_to_low_block(tuple(qubits), U, width) @ W
     return W
+
+
+def _rotation_steps(r: int, n: int) -> list[int]:
+    """Decompose a bit rotation into steps whose transpose dims are all
+    >= 128 (r_i in [7, n-7]); below n = 16 one step of any r (the
+    reference's rule: its TPU transpose padded a tiny dim 16x)."""
+    r %= n
+    if r == 0:
+        return []
+    if n < 16:
+        return [r]
+    if 7 <= r <= n - 7:
+        return [r]
+    for a in range(7, n - 6):
+        b = (r - a) % n
+        if 0 < b and 7 <= b <= n - 7:
+            return [a, b]
+    return [r]  # unreachable for n >= 14
+
+
+def rotate_bits_right(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Cyclically rotate index-bit positions of the flat ``x`` down by r:
+    new bit j = old bit (j + r) mod n, the low r bits move to the top.
+    The plain twin of a rotation: each step of :func:`_rotation_steps`
+    is a (2^(n - r_i), 2^r_i) transpose."""
+    n = x.numel().bit_length() - 1
+    for step in _rotation_steps(r, n):
+        x = x.reshape(1 << (n - step), 1 << step).t().contiguous().reshape(-1)
+    return x
 
 
 def zero_state(m: int, dtype=torch.complex64, device="cpu") -> torch.Tensor:

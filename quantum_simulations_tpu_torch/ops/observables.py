@@ -1,12 +1,17 @@
-"""Pauli strings for ``api.expectation_pauli`` (a copy of
-``parse_pauli`` from ``quantum_simulations_tpu/ops/observables.py``).
+"""Pauli-string observables (a copy of ``parse_pauli`` and
+``expectation_pauli`` from ``quantum_simulations_tpu/ops/observables.py``).
 
-``api.expectation_pauli`` rotates each X / Y axis into Z by appending the
-basis-change gates (H for X, S-dagger then H for Y) to the circuit and
-takes the Z-string expectation of the result, so the capacity tier reads
-it out on its planes.
+A Pauli string P (P_q in {I, X, Y, Z}) is evaluated by rotating each X /
+Y axis into Z with a basis-change layer (H for X, S-dagger then H for Y)
+and taking the Z-string expectation of the rotated state:
+<psi| P |psi> = <psi'| Z-string |psi'>, psi' = B |psi>.
+``api.expectation_pauli`` appends that layer to the circuit instead, so
+every tier reads it out on its own planes.
 """
 from __future__ import annotations
+
+from ..circuit import gates as G
+from . import dense, sampling
 
 
 def parse_pauli(pauli: str | dict[int, str]) -> dict[int, str]:
@@ -20,3 +25,17 @@ def parse_pauli(pauli: str | dict[int, str]) -> dict[int, str]:
     if bad:
         raise ValueError(f"unknown Pauli letters {bad}")
     return out
+
+
+def expectation_pauli(psi, pauli: str | dict[int, str]) -> float:
+    """<psi| P |psi> for one Pauli string, ``psi`` a complex tensor or its
+    ``(re, im)`` planes (not written: the basis change makes new ones)."""
+    ps = parse_pauli(pauli)
+    re, im = sampling._planes(psi)
+    if not ps:
+        return sampling.norm2_planar(re, im)
+    change = {"X": G.H(), "Y": G.H() @ G.SDG()}
+    for q, p in ps.items():
+        if p in change:
+            re, im = dense.apply_gate_planar(re, im, (q,), change[p])
+    return sampling.expectation_z_planar(re, im, sorted(ps))

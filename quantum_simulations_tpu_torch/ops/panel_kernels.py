@@ -5,7 +5,9 @@ Counterpart of the three panel entries of
 ``quantum_simulations_tpu/ops/pallas_kernels.py``:
 
 =====================  ====================================================
-``lane_panel``         ``panel_apply_planar`` (pos 0, ``rotate=False``)
+``lane_panel``         ``panel_apply_planar`` (pos 0), with its ``rotate``
+                       option: the transposed store, so the pass also
+                       rotates the index bits right by log2(dim)
 ``positioned_panel``   ``positioned_panel_planar`` (pos >= 7, ragged too)
 ``dual_panel``         ``dual_panel_planar`` with its straddler gates
 =====================  ====================================================
@@ -24,8 +26,9 @@ on any device (the float64 reference run on the card).  ``inplace=True``
 (the reference's ``inplace``, the capacity tier) writes the result into
 the given planes and returns them: on the card the kernel's aliasing
 instance, in the twin an out-of-place result copied back.  Every launch
-adds one to ``LAUNCHES[name]``, ``name + "+diag"`` with an epilogue, and
-``" inplace"`` after either in place; every twin call adds one to
+adds one to ``LAUNCHES[name]``, ``name + "+diag"`` with an epilogue,
+``"lane_panel+rotate"`` for a rotated lane panel, and ``" inplace"``
+after any of them in place; every twin call adds one to
 ``PLAIN_CALLS`` under the same key.  A twin with ``diag_terms`` runs the
 panel and then the diag twin's arithmetic
 (``ops/diag_kernels.apply_diag_plain``).
@@ -56,7 +59,8 @@ TILE_ELEMS = LANES * LANES
 
 _KEYS = tuple(k + mode for mode in ("", " inplace") for k in (
     "lane_panel", "lane_panel+diag", "positioned_panel",
-    "positioned_panel+diag", "dual_panel", "dual_panel+diag"))
+    "positioned_panel+diag", "dual_panel", "dual_panel+diag")) + (
+    "lane_panel+rotate",)
 LAUNCHES = dict.fromkeys(_KEYS, 0)
 PLAIN_CALLS = dict.fromkeys(_KEYS, 0)
 
@@ -188,15 +192,28 @@ def _epilogue_plain(re, im, out, diag_terms, inplace):
     return store(re, im, out) if inplace else out
 
 
-def lane_panel_plain(re, im, W, diag_terms=None, inplace=False):
-    """out[r, i] = sum_k W[i, k] x[r, k] over the view (R, dim), then the
-    diag run ``diag_terms`` if given."""
-    PLAIN_CALLS[_key("lane_panel", diag_terms, inplace)] += 1
+def lane_panel_plain(re, im, W, diag_terms=None, inplace=False,
+                     rotate=False):
+    """out[r, i] = sum_k W[i, k] x[r, k] over the view (R, dim) (with
+    ``rotate``: out[i, r], the index bits rotated right by log2(dim)),
+    then the diag run ``diag_terms`` if given."""
+    _check_rotate(rotate, inplace)
+    PLAIN_CALLS["lane_panel+rotate" if rotate
+                else _key("lane_panel", diag_terms, inplace)] += 1
     wr, wi = w_planes(W, re.device, re.dtype)
     dim = wr.shape[0]
     o_re, o_im = _cmm(re.reshape(-1, dim), im.reshape(-1, dim), wr.T, wi.T)
+    if rotate:
+        o_re, o_im = o_re.t().contiguous(), o_im.t().contiguous()
     return _epilogue_plain(re, im, (o_re.reshape(-1), o_im.reshape(-1)),
                            diag_terms, inplace)
+
+
+def _check_rotate(rotate: bool, inplace: bool) -> None:
+    if rotate and inplace:
+        raise ValueError("lane_panel: an in-place panel cannot rotate (the "
+                         "transposed store would overwrite rows other "
+                         "blocks still read)")
 
 
 def positioned_panel_plain(re, im, W, pos: int, diag_terms=None,
@@ -285,8 +302,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PHASE = [_P, _I, _I]  # the packed DiagTerms operand (or null), G, T
 _SIGNATURES = {
     "qst_error_string": (ctypes.c_char_p, [_I]),
-    "qst_lane_panel": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, *_PHASE, _I,
-                            _P]),
+    "qst_lane_panel": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _I, *_PHASE,
+                            _I, _P]),
     "qst_positioned_panel": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _LL,
                                   *_PHASE, _I, _P]),
     "qst_dual_panel": (_I, [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P,
@@ -300,22 +317,31 @@ def _check_dim(name: str, dim: int, N: int, view: int) -> None:
 
 
 def lane_panel(re, im, W, *, diag_terms=None, inplace: bool = False,
-               plain: bool = False):
+               rotate: bool = False, plain: bool = False):
     """W on the low bits: out[r, i] = sum_k W[i, k] x[r, k], view (R, dim),
-    then the merged diag run ``diag_terms`` if given."""
+    then the merged diag run ``diag_terms`` if given.
+
+    ``rotate`` (the reference's ``rotate=True``): the tile is stored
+    transposed, out[i, r] of the (dim, R) view, so the result's index
+    bits are rotated right by log2(dim), as ``dense.rotate_bits_right``
+    after the panel.  Out of place only; with ``diag_terms`` the diag
+    run is a second pass on the rotated result (``fused_diag``), as the
+    reference runs it."""
+    _check_rotate(rotate, inplace)
     diag_terms = DiagTerms.of(diag_terms)
     if plain or not on_card("lane_panel", re, im):
-        return lane_panel_plain(re, im, W, diag_terms, inplace)
+        return lane_panel_plain(re, im, W, diag_terms, inplace, rotate)
     wr, wi = w_planes(W, re.device, re.dtype)
     dim, N = wr.shape[0], re.numel()
     _check_dim("lane_panel", dim, N, dim)
-    fuse = diag_terms if dim == LANES else None
+    fuse = diag_terms if dim == LANES and not rotate else None
     ore, oim = outputs(re, im, inplace)
     launch("panels", _SIGNATURES, "qst_lane_panel", re.device,
            re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-           ore.data_ptr(), oim.data_ptr(), N // dim, dim,
+           ore.data_ptr(), oim.data_ptr(), N // dim, dim, int(rotate),
            *phase_args(fuse, re.device))
-    LAUNCHES[_key("lane_panel", fuse, inplace)] += 1
+    LAUNCHES["lane_panel+rotate" if rotate
+             else _key("lane_panel", fuse, inplace)] += 1
     if diag_terms is not None and fuse is None:
         return fused_diag(ore, oim, diag_terms, inplace=inplace)
     return ore, oim

@@ -1,9 +1,13 @@
-"""Planar readout of the capacity tier: norm, expectation values, qubit
-probabilities, top amplitudes and sampling on (re, im) planes, in plain
-torch.
+"""Readout of a statevector: norm, expectation values, qubit
+probabilities, top amplitudes and sampling, in plain torch.
 
-Port of the planar half of ``quantum_simulations_tpu/ops/sampling.py``
-(``_parity_fold`` / ``_bit_parity`` :28-42, :141-285).  The reference
+Port of ``quantum_simulations_tpu/ops/sampling.py``.  The dense half
+(``probabilities``, ``norm``, ``expectation_z``, ``qubit_probability``,
+``sample``, ``sample_bits``, :16-124) takes a complex tensor or its
+``(re, im)`` planes and reads the planes through the planar half below:
+the same sums and the same sampler at every size.  The planar half
+(``_parity_fold`` / ``_bit_parity`` :28-42, :141-285) is the capacity
+tier's readout.  The reference
 leans on XLA fusing ``re * re + im * im`` into each reduction.  Here every
 reduction runs over chunks of at most 2^``CHUNK_BITS`` = 2^28 amplitudes and no
 temporary is larger than a chunk: at n = 33 the probability vector alone
@@ -188,8 +192,64 @@ def sample_bits_planar(re: torch.Tensor, im: torch.Tensor,
     """Bitstring samples from the planes, hierarchical inverse CDF: no
     2^n probability vector and no (shots, B) noise tensor.  Returns
     (shots, n) int8, column q = qubit q."""
+    return index_bits(_sample_planar(re, im, generator, shots, n), n)
+
+
+def _sample_planar(re, im, generator: torch.Generator, shots: int,
+                   n: int) -> torch.Tensor:
     blocks, local, lb = _hier_sample(re, im, generator, shots, n)
-    idx = blocks * (1 << lb) + local
+    return blocks * (1 << lb) + local
+
+
+def index_bits(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """(shots, n) int8 bits of int64 indices, column q = qubit q."""
     qs = torch.arange(n, dtype=torch.int64, device=idx.device)
     return ((idx[:, None] >> qs[None, :]) & 1).to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# The dense half: a complex tensor, or its (re, im) planes
+# ---------------------------------------------------------------------------
+
+def _planes(psi) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(re, im)`` of a complex tensor (views, no copy) or of a planes
+    pair."""
+    if isinstance(psi, torch.Tensor):
+        return psi.real, psi.imag
+    re, im = psi
+    return re, im
+
+
+def probabilities(psi) -> torch.Tensor:
+    re, im = _planes(psi)
+    return re * re + im * im
+
+
+def norm(psi) -> float:
+    return norm2_planar(*_planes(psi)) ** 0.5
+
+
+def expectation_z(psi, qubits) -> float:
+    """<Z_{q1} Z_{q2} ...>: the diagonal Pauli-string expectation."""
+    return expectation_z_planar(*_planes(psi), list(qubits))
+
+
+def qubit_probability(psi, q: int) -> float:
+    """P(qubit q = 1)."""
+    return qubit_probability_planar(*_planes(psi), q)
+
+
+def sample(psi, generator: torch.Generator, shots: int) -> torch.Tensor:
+    """Bitstring samples as int64 indices drawn from |psi|^2: the exact
+    hierarchical inverse CDF at every size (the reference switches to a
+    Gumbel-max draw below 2^16 amplitudes; both sample |psi|^2, neither
+    gives the other's bits)."""
+    re, im = _planes(psi)
+    return _sample_planar(re, im, generator, shots, _n_of(re))
+
+
+def sample_bits(psi, generator: torch.Generator, shots: int,
+                n: int) -> torch.Tensor:
+    """Samples as a (shots, n) int8 bit matrix, column q = qubit q."""
+    return index_bits(sample(psi, generator, shots), n)
 

@@ -1,26 +1,38 @@
-"""Single-device dense simulator, window mode, on (re, im) planes.
+"""Single-device dense simulator on (re, im) planes: window, panel and
+fused modes.
 
-Port of the window half of ``quantum_simulations_tpu/runtime/simulator.py``:
-the circuit compiles to a fixed-window schedule
-(``circuit/panelize.compile_window_schedule``) and each op runs as one
-pass of a kernel: a panel (``ops/panel_kernels.py``, with the merged diag
-run that follows it as its epilogue), a merged diag run
-(``ops/diag_kernels.py``), a two-qubit gate (``ops/pair_kernels.py``) or
-a bit permutation (``ops/bitperm_kernels.py``).  Gates no kernel takes
-run the reference's XLA paths in plain torch (``ops/dense.py``).  The
-state is split once into two float planes and stays planar for the
-whole run.
+Port of ``quantum_simulations_tpu/runtime/simulator.py``.  Each mode
+compiles the circuit to a schedule and runs each op as one pass of a
+kernel, or, for a gate no kernel takes, through the reference's XLA
+paths in plain torch (``ops/dense.py``):
 
-Execution is out of place (each pass writes fresh planes, so the card
-holds input and output of one pass: 4 planes, 16 GiB in float32 at
-n = 30) or, with ``inplace`` (the reference's capacity tier), in place:
-every pass updates the two planes through a kernel's aliasing instance,
-routed as the reference routes its capacity tier, and no op holds a
-full-plane temporary.  On an 80 GB card that is what lets n = 33 run at
-all (two planes of 32 GiB; an out-of-place pass would need 128 GiB).
-Compiled schedules, with their W planes already on the device, and diag
-operands already on the device, are cached by circuit hash, dtype,
-device, the execution mode and the ``QST_*`` switches.
+* ``mode="window"``: the fixed-window schedule
+  (``circuit/panelize.compile_window_schedule``): panels
+  (``ops/panel_kernels.py``, with the merged diag run that follows one
+  as its epilogue), merged diag runs (``ops/diag_kernels.py``),
+  two-qubit gates (``ops/pair_kernels.py``) and bit permutations
+  (``ops/bitperm_kernels.py``).
+* ``mode="panel"``: the rotating-panel schedule
+  (``compile_panel_schedule``): lane panels, bit rotations
+  (``tiled_transpose``, one pass per rotation step) and generic gates; a
+  128-wide panel directly followed by a rotation by 7 is one lane panel
+  with the transposed store.
+* ``mode="fused"`` (the default): the step compiler's ops
+  (``circuit/fusion.compile_steps``): packed low panels (``lane_panel``)
+  and single gates.
+
+The state is split once into two float planes and stays planar for the
+whole run.  Execution is out of place (each pass writes fresh planes and
+the previous ones are released, so the card holds input and output of
+one pass: 4 planes, 16 GiB in float32 at n = 30) or, in window mode with
+``inplace`` (the reference's capacity tier), in place: every pass
+updates the two planes through a kernel's aliasing instance, routed as
+the reference routes its capacity tier, and no op holds a full-plane
+temporary.  On an 80 GB card that is what lets n = 33 run at all (two
+planes of 32 GiB; an out-of-place pass would need 128 GiB).  Compiled
+schedules, with their W planes and diag operands already on the device,
+are cached by mode, circuit hash, dtype, device and the ``QST_*``
+switches.
 """
 from __future__ import annotations
 
@@ -31,10 +43,12 @@ import numpy as np
 import torch
 
 from ..circuit.contract import circuit_hash, validate_circuit_dict
+from ..circuit.fusion import LowPanelOp, compile_steps
 from ..circuit.gates import is_diagonal
 from ..circuit.panelize import (
-    BitPermGridOp, BitPermOp, DiagOp, DualPanelOp, MultiSwapOp, PhysGateOp,
-    TransposeCrossOp, WindowPanelOp, compile_window_schedule, diag_phase_terms,
+    PANEL_W, BitPermGridOp, BitPermOp, DiagOp, DualPanelOp, MultiSwapOp,
+    PanelOp, PhysGateOp, RotateOp, TransposeCrossOp, WindowPanelOp,
+    compile_panel_schedule, compile_window_schedule, diag_phase_terms,
 )
 from ..ops import bitperm_kernels as bk
 from ..ops import dense
@@ -327,6 +341,23 @@ def _switches() -> tuple:
         "QST_PANEL_GLOBAL_COALESCE", "QST_CAPACITY_GUARD_MIN"))
 
 
+def _planar_fn(body, planar_io: bool):
+    """The public ``fn`` of a compiled ``body(state)``, which runs on the
+    planes of the list ``state = [re, im]`` and empties it: then the
+    planes handed over are released after the first out-of-place pass,
+    and the card holds the input and output of one pass and no more.
+    ``fn(re, im)`` with ``planar_io`` (the caller's references stay
+    the caller's), else ``fn(psi)``; ``fn.consume`` is ``body``."""
+    if planar_io:
+        def fn(re, im):
+            return body([re, im])
+    else:
+        def fn(psi):
+            return pk.from_planar(*body(list(pk.to_planar(psi))))
+    fn.consume = body
+    return fn
+
+
 def resolve_inplace(inplace, n: int, device, fdtype=torch.float32) -> bool:
     """``inplace=None``: in place when the card cannot hold the four planes
     of an out-of-place pass with 2 GiB to spare (on an 80 GB H100, from
@@ -384,20 +415,179 @@ def build_window_circuit_fn(
                 capacity_guard(op.qubits, op.U, n, op.name)
     prepared = prepare_schedule(paired, dev, fdtype)
 
-    def body(re, im):
+    def body(state):
+        re, im = state
+        state.clear()
         for op, dterms in prepared:
             re, im = apply_window_op(re, im, op, dterms, inplace=inplace,
                                      plain=plain)
         return re, im
 
-    if planar_io:
-        fn = body
-    else:
-        def fn(psi):
-            re, im = body(*pk.to_planar(psi))
-            return pk.from_planar(re, im)
+    fn = _COMPILE_CACHE[key] = _planar_fn(body, planar_io)
+    return fn
 
-    _COMPILE_CACHE[key] = fn
+
+# ---------------------------------------------------------------------------
+# Panel mode: the rotating-panel schedule
+# ---------------------------------------------------------------------------
+
+def pair_panel_rotate(ops, enabled: bool = True) -> list:
+    """Peephole over a panel schedule: ``[(op, rotated), ...]``.
+
+    A 128-wide ``PanelOp`` directly followed by ``RotateOp(7)`` becomes
+    one ``lane_panel`` pass with the transposed store (``rotated``), the
+    pass the reference's ``panel_apply_planar(rotate=True)`` builds for
+    this transition; every other op stays as it is (a rotation by
+    another r and a panel before a gate are never swallowed).
+    ``enabled=False`` keeps the two ops apart, as the reference's
+    executor runs them (``chip_smoke.py`` times both forms).
+    """
+    out = []
+    i = 0
+    while i < len(ops):
+        op = ops[i]
+        nxt = ops[i + 1] if i + 1 < len(ops) else None
+        if (enabled and isinstance(op, PanelOp) and op.W.shape[0] == pk.LANES
+                and isinstance(nxt, RotateOp) and nxt.r == PANEL_W):
+            out.append((op, True))
+            i += 2
+        else:
+            out.append((op, False))
+            i += 1
+    return out
+
+
+def panel_schedule(cd: dict, window: int = PANEL_W,
+                   fuse_rotate: bool = True) -> list:
+    """The circuit's panel schedule as ``[(op, rotated)]``, one pass an
+    entry: ``compile_panel_schedule`` through :func:`pair_panel_rotate`
+    (``fuse_rotate``), then the final un-rotation (kept apart, as the
+    reference runs it), each rotation split into its
+    ``dense._rotation_steps`` (a ``RotateOp`` per transpose)."""
+    n = validate_circuit_dict(cd)["number_of_qubits"]
+    ops, shift = compile_panel_schedule(cd, window=window)
+    items = pair_panel_rotate(ops, fuse_rotate)
+    if shift % n:
+        items.append((RotateOp((n - shift) % n), False))
+    out = []
+    for op, rotated in items:
+        if isinstance(op, RotateOp):
+            out.extend((RotateOp(s), False)
+                       for s in dense._rotation_steps(op.r, n))
+        else:
+            out.append((op, rotated))
+    return out
+
+
+def apply_panel_op(re, im, op, rotated: bool = False, *, plain: bool = False):
+    """Dispatch ONE pass of a panel schedule on (re, im) planes: a
+    ``PanelOp`` (or a ``LowPanelOp`` of the fused steps) to ``lane_panel``
+    (``rotated``: its transposed store), a ``RotateOp`` of one rotation
+    step r to ``tiled_transpose`` of the (2^(n - r), 2^r) view, a gate
+    (``PhysGateOp`` / ``GateOp``) to :func:`apply_gate`."""
+    if isinstance(op, (PanelOp, LowPanelOp)):
+        return pk.lane_panel(re, im, op.W, rotate=rotated, plain=plain)
+    if rotated:
+        raise ValueError(f"only a panel stores rotated, not a {type(op).__name__}")
+    if isinstance(op, RotateOp):
+        n = re.numel().bit_length() - 1
+        return bk.tiled_transpose(re, im, 1 << (n - op.r), 1 << op.r,
+                                  plain=plain)
+    return apply_gate(re, im, op.qubits, op.U, name=op.name, plain=plain)
+
+
+def prepare_passes(items, device, fdtype) -> list:
+    """``[(op, flag)]`` with each panel's W planes on ``device``."""
+    return [(dataclasses.replace(op, W=pk.w_planes(op.W, device, fdtype))
+             if isinstance(op, (PanelOp, LowPanelOp)) else op, flag)
+            for op, flag in items]
+
+
+def run_passes(prepared, plain: bool = False):
+    """The body of the panel and fused modes over ``prepared`` passes
+    ``[(op, rotated)]`` (:func:`prepare_passes`): each pass out of place,
+    the previous planes released as the next ones are bound."""
+    def body(state):
+        re, im = state
+        state.clear()
+        for op, rotated in prepared:
+            re, im = apply_panel_op(re, im, op, rotated, plain=plain)
+        return re, im
+
+    return body
+
+
+def build_panel_circuit_fn(
+    circuit_dict: dict,
+    *,
+    dtype="complex64",
+    window: int = PANEL_W,
+    planar_io: bool = False,
+    device="cuda",
+    plain: bool = False,
+):
+    """``fn(psi) -> psi`` (or ``fn(re, im) -> (re, im)`` with
+    ``planar_io``) running the circuit's rotating-panel schedule
+    (:func:`panel_schedule`), out of place; the state comes back in
+    logical bit order.  ``plain=True`` runs the plain torch twins."""
+    dev = resolve_device(device)
+    cdtype = complex_dtype(dtype)
+    cd = validate_circuit_dict(circuit_dict)
+    key = ("panel", circuit_hash(cd), str(cdtype), window, planar_io,
+           str(dev), plain, _switches())
+    cached = _COMPILE_CACHE.get(key)
+    if cached is not None:
+        return cached
+    prepared = prepare_passes(panel_schedule(cd, window), dev,
+                               float_dtype(cdtype))
+    fn = _COMPILE_CACHE[key] = _planar_fn(run_passes(prepared, plain),
+                                          planar_io)
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# Fused mode: the step compiler's ops
+# ---------------------------------------------------------------------------
+
+def fused_ops(cd: dict, *, use_fusion: bool = True,
+              panel_width: int | None = PANEL_W) -> list:
+    """The fused mode's ops, one pass each: ``compile_steps`` with k = n
+    (every gate local on one device), each step's local then non-local
+    ops, as the reference's ``build_circuit_fn`` runs them."""
+    n = validate_circuit_dict(cd)["number_of_qubits"]
+    steps = compile_steps(cd, k=n, use_fusion=use_fusion,
+                          panel_width=panel_width)
+    return [op for s in steps for op in (s.local_ops + s.nonlocal_ops)]
+
+
+def build_circuit_fn(
+    circuit_dict: dict,
+    *,
+    dtype="complex64",
+    use_fusion: bool = True,
+    panel_width: int | None = PANEL_W,
+    planar_io: bool = False,
+    device="cuda",
+    plain: bool = False,
+):
+    """``fn(psi) -> psi`` (or ``fn(re, im) -> (re, im)`` with
+    ``planar_io``) running the fused mode's ops (:func:`fused_ops`), out
+    of place: a ``LowPanelOp`` is one ``lane_panel`` pass (on the card a
+    panel up to 128 wide, ``panel_width`` <= 7), a ``GateOp`` goes to
+    :func:`apply_gate`.  ``plain=True`` runs the plain torch twins."""
+    dev = resolve_device(device)
+    cdtype = complex_dtype(dtype)
+    cd = validate_circuit_dict(circuit_dict)
+    key = ("fused", circuit_hash(cd), str(cdtype), use_fusion, panel_width,
+           planar_io, str(dev), plain, _switches())
+    cached = _COMPILE_CACHE.get(key)
+    if cached is not None:
+        return cached
+    ops = fused_ops(cd, use_fusion=use_fusion, panel_width=panel_width)
+    prepared = prepare_passes([(op, False) for op in ops], dev,
+                               float_dtype(cdtype))
+    fn = _COMPILE_CACHE[key] = _planar_fn(run_passes(prepared, plain),
+                                          planar_io)
     return fn
 
 
@@ -425,9 +615,12 @@ def simulate(
     """Run a circuit on one device, return the final statevector (a
     complex tensor on ``device``).
 
-    ``mode='window'`` runs the fixed-window kernel schedule; ``'auto'``
-    resolves as in the reference and runs when it resolves to window.
-    The reference's other modes raise ``NotImplementedError``.
+    ``mode='fused'`` (the default; any mode not named below, as in the
+    reference): the step compiler's packed low panels and single gates,
+    honouring ``use_fusion`` and ``panel_width``.  ``'panel'``: the
+    rotating-panel schedule.  ``'window'``: the fixed-window schedule.
+    ``'auto'``: window from n = 14 when most gates pack into panels,
+    else fused (the reference's rule).
 
     ``segment_gates``: run the circuit as several sub-circuits of at
     most ~``segment_gates`` gates, cut at the lowest-qubit-locality
@@ -468,13 +661,16 @@ def simulate(
         st = window_stats(cd)
         dense_enough = st["hbm_passes"] <= max(4, len(cd["gates"]) // 2)
         mode = "window" if (n >= 14 and dense_enough) else "fused"
-    if mode != "window":
-        raise NotImplementedError(
-            f"mode={mode!r}: the port runs window mode only so far")
-    fn = build_window_circuit_fn(cd, dtype=cdtype, planar_io=True,
-                                 device=dev, plain=plain)
-    if initial_state is None:
-        re, im = dense.zero_state_planar(n, float_dtype(cdtype), dev)
+    kw = dict(dtype=cdtype, planar_io=True, device=dev, plain=plain)
+    if mode == "window":
+        fn = build_window_circuit_fn(cd, **kw)
+    elif mode == "panel":
+        fn = build_panel_circuit_fn(cd, **kw)
     else:
-        re, im = pk.to_planar(_as_state(initial_state, n, cdtype, dev))
-    return pk.from_planar(*fn(re, im))
+        fn = build_circuit_fn(cd, use_fusion=use_fusion,
+                              panel_width=panel_width, **kw)
+    if initial_state is None:
+        state = list(dense.zero_state_planar(n, float_dtype(cdtype), dev))
+    else:
+        state = list(pk.to_planar(_as_state(initial_state, n, cdtype, dev)))
+    return pk.from_planar(*fn.consume(state))

@@ -16,10 +16,12 @@ from pathlib import Path
 class SimulatorConfig:
     # Execution
     dtype: str = "complex64"
-    # 'window'   planar CUDA window kernels (the port's only mode so far)
-    # 'auto'     window when panels dominate, capacity at n >= 29
-    # 'fused', 'panel' and 'capacity' keep the JAX package's names and
-    # raise NotImplementedError in the port until their slices land.
+    # 'fused'    step compiler: packed low panels and single gates
+    # 'panel'    rotating-panel schedule: lane panels and bit rotations
+    # 'window'   fixed-window schedule, no rotations
+    # 'capacity' the window schedule in place, planar readout
+    # 'auto'     window when panels dominate (else fused), capacity at
+    #            n >= 29
     mode: str = "fused"
     use_fusion: bool = True
     panel_width: int | None = 7

@@ -557,7 +557,10 @@ def test_api_sample_and_expectation_route_capacity():
 
 
 @pytest.mark.parametrize("cfg,err", [
-    (SimulatorConfig(mode="window"), "dense-tier"),
+    # The dense tier reads out (tests/test_torch_panel_mode.py); beside a
+    # spill stripe it is the spill tier, whose error names the dense-tier
+    # modes that run.
+    (SimulatorConfig(mode="window", stripe_qubits=8), "dense-tier"),
     (SimulatorConfig(mode="capacity", n_devices=2), "sharded"),
     (SimulatorConfig(mode="capacity", sparse=True), "sparse"),
 ])

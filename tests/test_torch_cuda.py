@@ -420,3 +420,67 @@ def test_simulate_capacity_on_card_matches_window(dev, name):
     assert _l2((res.re, res.im), (want.real.contiguous(),
                                   want.imag.contiguous())) < TOL_L2
     assert abs(res.norm2() - 1) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# Panel mode's kernels: tiled_transpose and the lane panel's rotated store
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("rb,cb", [(17, 7), (7, 17), (12, 12), (9, 1), (1, 9),
+                                   (3, 7), (7, 3), (0, 10), (10, 0), (5, 5)])
+def test_tiled_transpose_exact(dev, rb, cb):
+    """(2^rb, 2^cb) -> (2^cb, 2^rb) of both planes, ragged tiles too: bit
+    for bit the twin's ``.t().contiguous()``."""
+    x = _state(rb + cb, rb + 3 * cb, dev)
+    before = bk.LAUNCHES["tiled_transpose"]
+    got = bk.tiled_transpose(*x, 1 << rb, 1 << cb)
+    assert bk.LAUNCHES["tiled_transpose"] == before + 1
+    want = bk.tiled_transpose_plain(*x, 1 << rb, 1 << cb)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n,w", [(20, 7), (14, 7), (10, 7), (8, 7), (9, 3),
+                                 (3, 3)])
+def test_lane_panel_rotate(dev, n, w):
+    """The rotated store against the twin (the panel, then the (R, dim)
+    transpose), R below and above one 128-row tile."""
+    from quantum_simulations_tpu_torch.ops import dense
+
+    x, W = _state(n, n + w, dev), _unitary(1 << w, w + 1)
+    before = pk.LAUNCHES["lane_panel+rotate"]
+    got = pk.lane_panel(*x, W, rotate=True)
+    assert pk.LAUNCHES["lane_panel+rotate"] == before + 1
+    want = pk.lane_panel_plain(*x, W, rotate=True)
+    assert _l2(got, want) < TOL_L2
+    flat = pk.lane_panel_plain(*x, W)
+    assert _l2(got, tuple(dense.rotate_bits_right(p, w) for p in flat)) < TOL_L2
+
+
+def test_lane_panel_rotate_refuses_in_place(dev):
+    x = _state(14, 1, dev)
+    with pytest.raises(ValueError, match="cannot rotate"):
+        pk.lane_panel(*x, _unitary(128, 1), rotate=True, inplace=True)
+
+
+@pytest.mark.parametrize("mode", ["panel", "fused"])
+@pytest.mark.parametrize("name", ["non_stabilizer", "qft", "ghz"])
+def test_panel_and_fused_modes_on_card(dev, mode, name):
+    """simulate(mode=...) on the card: no plain twin called, and the float64
+    twins of the same schedule within TOL_L2, from a random state."""
+    from quantum_simulations_tpu_torch.runtime import simulator
+
+    n = 18
+    cd = getattr(library, name)(n)
+    rng = np.random.default_rng(n)
+    psi0 = rng.standard_normal(1 << n) + 1j * rng.standard_normal(1 << n)
+    psi0 = torch.as_tensor(psi0 / np.linalg.norm(psi0), device=dev)
+    for m in (pk, dk, bk, pq):
+        m.reset_counts()
+    got = simulator.simulate(cd, mode=mode, device=dev, initial_state=psi0)
+    assert not any({**pk.PLAIN_CALLS, **dk.PLAIN_CALLS, **bk.PLAIN_CALLS,
+                    **pq.PLAIN_CALLS}.values())
+    if mode == "panel":
+        assert pk.LAUNCHES["lane_panel+rotate"] and bk.LAUNCHES["tiled_transpose"]
+    want = simulator.simulate(cd, mode=mode, dtype="complex128", device=dev,
+                              plain=True, initial_state=psi0)
+    assert float(torch.linalg.vector_norm(got.to(torch.complex128) - want)) < TOL_L2

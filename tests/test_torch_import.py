@@ -11,16 +11,22 @@ PORT = ROOT / "quantum_simulations_tpu_torch"
 
 MODULES = [
     "quantum_simulations_tpu_torch",
+    "quantum_simulations_tpu_torch.__main__",
     "quantum_simulations_tpu_torch.api",
     "quantum_simulations_tpu_torch.convert",
     "quantum_simulations_tpu_torch.circuit.dag",
+    "quantum_simulations_tpu_torch.circuit.fusion",
+    "quantum_simulations_tpu_torch.circuit.import_qasm",
     "quantum_simulations_tpu_torch.circuit.panelize",
     "quantum_simulations_tpu_torch.ops.bitperm_kernels",
     "quantum_simulations_tpu_torch.ops.cuda_build",
     "quantum_simulations_tpu_torch.ops.dense",
     "quantum_simulations_tpu_torch.ops.diag_kernels",
+    "quantum_simulations_tpu_torch.ops.observables",
     "quantum_simulations_tpu_torch.ops.pair_kernels",
     "quantum_simulations_tpu_torch.ops.panel_kernels",
+    "quantum_simulations_tpu_torch.ops.sampling",
+    "quantum_simulations_tpu_torch.runtime.capacity",
     "quantum_simulations_tpu_torch.runtime.simulator",
 ]
 
@@ -37,6 +43,8 @@ def test_import_leaves_jax_out():
             + "from quantum_simulations_tpu_torch.circuit import library\n"
             + "from quantum_simulations_tpu_torch.circuit.panelize import compile_window_schedule\n"
             + "compile_window_schedule(library.non_stabilizer(14))\n"
+            + "from quantum_simulations_tpu_torch.runtime.simulator import panel_schedule, fused_ops\n"
+            + "panel_schedule(library.non_stabilizer(14)); fused_ops(library.qft(10))\n"
             + "print('\\n'.join(sorted(sys.modules)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True).stdout.split()

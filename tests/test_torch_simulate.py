@@ -138,7 +138,9 @@ def test_diag_op_raises_naming_the_op():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="fused"), "mode='fused'"),
+    # Fused mode runs (tests/test_torch_panel_mode.py); across four devices
+    # it is the sharded tier, whose error names the mode.
+    (dict(mode="fused", n_devices=4), "mode='fused'"),
     # The capacity tier runs (tests/test_torch_capacity.py); across four
     # devices it is the sharded tier, whose error names the tiers that run.
     (dict(mode="capacity", n_devices=4), "capacity"),
