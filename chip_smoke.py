@@ -8,7 +8,10 @@ Phases (any failure exits non-zero):
 
 1. Environment: torch / CUDA versions, the card's name and power limit,
    then the build of every ``quantum_simulations_tpu_torch/csrc/*.cu``
-   (one nvcc per source, started together; ptxas register report).
+   (one nvcc per source, started together; ptxas register report), and
+   the count of tensor-core instructions (HMMA, from ``cuobjdump -sass``)
+   in each of the five instances of the dim-128 lane / positioned panel
+   kernel; fails if one has none.
 2. Each kernel against its plain torch twin on the card, on seeded
    unit-norm states.  At n = 28 with the operands of the requests:
    nonstab28's W's (positioned pos 11 / 14 / 21, dual with and without
@@ -37,8 +40,14 @@ Phases (any failure exits non-zero):
    (2^7, 2^21) and (2^14, 2^14) views, at n = 20 on (2^11, 2^9) and at
    n = 10 on every (2^(10 - r), 2^r) (ragged tiles), bit for bit; the
    lane panel's rotated store on nonstab28's first panel at n = 28 and
-   on random W at n = 20 and n = 10 (R = 8 rows).  Fails on
-   ||diff||_2 > 1e-5, or on any difference for a bit permutation.
+   on random W at n = 20 and n = 10 (R = 8 rows); at n = 10 the dim-128
+   lane panel on R = 8 rows (also with a diag run) and the positioned one
+   at pos 2 (C = 4).  Every dim-128 lane and positioned case (tensor
+   cores, split TF32) is also held to its plain twin in float64, and the
+   SIMT kernel it replaced (``QST_PANEL_SIMT=1``) is run on the same
+   operands and reported beside it.  Fails on ||diff||_2 > 1e-5 (to the
+   float32 twin, and for the tensor-core panels to the float64 one), or
+   on any difference for a bit permutation.
 3. The main path, five requests through the entry points, the counters
    set to 0 just before each request and read just after it, no plain
    twin called: ``api.simulate(non_stabilizer(28, depth=4, seed=7),
@@ -85,8 +94,12 @@ Phases (any failure exits non-zero):
    flop / 67 TFLOP/s (H100 SXM data sheet, float32 outside the tensor
    cores), with the flop the function needs (6 per complex multiply-add,
    none for a select straddler, 6 per amplitude for a diag rotation,
-   none for a bit permutation).  Each epilogue row also times the same
-   panel without it.  The pair kernel at its classes (pair_update
+   none for a bit permutation).  The tensor-core rows (the lane panel,
+   rotated or with a diag run, the positioned panel) count what they run
+   instead, 24 TF32 flop per complex multiply-add at 495 TFLOP/s, give the
+   SIMT bound beside it (``bound_simt_ms``) and time the SIMT kernel they
+   replaced on the same operands (``simt_ms``).  Each epilogue row also
+   times the same panel without it.  The pair kernel at its classes (pair_update
    column (7, 27) and row (20, 27), mixed_pair (0, 27), mixed_low_pair
    (6, 7) and (7, 6)), its library call an einsum of the (2, 2, 2, 2)
    coefficients with the complex64 (A, 2, B, 2, C) view, and
@@ -137,6 +150,12 @@ from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12       # TF32 on the tensor cores, dense
+# The kernels whose dim-128 instances run on the tensor cores (split TF32,
+# csrc/panels.cu namespace tc), and the phase-4 rows timed on them.
+TC_KERNELS = ("lane_panel", "positioned_panel")
+TC_ROWS = ("lane_panel", "lane_panel+diag", "lane_panel+rotate",
+           "positioned_panel", "positioned_panel+diag")
 GIB = 1 << 30
 SEED = 7
 NQ = 28                        # the requests' width: full size, not cut
@@ -459,6 +478,35 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def hmma_counts(libs) -> dict:
+    """Tensor-core instructions (HMMA) in each instance of the
+    tensor-core panel kernel, from ``cuobjdump -sass`` of the built
+    library of csrc/panels.cu: {"lane_panel <template args>": count}."""
+    import re
+
+    from quantum_simulations_tpu_torch.ops import cuda_build
+
+    lib = next(p for p in libs if p.name.startswith("libpanels-"))
+    tool = Path(cuda_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = None
+            t = re.search(r"panel_tc_kernelILb(\d)ELb(\d)ELb(\d)E", m.group(1))
+            if t:
+                pos, alias, rot = (int(b) for b in t.groups())
+                fn = (("positioned_panel" if pos else "lane_panel")
+                      + (" inplace" if alias else "") + (" rotate" if rot else ""))
+                counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 # ---------------------------------------------------------------------------
 # Helpers
 # ---------------------------------------------------------------------------
@@ -529,23 +577,29 @@ def straddle_flop(s) -> int:
                for k in kinds)
 
 
-def bound(N: int, dims: list[int], straddles=(), diag=None):
+def bound(N: int, dims: list[int], straddles=(), diag=None, tc=False):
     """(bound_ms, bound_by) of the work the function needs.  Bytes: both
     planes read and written once, each W and straddler U read once, a
     diag run's packed operand read once.  Operations: a complex
     contraction of width dim costs 6 * dim flop per amplitude by Gauss's
     three real products (the reference's default, ``_cmul_planes`` in
-    pallas_kernels.py), plus 4 adds; a straddler costs
-    :func:`straddle_flop`; a diag run's rotation 6 per amplitude (its
-    angle sums are integer adds and its cos / sin one sincos, not
-    counted); a bit permutation none."""
+    pallas_kernels.py), plus 4 adds, at the float32 rate; with ``tc`` (the
+    tensor-core panels) it costs what they run, four real products of
+    three TF32 products each, 24 * dim flop per amplitude, at the TF32
+    rate; a straddler costs :func:`straddle_flop`; a diag run's rotation 6
+    per amplitude (its angle sums are integer adds and its cos / sin one
+    sincos, not counted); a bit permutation none."""
     nbytes = (4 * N * 4 + sum(2 * d * d * 4 for d in dims)
               + 32 * 4 * len(straddles)
               + (0 if diag is None else 4 * diag.words.size))
-    flop = N * (sum(6 * d + 4 for d in dims)
-                + sum(straddle_flop(s) for s in straddles)
+    fp32 = N * (sum(straddle_flop(s) for s in straddles)
                 + (0 if diag is None else 6))
-    t_b, t_f = nbytes / HBM_BYTES_PER_S, flop / FP32_FLOP_PER_S
+    if tc:
+        t_f = (fp32 / FP32_FLOP_PER_S
+               + N * sum(24 * d for d in dims) / TF32_FLOP_PER_S)
+    else:
+        t_f = (fp32 + N * sum(6 * d + 4 for d in dims)) / FP32_FLOP_PER_S
+    t_b = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
@@ -663,8 +717,12 @@ def rand_terms(n: int, count: int, rng, scale: float = 5.0):
     return tuple(terms.items())
 
 
-def case(label, kernel, kern, twin, exact=False):
-    return dict(label=label, kernel=kernel, kern=kern, twin=twin, exact=exact)
+def case(label, kernel, kern, twin, exact=False, dim=128):
+    """A phase-2 case; ``dim``: the panel width (a dim-128 lane or
+    positioned panel runs on the tensor cores and is also held to its
+    float64 twin, beside the SIMT kernel it replaced)."""
+    return dict(label=label, kernel=kernel, kern=kern, twin=twin, exact=exact,
+                dim=dim)
 
 
 def find(paired, kind, *, pos=None, diag=None):
@@ -767,6 +825,18 @@ def kernel_cases(n: int, scheds, rng):
         cases.append(case("lane +rotate ragged", "lane_panel",
                           lambda x: pk.lane_panel(*x, W, rotate=True),
                           lambda x: pk.lane_panel_plain(*x, W, rotate=True)))
+        # Dim 128 below one 128-row tile (R = 2^(n - 7)) and below pos 7
+        # (C = 4 columns a tile): the tensor-core kernels' ragged loads.
+        terms = rand_terms(n, 20, rng)
+        cases.append(case("lane ragged", "lane_panel",
+                          lambda x: pk.lane_panel(*x, W),
+                          lambda x: pk.lane_panel_plain(*x, W)))
+        cases.append(case("lane +diag ragged", "lane_panel",
+                          lambda x: pk.lane_panel(*x, W, diag_terms=terms),
+                          lambda x: pk.lane_panel_plain(*x, W, diag_terms=terms)))
+        cases.append(case("positioned dim128 pos2", "positioned_panel",
+                          lambda x: pk.positioned_panel(*x, W, 2),
+                          lambda x: pk.positioned_panel_plain(*x, W, 2)))
         return cases
     for pos in (7, 8, 9):
         W = rand_unitary(128, rng)
@@ -776,7 +846,8 @@ def kernel_cases(n: int, scheds, rng):
     W64 = rand_unitary(64, rng)
     cases.append(case("positioned ragged dim64 pos14", "positioned_panel",
                       lambda x: pk.positioned_panel(*x, W64, n - 6),
-                      lambda x: pk.positioned_panel_plain(*x, W64, n - 6)))
+                      lambda x: pk.positioned_panel_plain(*x, W64, n - 6),
+                      dim=64))
     Wa, Wb = rand_unitary(128, rng), rand_unitary(128, rng)
     cases.append(case("dual (7,0)", "dual_panel",
                       lambda x: pk.dual_panel(*x, Wa, 7, Wb, 0),
@@ -1015,6 +1086,21 @@ def check_inplace(dev, n: int, rng, worst: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def against_f64_twin(c, x, got) -> dict:
+    """||diff||_2 of a tensor-core panel's result ``got`` and of the SIMT
+    kernel it replaced (``QST_PANEL_SIMT=1``, same operands) against the
+    plain twin in float64."""
+    import torch
+
+    want = c["twin"]((x[0].double(), x[1].double()))
+    with env_switch("QST_PANEL_SIMT", "1"):
+        simt = c["kern"](x)
+    torch.cuda.synchronize()
+    out = dict(l2_vs_f64=diff(got, want)[1], simt_l2_vs_f64=diff(simt, want)[1])
+    del want, simt
+    return out
+
+
 def check_kernels(dev, scheds) -> dict:
     import numpy as np
     import torch
@@ -1032,11 +1118,18 @@ def check_kernels(dev, scheds) -> dict:
             ok = l2 <= TOL_L2 and bool(torch.isfinite(got[0]).all())
             if c["exact"]:
                 ok = ok and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            rec = dict(n=n, case=c["label"], kernel=c["kernel"],
+                       max_abs_err=mx, l2_diff=l2)
+            f64 = ""
+            if c["kernel"] in TC_KERNELS and c["dim"] == 128:
+                rec.update(against_f64_twin(c, x, got))
+                ok = ok and rec["l2_vs_f64"] <= TOL_L2
+                f64 = (f" vs_f64: l2={rec['l2_vs_f64']:.3e} "
+                       f"simt_l2={rec['simt_l2_vs_f64']:.3e}")
             log(f"check n={n} {c['label']:<42} max_abs_err={mx:.3e} "
-                f"l2_diff={l2:.3e}{' exact' if c['exact'] else ''} "
+                f"l2_diff={l2:.3e}{' exact' if c['exact'] else ''}{f64} "
                 f"{'ok' if ok else 'FAIL'}")
-            RECORD["cases"].append(dict(n=n, case=c["label"], kernel=c["kernel"],
-                                        max_abs_err=mx, l2_diff=l2))
+            RECORD["cases"].append(rec)
             if not ok:
                 raise AssertionError(f"{c['kernel']} ({c['label']}, n={n}) "
                                      f"disagrees with its plain twin: "
@@ -1349,15 +1442,24 @@ def times(dev, scheds) -> dict:
         plain_ms = cuda_ms(twin, reps=3)
         lib_ms = None if lib is None else cuda_ms(lib, reps=5)
         extra = {}
+        tc = name in TC_ROWS
+
+        def simt():
+            with env_switch("QST_PANEL_SIMT", "1"):
+                kern()
+
         for key, fn in (("panel_ms", panel), ("inplace_ms", inplace),
-                        ("separate_ms", separate)):
+                        ("separate_ms", separate), ("simt_ms", simt if tc else None)):
             if fn is not None:
                 extra[key] = cuda_ms(fn, reps=10)
-        b_ms, b_by = bnd or bound(N, dims, straddles, diag)
+        b_ms, b_by = bnd or bound(N, dims, straddles, diag, tc=tc)
+        if tc:  # the bound of the SIMT kernel's float32 work, beside
+            extra["bound_simt_ms"] = bound(N, dims, straddles, diag)[0]
         log(f"time {label:<30} ms={ms:.3f} plain_ms={plain_ms:.3f} "
             f"library_ms={'none' if lib_ms is None else f'{lib_ms:.3f}'} "
             + "".join(f"{k}={v:.3f} " for k, v in extra.items())
-            + f"bound_ms={b_ms:.3f} ({b_by}) bound/ms={b_ms / ms:.3f}")
+            + f"bound_ms={b_ms:.3f} ({b_by}{', tensor-core split TF32' if tc else ''}) "
+            f"bound/ms={b_ms / ms:.3f}")
         rec = dict(kernel=name, case=label, ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, **extra)
         RECORD["times"].append(rec)
@@ -1759,6 +1861,8 @@ def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
             max_abs_err=worst[name], ms=r["ms"], inplace_ms=r.get("inplace_ms"),
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"])
+        if name in TC_KERNELS:  # the SIMT kernel it replaced, same operands
+            rec.update(simt_ms=r["simt_ms"], bound_simt_ms=r["bound_simt_ms"])
         if name == "lane_panel":
             rr = rows["lane_panel+rotate"]
             rec["rotate"] = dict(
@@ -1802,6 +1906,13 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     log(f"build {[p.name for p in libs]} in {build_s:.1f} s")
     RECORD["build_s"] = build_s
+    hmma = hmma_counts(libs)
+    log(f"build tensor-core instructions (HMMA, cuobjdump -sass) per instance "
+        f"of the dim-128 panel kernel: {hmma}")
+    RECORD["hmma"] = hmma
+    if len(hmma) != 5 or not all(hmma.values()):
+        raise AssertionError(f"the tensor-core panels are not all built with "
+                             f"HMMA instructions: {hmma}")
 
     scheds = {label: schedule(cd) for label, cd in circuits().items()
               if label != "hadamard_wall28"}

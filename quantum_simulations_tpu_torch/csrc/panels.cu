@@ -15,11 +15,10 @@
 //                     right by log2(dim) (the rotating-panel schedule's
 //                     panel + RotateOp(7) in one pass).  Tile element
 //                     (r, i) goes to out[i * R + r0 + r]: for each i a run
-//                     of up to 128 contiguous floats, read down a column
-//                     of the padded tile (LD = 129: conflict-free).  Out of
-//                     place only, as the reference asserts (:202): block b
-//                     writes a column slab of every output row, which other
-//                     blocks still read.
+//                     of up to 128 contiguous floats.  Out of place only,
+//                     as the reference asserts (:202): block b writes a
+//                     column slab of every output row, which other blocks
+//                     still read.
 //   positioned_panel  pos >= 7 (any pos works): the view (A, dim, C).
 //                     Replaces positioned_panel_planar (:636) and its
 //                     three Pallas bodies: _positioned_row_kernel (:553,
@@ -33,40 +32,66 @@
 //                     _straddle_prologue (:229, :278).
 //
 // Bound on an H100 SXM.  One pass over n = 28 moves 2^28 x 16 B = 4.3 GB
-// (1.28 ms at 3.35 TB/s) and does 2^28 x dim complex multiply-adds.  By
-// Gauss's three real products each needs 6 flop: 2^28 x 772 = 2.1e11 flop
-// for dim = 128 (twice that for dual_panel; a CNOT straddler adds none).
-// At the 67 TFLOP/s float32 rate outside the tensor cores that is 3.1 ms,
-// so every kernel here is bound by operations, not bytes.
+// (1.28 ms at 3.35 TB/s) and does 2^28 x dim complex multiply-adds.
 //
-// What the simple design does about it.  A block of 512 threads owns one
-// tile of up to 128 x 128 complex amplitudes in shared memory (two padded
-// float planes, 129 KB), read from device memory once and written once.
-// The contraction runs over the tile in place: W is staged in chunks of 32
+// Dim 128, lane_panel and positioned_panel: the tensor cores (namespace
+// tc).  They replace _panel_kernel (:93, with its rotated store :116-118)
+// and _positioned_row_kernel / _positioned_4d_kernel (:553, :605), which
+// ran the panel on the TPU's matrix unit at Precision.HIGHEST (:28-40).
+// The Hopper counterpart is split TF32: each float32 operand x becomes hi
+// = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), a real product is
+// a_hi b_hi + a_hi b_lo + a_lo b_hi (lo lo dropped), and a complex
+// product takes four real ones: 2^28 x 128 x 4 x 3 x 2 = 8.2e14 TF32 flop,
+// 1.67 ms at 495 TFLOP/s (Gauss's three real products would take 1.25 ms;
+// panel_variants.py measured them slower on three of four shapes: more
+// splits and adds for fewer mma).  Both lie above the 1.28 ms of bytes,
+// so the pass is bound by operations.
+// The design: mma.sync m16n8k8 (TF32 in, float32 accumulators), fragments
+// loaded by the threads from shared memory, so one routine serves the
+// lane layout (r, k) and the positioned (k, c); a persistent block per SM
+// (256 threads, 8 warps of 64 x 32 outputs, 128 accumulators a thread)
+// keeps W in shared memory in fragment order (128 KB, loaded once a
+// block, split as it is read) and streams each tile through a two-stage
+// cp.async ring in k-chunks of 32, so the next chunk (of this tile or the
+// next) loads while this one contracts; each k8 step's products go into
+// a fresh mma accumulator that a float32 add folds into the sum, because
+// the tensor cores truncate when they accumulate.
+//
+// Dims 1..64, dual_panel, and dim 128 with QST_PANEL_SIMT=1: the SIMT
+// routine contract() (float32 FMAs, no TF32), bound by float32
+// operations: the loop spends 4 FMAs (8 flop) on a complex multiply-add,
+// 2^28 x 128 x 8 = 2.7e14 flop at n = 28, 4.1 ms at 67 TFLOP/s (the
+// phase-4 bound counts the 6 flop a multiply-add needs by Gauss, 3.1 ms).
+// A block of 512 threads owns one tile of up to 128 x 128 complex
+// amplitudes in shared memory (two padded float planes, 129 KB), read
+// from device memory once and written once; W is staged in chunks of 32
 // columns, each thread keeps a 4 x 8 micro-tile of complex sums in
-// registers (4 fused multiply-adds per complex product, float32
-// throughout: no TF32), so each shared-memory read feeds 5 FMAs on
-// average.  dual_panel applies both contractions and the straddler gates
-// to the same resident tile, so the pair costs one pass of traffic.
-// Making it fast (split-precision wgmma, TMA, a tile ring) is later work.
+// registers, so each shared-memory read feeds 5 FMAs on average.
+// dual_panel applies both contractions and the straddler gates to the
+// same resident tile, so the pair costs one pass of traffic.
 //
 // Diag epilogue (the reference's diag_terms option, pallas_kernels.py
 // :171-188, :462-503, :676-682, :725-818).  A 128-wide panel whose tile
 // rows are whole state rows of 128 lanes (lane panel, positioned pos >= 7,
-// dual) can apply the merged diagonal run that follows it to the resident
-// tile after its last contraction (and post-straddler), before the store:
-// phase.cuh, with the freed W chunk as scratch.  It adds no traffic.
+// dual) can apply the merged diagonal run that follows it to the tile
+// after its last contraction (and post-straddler), before the store:
+// phase.cuh's arithmetic, on the resident tile with the freed W chunk as
+// scratch (SIMT), or on the accumulators (tc::diag_acc).  It adds no
+// traffic.
 //
 // In place (the capacity tier; alias.cuh).  Each kernel has an ALIAS
 // instance, launched when the output planes are the input planes.  It is
 // hazard-free because a block owns a disjoint slab of the state (a lane
 // panel's 128 rows, a positioned panel's (a, c-tile) column block, a dual
-// panel's (128, 128) tile): it reads the whole slab into shared memory,
-// the barrier at the top of contract() (dual_panel: the one after the
-// load) orders every one of those loads before any thread goes on, and
-// the stores come after the last barrier.  Each shared-memory store of
-// the load loop consumes its global load, so no load is still in flight
-// when the slab is overwritten.
+// panel's (128, 128) tile) and reads the whole slab before it writes any
+// of it.  SIMT: it loads the slab into shared memory, the barrier at the
+// top of contract() (dual_panel: the one after the load) orders every one
+// of those loads before any thread goes on, and the stores come after the
+// last barrier; each shared-memory store of the load loop consumes its
+// global load, so no load is still in flight when the slab is
+// overwritten.  Tensor cores: the block stores a tile only after the last
+// cp.async group of that tile has landed (wait_group) and been consumed
+// behind a barrier; the groups still in flight belong to its later tiles.
 //
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises if that is not 0.
@@ -307,6 +332,434 @@ positioned_panel_kernel(typename qst::Io<float, ALIAS>::In re,
   }
 }
 
+// ---- Dim 128 on the tensor cores: lane_panel and positioned_panel. ----
+//
+// Each tile is one complex GEMM with the output in the input's layout:
+// out(r, i) = sum_k X(r, k) W(i, k) for the lane panel, out(c, i) = sum_k
+// X(k, c) W(i, k) for the positioned one.  A ring stage holds k-chunk of
+// the tile: [128 r][PL] (lane) or [KC k][PP] (positioned).  The pitches
+// keep the fragment loads conflict-free: lane (g, t) of a warp reads g *
+// PL + t (PL = 36 = 4 mod 32) or t * PP + g (PP = 136 = 8 mod 32).
+namespace tc {
+
+constexpr int NT = 256;              // 8 warps: 2 along m (64 each), 4 along n (32)
+constexpr int KC = 32;               // k per ring stage
+constexpr int STAGES = 2;
+constexpr int NCHUNK = TILE / KC;
+constexpr int PL = KC + 4;           // lane stage: [128 m][KC k]
+constexpr int PP = TILE + 8;         // positioned stage: [KC k][128 c]
+constexpr int PLANE = TILE * PL > KC * PP ? TILE * PL : KC * PP;
+constexpr int STAGE = 2 * PLANE;     // floats: re plane, im plane
+constexpr int W_FLOATS = 2 * TILE * TILE;
+constexpr int GC = 16;               // diag groups whose row angles are staged at once
+constexpr int SCRATCH = GC * TILE + GC;
+constexpr size_t SMEM = sizeof(float) * (W_FLOATS + STAGES * STAGE + SCRATCH);
+static_assert(SMEM <= 232448, "one block's shared memory on sm_90");
+
+// hi = x rounded to TF32 (nearest, ties away), lo = (x - hi) rounded the
+// same way; x - hi is exact in float32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// d += a b on one m16n8k8 tile, TF32 inputs, float32 accumulation.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b (a zero accumulator).
+__device__ __forceinline__ void mma0(float (&d)[4], const uint32_t (&a)[4],
+                                     const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// One tile of the view.  Lane layout: rows r0 .. r0 + nv of (R, 128), at
+// element offset r0 * 128.  Positioned: the (a, c-tile) block, element
+// (k, c) at base + k * C + c, nv = min(128, C - c0) columns.
+struct Tile {
+  long long base;  // element offset of tile element (0, 0)
+  long long row0;  // lane layout: r0
+  int nv;          // valid rows (lane) or columns (positioned)
+};
+
+template <bool POS>
+__device__ __forceinline__ Tile tile_at(long long t, long long ext,
+                                        long long tpa) {
+  if constexpr (POS) {
+    const long long a = t / tpa, c0 = (t % tpa) * TILE;
+    return {a * TILE * ext + c0, 0, (int)min((long long)TILE, ext - c0)};
+  } else {
+    const long long r0 = t * TILE;
+    return {r0 * TILE, r0, (int)min((long long)TILE, ext - r0)};
+  }
+}
+
+// Chunk `ch` (k in [ch * KC, ch * KC + KC)) of a tile into a ring stage.
+// A full tile on 16-byte aligned planes goes by cp.async (the caller
+// commits the group); a ragged or misaligned one by plain loads, zero
+// outside the view.
+template <bool POS, typename In>
+__device__ __forceinline__ void load_chunk(In re, In im, const Tile& tl,
+                                           long long C, int ch, float* st,
+                                           bool fast) {
+  const int k0 = ch * KC;
+  if (fast) {
+    constexpr int PER_PLANE = POS ? KC * (TILE / 4) : TILE * (KC / 4);
+    for (int e = threadIdx.x; e < 2 * PER_PLANE; e += NT) {
+      const int p = e / PER_PLANE, r = e % PER_PLANE;
+      const float* src = p ? im : re;
+      float* dst = st + p * PLANE;
+      if constexpr (POS) {
+        const int k = r / (TILE / 4), q = r % (TILE / 4);
+        cp_async16(dst + k * PP + 4 * q, src + tl.base + (k0 + k) * C + 4 * q);
+      } else {
+        const int m = r / (KC / 4), q = r % (KC / 4);
+        cp_async16(dst + m * PL + 4 * q, src + tl.base + m * TILE + k0 + 4 * q);
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < 2 * TILE * KC; e += NT) {
+      const int p = e / (TILE * KC), r = e % (TILE * KC);
+      const float* src = p ? im : re;
+      float* dst = st + p * PLANE;
+      if constexpr (POS) {
+        const int k = r / TILE, c = r % TILE;
+        dst[k * PP + c] = c < tl.nv ? src[tl.base + (k0 + k) * C + c] : 0.f;
+      } else {
+        const int m = r / KC, kk = r % KC;
+        dst[m * PL + kk] = m < tl.nv ? src[tl.base + m * TILE + k0 + kk] : 0.f;
+      }
+    }
+  }
+}
+
+// The warp's 64 x 32 block of the tile: acc[mi][nj][re / im][c], fragment
+// element c of m16 tile mi and n8 tile nj (rows g, g + 8; columns 2t, 2t+1).
+typedef float Acc[4][4][2][4];
+
+// acc[mi][nj] += the complex product of one k8 step: re = Ar Br + An Bi,
+// im = Ar Bi + Ai Br, with An = -Ai, each real product three TF32 products
+// (lo hi and hi lo first, then hi hi).  The tensor cores add into their
+// accumulator by truncation, which biases a long sum toward zero (chained
+// through all 96 products of an output, panel_variants.py's "chained",
+// the error against float64 grows 14-fold).  So the step's
+// six products of a part go into a fresh accumulator and its sum is added
+// to acc by a float32 add, rounded to nearest: at most two truncations
+// touch each hi product.
+__device__ __forceinline__ void cmma(float (&dr)[4], float (&di)[4],
+                                     const uint32_t (&arh)[4], const uint32_t (&arl)[4],
+                                     const uint32_t (&aih)[4], const uint32_t (&ail)[4],
+                                     const uint32_t (&anh)[4], const uint32_t (&anl)[4],
+                                     const uint32_t (&brh)[2], const uint32_t (&brl)[2],
+                                     const uint32_t (&bih)[2], const uint32_t (&bil)[2]) {
+  float tr[4], ti[4];
+  mma0(tr, arl, brh);
+  mma(tr, arh, brl);
+  mma(tr, anl, bih);
+  mma(tr, anh, bil);
+  mma(tr, arh, brh);
+  mma(tr, anh, bih);
+  mma0(ti, arl, bih);
+  mma(ti, arh, bil);
+  mma(ti, ail, brh);
+  mma(ti, aih, brl);
+  mma(ti, arh, bih);
+  mma(ti, aih, brh);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    dr[c] += tr[c];
+    di[c] += ti[c];
+  }
+}
+
+// acc += the chunk's products.  W lies in shared memory in fragment order:
+// for k8 step s and n8 tile j, lane l's float4 is (Re W b0, Re W b1, Im W
+// b0, Im W b1) of B-fragment (s, j): W[8j + g][8s + t] and [8j + g][8s +
+// t + 4].  XA (the positioned panel, the rotated lane panel): X is A (m =
+// the free axis), W is B (n = i).  WA (the lane panel): W is A (m = i; the
+// A fragment of m16 tile mi is the b0 / b1 pair of n8 tiles 2mi, 2mi + 1),
+// X is B (n = r), so the accumulators of a row r hold 8 consecutive i and
+// the store writes whole 32-byte sectors of 4 rows.
+template <bool POS, bool WA>
+__device__ __forceinline__ void chunk_mma(const float* st, const float4* w4,
+                                          int ch, Acc& acc, int wm, int wn,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* sr = st;
+  const float* si = st + PLANE;
+#pragma unroll
+  for (int ks = 0; ks < KC / 8; ++ks) {
+    const int s = ch * (KC / 8) + ks;
+    uint32_t brh[4][2], brl[4][2], bih[4][2], bil[4][2];
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj) {
+      float br[2], bi[2];  // b0 (k = t, n = g), b1 (k = t + 4, n = g)
+      if constexpr (WA) {  // X(r, k) with r = n: lane stage [r][k]
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int o = (wn * 32 + nj * 8 + g) * PL + ks * 8 + t + 4 * q;
+          br[q] = sr[o];
+          bi[q] = si[o];
+        }
+      } else {
+        const float4 w = w4[(s * (TILE / 8) + wn * 4 + nj) * 32 + lane];
+        br[0] = w.x, br[1] = w.y, bi[0] = w.z, bi[1] = w.w;
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        split(br[q], brh[nj][q], brl[nj][q]);
+        split(bi[q], bih[nj][q], bil[nj][q]);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi) {
+      uint32_t arh[4], arl[4], aih[4], ail[4], anh[4], anl[4];
+      float ar[4], ai[4];  // a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+      if constexpr (WA) {
+        const int j = wm * 8 + mi * 2;
+        const float4 w0 = w4[(s * (TILE / 8) + j) * 32 + lane];
+        const float4 w1 = w4[(s * (TILE / 8) + j + 1) * 32 + lane];
+        ar[0] = w0.x, ar[1] = w1.x, ar[2] = w0.y, ar[3] = w1.y;
+        ai[0] = w0.z, ai[1] = w1.z, ai[2] = w0.w, ai[3] = w1.w;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int m = wm * 64 + mi * 16 + g + 8 * (q & 1);
+          const int k = ks * 8 + t + 4 * (q >> 1);
+          const int o = POS ? k * PP + m : m * PL + k;
+          ar[q] = sr[o];
+          ai[q] = si[o];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        split(ar[q], arh[q], arl[q]);
+        split(ai[q], aih[q], ail[q]);
+        anh[q] = aih[q] ^ 0x80000000u;
+        anl[q] = ail[q] ^ 0x80000000u;
+      }
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+        cmma(acc[mi][nj][0], acc[mi][nj][1], arh, arl, aih, ail, anh, anl,
+             brh[nj], brl[nj], bih[nj], bil[nj]);
+    }
+  }
+}
+
+// Tile element (m, n) of fragment (mi, nj, c).
+__device__ __forceinline__ int frag_m(int wm, int mi, int c, int lane) {
+  return wm * 64 + mi * 16 + (lane >> 2) + 8 * (c >> 1);
+}
+__device__ __forceinline__ int frag_n(int wn, int nj, int c, int lane) {
+  return wn * 32 + nj * 8 + 2 * (lane & 3) + (c & 1);
+}
+
+// The diag epilogue on the accumulators (phase.cuh's arithmetic).  With a
+// diag run, tile element (m, n) lies in state row row0 + n * row_step at
+// lane m: the positioned panel's (c, i) and the lane panel's (i, r).  Each
+// group's row angle is computed once per tile row into shared scratch, GC
+// groups at a time; a thread sums its 32 elements of one half (mi pair)
+// at a time to keep its registers for the accumulators.
+__device__ void diag_acc(const qst::Phase& ph, unsigned long long row0,
+                         unsigned long long row_step, uint32_t* scratch,
+                         Acc& acc, int wm, int wn, int lane) {
+  const uint32_t* lmask = ph.words + qst::PHASE_LANES;
+  const uint32_t* start = lmask + ph.G;
+  const uint32_t* rmask = start + ph.G + 1;
+  const uint32_t* coeff = rmask + ph.T;
+  uint32_t* th = scratch;               // [GC][TILE]
+  uint32_t* lm = scratch + GC * TILE;
+#pragma unroll
+  for (int hm = 0; hm < 2; ++hm) {
+    uint32_t ang[2][4][4];
+#pragma unroll
+    for (int li = 0; li < 2; ++li)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          ang[li][nj][c] = __ldg(ph.words + frag_m(wm, 2 * hm + li, c, lane));
+    for (int g0 = 0; g0 < ph.G; g0 += GC) {
+      const int gc = min(GC, ph.G - g0);
+      __syncthreads();  // the previous chunk is consumed
+      for (int e = threadIdx.x; e < gc * TILE; e += NT) {
+        const int gi = g0 + e / TILE;
+        const uint32_t row =
+            (uint32_t)(row0 + (unsigned long long)(e % TILE) * row_step);
+        uint32_t a = 0;
+        const int k1 = __ldg(start + gi + 1);
+        for (int k = __ldg(start + gi); k < k1; ++k) {
+          const uint32_t msk = __ldg(rmask + k);
+          a += (row & msk) == msk ? __ldg(coeff + k) : 0u;
+        }
+        th[e] = a;
+      }
+      for (int e = threadIdx.x; e < gc; e += NT) lm[e] = __ldg(lmask + g0 + e);
+      __syncthreads();
+      for (int gi = 0; gi < gc; ++gi) {
+        const uint32_t msk = lm[gi];
+#pragma unroll
+        for (int li = 0; li < 2; ++li)
+#pragma unroll
+          for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const uint32_t m = frag_m(wm, 2 * hm + li, c, lane);
+              if ((m & msk) == msk)
+                ang[li][nj][c] += th[gi * TILE + frag_n(wn, nj, c, lane)];
+            }
+      }
+    }
+#pragma unroll
+    for (int li = 0; li < 2; ++li)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          qst::phase_rotate(acc[2 * hm + li][nj][0][c], acc[2 * hm + li][nj][1][c],
+                            ang[li][nj][c]);
+  }
+}
+
+// A persistent block per SM walks tiles blockIdx.x, + gridDim.x, ...; its
+// jobs are (tile, k-chunk) pairs, loaded STAGES - 1 jobs ahead through the
+// ring, so the next tile loads while this one contracts and stores.  W is
+// loaded once per block.  In place (ALIAS) it is hazard-free: a block
+// touches only its own tiles, and it stores a tile after the last chunk of
+// that tile has landed (cp.async.wait_group) and been consumed; the
+// chunks in flight then belong to its later tiles.
+template <bool POS, bool ALIAS, bool ROTATE>
+__global__ void __launch_bounds__(NT, 1)
+panel_tc_kernel(typename qst::Io<float, ALIAS>::In re,
+                typename qst::Io<float, ALIAS>::In im,
+                const float* __restrict__ wr, const float* __restrict__ wi,
+                typename qst::Io<float, ALIAS>::Out ore,
+                typename qst::Io<float, ALIAS>::Out oim, long long ntiles,
+                long long ext, long long tpa, int vec, qst::Phase ph) {
+  static_assert(!(ROTATE && (ALIAS || POS)), "the rotated store: lane panel, out of place");
+  constexpr bool WA = !POS && !ROTATE;
+  extern __shared__ float4 tc_smem[];
+  float* const sm = reinterpret_cast<float*>(tc_smem);
+  float* const ring = sm + W_FLOATS;
+  uint32_t* const scratch = reinterpret_cast<uint32_t*>(ring + STAGES * STAGE);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+
+  for (int e = threadIdx.x; e < TILE * TILE; e += NT) {  // W, fragment order
+    const int n = e / TILE, k = e % TILE;
+    const int s = k >> 3, kk = k & 7;
+    float* f = sm + ((s * (TILE / 8) + (n >> 3)) * 32 + (n & 7) * 4 + (kk & 3)) * 4;
+    f[kk >> 2] = wr[e];
+    f[2 + (kk >> 2)] = wi[e];
+  }
+
+  const long long mine = (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  const long long jobs = mine * NCHUNK;
+  auto issue = [&](long long j) {
+    if (j < jobs) {
+      const Tile tl = tile_at<POS>(blockIdx.x + (j / NCHUNK) * gridDim.x, ext, tpa);
+      load_chunk<POS>(re, im, tl, ext, (int)(j % NCHUNK),
+                      ring + (int)(j % STAGES) * STAGE, vec && tl.nv == TILE);
+    }
+    cp_async_commit();
+  };
+#pragma unroll 1
+  for (int j = 0; j < STAGES - 1; ++j) issue(j);
+
+  Acc acc;
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][nj][0][c] = acc[mi][nj][1][c] = 0.f;
+
+#pragma unroll 1
+  for (long long j = 0; j < jobs; ++j) {
+    cp_async_wait<STAGES - 2>();  // job j has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; stage j - 1 is consumed
+    issue(j + STAGES - 1);
+    const int ch = (int)(j % NCHUNK);
+    chunk_mma<POS, WA>(ring + (int)(j % STAGES) * STAGE,
+                       reinterpret_cast<const float4*>(sm), ch, acc, wm, wn, lane);
+    if (ch != NCHUNK - 1) continue;
+
+    const long long t = blockIdx.x + (j / NCHUNK) * gridDim.x;
+    const Tile tl = tile_at<POS>(t, ext, tpa);
+    if constexpr (!ROTATE) {
+      if (ph.words != nullptr)
+        diag_acc(ph, POS ? tl.base / TILE : tl.row0, POS ? ext / TILE : 1,
+                 scratch, acc, wm, wn, lane);
+    }
+    // Stores from the accumulators.  Element (m, n) goes to o0 + n * S + m:
+    // the lane panel's (r = n, i = m), the positioned panel's (c = m,
+    // k = n), the rotated store's out[i * R + r] (n = i, m = r).  For fixed
+    // c a warp's store writes 4 rows x 8 consecutive m: whole 32-byte
+    // sectors.
+    const long long o0 = POS || WA ? tl.base : tl.row0;
+    const long long S = WA ? TILE : ext;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int m = frag_m(wm, mi, c, lane), n = frag_n(wn, nj, c, lane);
+          if ((WA ? n : m) < tl.nv) {
+            const long long o = o0 + n * S + m;
+            ore[o] = acc[mi][nj][0][c];
+            oim[o] = acc[mi][nj][1][c];
+          }
+          acc[mi][nj][0][c] = acc[mi][nj][1][c] = 0.f;
+        }
+  }
+  cp_async_wait<0>();
+}
+
+template <bool POS, bool ALIAS, bool ROTATE>
+cudaError_t launch(const float* re, const float* im, const float* wr,
+                   const float* wi, float* ore, float* oim, long long ntiles,
+                   long long ext, long long tpa, const qst::Phase& ph,
+                   int device, cudaStream_t st) {
+  auto kernel = panel_tc_kernel<POS, ALIAS, ROTATE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // cp.async moves 16 bytes: the planes must start on a 16-byte boundary.
+  const int vec = ((reinterpret_cast<uintptr_t>(re) | reinterpret_cast<uintptr_t>(im)) & 15) == 0;
+  const long long grid = ntiles < sms ? ntiles : sms;
+  kernel<<<(unsigned)grid, NT, SMEM, st>>>(re, im, wr, wi, ore, oim, ntiles,
+                                           ext, tpa, vec, ph);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 // ---- dual_panel: view (A, 128, 128) = (a, d = bits 7..13, l = bits 0..6).
 // mode 0 ("lane", pos 0) contracts l; mode 1 ("full", pos 7) contracts d.
 __device__ __forceinline__ void contract_mode(int mode, const float* wr,
@@ -412,12 +865,14 @@ const char* qst_error_string(int err) {
 // instance) and refuses planes that alias otherwise.
 
 // dim in {1, 2, 4, ..., 128}; rows = 2^n / dim.  rotate: the transposed
-// (dim, rows) store, out of place and without a diag epilogue.  Returns a
+// (dim, rows) store, out of place and without a diag epilogue.  Dim 128
+// runs the tensor-core kernel, or with simt != 0 the SIMT one it replaced
+// (kept as the yardstick of its speed and accuracy).  Returns a
 // cudaError_t.
 int qst_lane_panel(const float* re, const float* im, const float* wr,
                    const float* wi, float* ore, float* oim, long long rows,
-                   int dim, int rotate, const void* phase, int G, int T,
-                   int device, void* stream) {
+                   int dim, int rotate, int simt, const void* phase, int G,
+                   int T, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int alias = qst::alias_mode(re, im, ore, oim);
@@ -426,6 +881,14 @@ int qst_lane_panel(const float* re, const float* im, const float* wr,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const qst::Phase ph{(const uint32_t*)phase, G, T};
+  if (dim == TILE && !simt) {
+    const long long tiles = (rows + TILE - 1) / TILE;
+    return (int)(rotate
+        ? tc::launch<false, false, true>(re, im, wr, wi, ore, oim, tiles, rows, 1, ph, device, st)
+        : alias
+        ? tc::launch<false, true, false>(re, im, wr, wi, ore, oim, tiles, rows, 1, ph, device, st)
+        : tc::launch<false, false, false>(re, im, wr, wi, ore, oim, tiles, rows, 1, ph, device, st));
+  }
   switch (dim) {
 #define QST_LANE(D)                                                          \
     case D:                                                                  \
@@ -441,11 +904,11 @@ int qst_lane_panel(const float* re, const float* im, const float* wr,
   }
 }
 
-// The view (A, dim, C): C = 2^pos, dim in {1, ..., 128}.
+// The view (A, dim, C): C = 2^pos, dim in {1, ..., 128}; simt as above.
 int qst_positioned_panel(const float* re, const float* im, const float* wr,
                          const float* wi, float* ore, float* oim, long long A,
-                         int dim, long long C, const void* phase, int G,
-                         int T, int device, void* stream) {
+                         int dim, long long C, int simt, const void* phase,
+                         int G, int T, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int alias = qst::alias_mode(re, im, ore, oim);
@@ -453,6 +916,12 @@ int qst_positioned_panel(const float* re, const float* im, const float* wr,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const qst::Phase ph{(const uint32_t*)phase, G, T};
+  if (dim == TILE && !simt) {
+    const long long tpa = (C + TILE - 1) / TILE;
+    return (int)(alias
+        ? tc::launch<true, true, false>(re, im, wr, wi, ore, oim, A * tpa, C, tpa, ph, device, st)
+        : tc::launch<true, false, false>(re, im, wr, wi, ore, oim, A * tpa, C, tpa, ph, device, st));
+  }
   switch (dim) {
 #define QST_POS(D)                                                           \
     case D:                                                                  \

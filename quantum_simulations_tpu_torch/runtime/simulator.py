@@ -372,6 +372,16 @@ def resolve_inplace(inplace, n: int, device, fdtype=torch.float32) -> bool:
     return 4 * (1 << n) * itemsize + (2 << 30) > total
 
 
+def plain_route(plain: bool, fdtype: torch.dtype) -> bool:
+    """Whether a schedule runs on the plain torch twins: when asked, and
+    always for float64 planes.  The kernels take float32 planes only (the
+    TPU kernels never ran float64 either), so complex128 runs every op
+    through the twins, on the card too, as the reference runs its XLA
+    modes in any dtype.  A choice made by dtype, not a fallback: a
+    float64 plane handed to a kernel wrapper still raises."""
+    return plain or fdtype == torch.float64
+
+
 def build_window_circuit_fn(
     circuit_dict: dict,
     *,
@@ -398,6 +408,7 @@ def build_window_circuit_fn(
     dev = resolve_device(device)
     cdtype = complex_dtype(dtype)
     fdtype = float_dtype(cdtype)
+    plain = plain_route(plain, fdtype)
     cd = validate_circuit_dict(circuit_dict)
     n = cd["number_of_qubits"]
     inplace = resolve_inplace(inplace, n, dev, fdtype)
@@ -532,6 +543,7 @@ def build_panel_circuit_fn(
     logical bit order.  ``plain=True`` runs the plain torch twins."""
     dev = resolve_device(device)
     cdtype = complex_dtype(dtype)
+    plain = plain_route(plain, float_dtype(cdtype))
     cd = validate_circuit_dict(circuit_dict)
     key = ("panel", circuit_hash(cd), str(cdtype), window, planar_io,
            str(dev), plain, _switches())
@@ -577,6 +589,7 @@ def build_circuit_fn(
     :func:`apply_gate`.  ``plain=True`` runs the plain torch twins."""
     dev = resolve_device(device)
     cdtype = complex_dtype(dtype)
+    plain = plain_route(plain, float_dtype(cdtype))
     cd = validate_circuit_dict(circuit_dict)
     key = ("fused", circuit_hash(cd), str(cdtype), use_fusion, panel_width,
            planar_io, str(dev), plain, _switches())

@@ -484,3 +484,112 @@ def test_panel_and_fused_modes_on_card(dev, mode, name):
     want = simulator.simulate(cd, mode=mode, dtype="complex128", device=dev,
                               plain=True, initial_state=psi0)
     assert float(torch.linalg.vector_norm(got.to(torch.complex128) - want)) < TOL_L2
+
+
+# ---------------------------------------------------------------------------
+# Dim 128 on the tensor cores (split TF32): lane and positioned layouts
+# ---------------------------------------------------------------------------
+
+def _f64(x):
+    return x[0].double(), x[1].double()
+
+
+@pytest.mark.parametrize("variant", ["plain", "diag", "inplace"])
+@pytest.mark.parametrize("pos", [7, 8, 9, 11, 14, 21])
+def test_positioned_panel_tensor_cores(dev, pos, variant):
+    """The positioned layout (k, c) at the chip's positions: the kernel
+    within TOL_L2 of its float32 twin and of the float64 twin, with the
+    diag epilogue and in place."""
+    n = max(pos + 7, 16)
+    x, W = _state(n, pos, dev), _unitary(128, pos + 1)
+    dt = _terms(n, 40, pos) if variant == "diag" else None
+    key = "positioned_panel" + ("+diag" if dt else "") + (
+        " inplace" if variant == "inplace" else "")
+    before = pk.LAUNCHES[key]
+    want = pk.positioned_panel_plain(*x, W, pos, diag_terms=dt)
+    want64 = pk.positioned_panel_plain(*_f64(x), W, pos, diag_terms=dt)
+    if variant == "inplace":
+        got = pk.positioned_panel(*x, W, pos, inplace=True)
+        assert got[0] is x[0]
+    else:
+        got = pk.positioned_panel(*x, W, pos, diag_terms=dt)
+    assert pk.LAUNCHES[key] == before + 1
+    assert _l2(got, want) < TOL_L2 and _l2(got, want64) < TOL_L2
+
+
+@pytest.mark.parametrize("variant", ["plain", "diag", "rotate", "inplace"])
+@pytest.mark.parametrize("n", [7, 10, 13, 14, 21])
+def test_lane_panel_tensor_cores(dev, n, variant):
+    """The lane layout (r, k), R = 2^(n - 7) rows below and above one
+    128-row tile: kernel against both twins, with the diag epilogue, the
+    rotated store and in place."""
+    x, W = _state(n, n + 1, dev), _unitary(128, n)
+    dt = _terms(n, 40, n) if variant == "diag" else None
+    rot = variant == "rotate"
+    want = pk.lane_panel_plain(*x, W, diag_terms=dt, rotate=rot)
+    want64 = pk.lane_panel_plain(*_f64(x), W, diag_terms=dt, rotate=rot)
+    got = pk.lane_panel(*x, W, diag_terms=dt, rotate=rot,
+                        inplace=variant == "inplace")
+    assert _l2(got, want) < TOL_L2 and _l2(got, want64) < TOL_L2
+
+
+def test_positioned_panel_ragged_view(dev):
+    """Dim 128 below pos 7: C = 4 columns a tile, the element-wise load."""
+    x, W = _state(10, 3, dev), _unitary(128, 3)
+    got = pk.positioned_panel(*x, W, 2)
+    assert _l2(got, pk.positioned_panel_plain(*x, W, 2)) < TOL_L2
+
+
+def test_panel_chain_drift_against_float64(dev):
+    """24 positioned passes (as nonstab33 and its inverse run) stay within
+    1e-5 of the float64 twins."""
+    x = _state(18, 9, dev)
+    x64 = _f64(x)
+    for p in range(24):
+        W, pos = _unitary(128, 300 + p), (7, 9, 11)[p % 3]
+        x = pk.positioned_panel(*x, W, pos)
+        x64 = pk.positioned_panel_plain(*x64, W, pos)
+    assert _l2(x, x64) < TOL_L2
+
+
+# ---------------------------------------------------------------------------
+# complex128 on the card: every mode through the plain twins
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["fused", "panel", "window", "capacity"])
+@pytest.mark.parametrize("name", ["ghz", "qft"])
+def test_complex128_runs_on_card(dev, mode, name):
+    """dtype complex128 runs every op through the plain twins (the kernels
+    take float32 planes) and agrees with the float64 twins run directly
+    within 1e-10; no kernel launches."""
+    from quantum_simulations_tpu_torch import SimulatorConfig, api
+    from quantum_simulations_tpu_torch.runtime import simulator
+
+    cd = getattr(library, name)(12)
+    for m in (pk, dk, bk, pq):
+        m.reset_counts()
+    res = api.simulate(cd, SimulatorConfig(dtype="complex128", mode=mode),
+                       device=dev)
+    got = res.to_array() if mode == "capacity" else res
+    assert got.dtype == np.complex128
+    assert not any({**pk.LAUNCHES, **dk.LAUNCHES, **bk.LAUNCHES,
+                    **pq.LAUNCHES}.values())
+    want = simulator.simulate(cd, dtype="complex128", device=dev, plain=True,
+                              mode="window" if mode == "capacity" else mode)
+    assert np.linalg.norm(got - want.cpu().numpy()) < 1e-10
+
+
+def test_cli_complex128_on_card(dev, tmp_path):
+    import json
+    import subprocess
+    import sys
+
+    path = tmp_path / "ghz12.json"
+    path.write_text(json.dumps(library.ghz(12)))
+    proc = subprocess.run([sys.executable, "-m", "quantum_simulations_tpu_torch",
+                           "run", str(path), "--dtype", "complex128", "--top", "2"],
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout)
+    assert sorted(i for i, _ in res["top"]) == ["0x0", "0xfff"]
+    assert all(abs(p - 0.5) < 1e-12 for _, p in res["top"])
