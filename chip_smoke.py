@@ -44,8 +44,9 @@ Phases (any failure exits non-zero):
    lane panel on R = 8 rows (also with a diag run) and the positioned one
    at pos 2 (C = 4).  Every dim-128 lane and positioned case (tensor
    cores, split TF32) is also held to its plain twin in float64, and the
-   SIMT kernel it replaced (``QST_PANEL_SIMT=1``) is run on the same
-   operands and reported beside it.  Fails on ||diff||_2 > 1e-5 (to the
+   float32 twin's own ||diff||_2 to it (a float32 contraction, the
+   accuracy of a float32 kernel) is reported beside it.  Fails on
+   ||diff||_2 > 1e-5 (to the
    float32 twin, and for the tensor-core panels to the float64 one), or
    on any difference for a bit permutation.
 3. The main path, five requests through the entry points, the counters
@@ -95,10 +96,11 @@ Phases (any failure exits non-zero):
    cores), with the flop the function needs (6 per complex multiply-add,
    none for a select straddler, 6 per amplitude for a diag rotation,
    none for a bit permutation).  The tensor-core rows (the lane panel,
-   rotated or with a diag run, the positioned panel) count what they run
-   instead, 24 TF32 flop per complex multiply-add at 495 TFLOP/s, give the
-   SIMT bound beside it (``bound_simt_ms``) and time the SIMT kernel they
-   replaced on the same operands (``simt_ms``).  Each epilogue row also
+   rotated or with a diag run, the positioned panel) count the same
+   multiply-adds as TF32 flop at 495 TFLOP/s: split TF32 takes three TF32
+   products a real product, 18 flop a complex multiply-add by Gauss (1.25
+   ms at n = 28, under the 1.28 ms of bytes); the float32 bound of a SIMT
+   kernel is given beside it (``bound_simt_ms``).  Each epilogue row also
    times the same panel without it.  The pair kernel at its classes (pair_update
    column (7, 27) and row (20, 27), mixed_pair (0, 27), mixed_low_pair
    (6, 7) and (7, 6)), its library call an einsum of the (2, 2, 2, 2)
@@ -584,9 +586,9 @@ def bound(N: int, dims: list[int], straddles=(), diag=None, tc=False):
     contraction of width dim costs 6 * dim flop per amplitude by Gauss's
     three real products (the reference's default, ``_cmul_planes`` in
     pallas_kernels.py), plus 4 adds, at the float32 rate; with ``tc`` (the
-    tensor-core panels) it costs what they run, four real products of
-    three TF32 products each, 24 * dim flop per amplitude, at the TF32
-    rate; a straddler costs :func:`straddle_flop`; a diag run's rotation 6
+    tensor-core panels, split TF32) each of the three real products takes
+    three TF32 products, 18 * dim flop per amplitude at the TF32 rate; a
+    straddler costs :func:`straddle_flop`; a diag run's rotation 6
     per amplitude (its angle sums are integer adds and its cos / sin one
     sincos, not counted); a bit permutation none."""
     nbytes = (4 * N * 4 + sum(2 * d * d * 4 for d in dims)
@@ -596,7 +598,7 @@ def bound(N: int, dims: list[int], straddles=(), diag=None, tc=False):
                 + (0 if diag is None else 6))
     if tc:
         t_f = (fp32 / FP32_FLOP_PER_S
-               + N * sum(24 * d for d in dims) / TF32_FLOP_PER_S)
+               + N * sum(18 * d for d in dims) / TF32_FLOP_PER_S)
     else:
         t_f = (fp32 + N * sum(6 * d + 4 for d in dims)) / FP32_FLOP_PER_S
     t_b = nbytes / HBM_BYTES_PER_S
@@ -720,7 +722,7 @@ def rand_terms(n: int, count: int, rng, scale: float = 5.0):
 def case(label, kernel, kern, twin, exact=False, dim=128):
     """A phase-2 case; ``dim``: the panel width (a dim-128 lane or
     positioned panel runs on the tensor cores and is also held to its
-    float64 twin, beside the SIMT kernel it replaced)."""
+    float64 twin, beside its float32 twin's distance to it)."""
     return dict(label=label, kernel=kernel, kern=kern, twin=twin, exact=exact,
                 dim=dim)
 
@@ -1086,18 +1088,14 @@ def check_inplace(dev, n: int, rng, worst: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def against_f64_twin(c, x, got) -> dict:
-    """||diff||_2 of a tensor-core panel's result ``got`` and of the SIMT
-    kernel it replaced (``QST_PANEL_SIMT=1``, same operands) against the
-    plain twin in float64."""
-    import torch
-
+def against_f64_twin(c, x, got, want32) -> dict:
+    """||diff||_2 of a tensor-core panel's result ``got`` and of its
+    float32 twin's ``want32`` (same operands) against the plain twin in
+    float64."""
     want = c["twin"]((x[0].double(), x[1].double()))
-    with env_switch("QST_PANEL_SIMT", "1"):
-        simt = c["kern"](x)
-    torch.cuda.synchronize()
-    out = dict(l2_vs_f64=diff(got, want)[1], simt_l2_vs_f64=diff(simt, want)[1])
-    del want, simt
+    out = dict(l2_vs_f64=diff(got, want)[1],
+               f32_twin_l2_vs_f64=diff(want32, want)[1])
+    del want
     return out
 
 
@@ -1122,10 +1120,10 @@ def check_kernels(dev, scheds) -> dict:
                        max_abs_err=mx, l2_diff=l2)
             f64 = ""
             if c["kernel"] in TC_KERNELS and c["dim"] == 128:
-                rec.update(against_f64_twin(c, x, got))
+                rec.update(against_f64_twin(c, x, got, want))
                 ok = ok and rec["l2_vs_f64"] <= TOL_L2
                 f64 = (f" vs_f64: l2={rec['l2_vs_f64']:.3e} "
-                       f"simt_l2={rec['simt_l2_vs_f64']:.3e}")
+                       f"f32_twin_l2={rec['f32_twin_l2_vs_f64']:.3e}")
             log(f"check n={n} {c['label']:<42} max_abs_err={mx:.3e} "
                 f"l2_diff={l2:.3e}{' exact' if c['exact'] else ''}{f64} "
                 f"{'ok' if ok else 'FAIL'}")
@@ -1443,17 +1441,12 @@ def times(dev, scheds) -> dict:
         lib_ms = None if lib is None else cuda_ms(lib, reps=5)
         extra = {}
         tc = name in TC_ROWS
-
-        def simt():
-            with env_switch("QST_PANEL_SIMT", "1"):
-                kern()
-
         for key, fn in (("panel_ms", panel), ("inplace_ms", inplace),
-                        ("separate_ms", separate), ("simt_ms", simt if tc else None)):
+                        ("separate_ms", separate)):
             if fn is not None:
                 extra[key] = cuda_ms(fn, reps=10)
         b_ms, b_by = bnd or bound(N, dims, straddles, diag, tc=tc)
-        if tc:  # the bound of the SIMT kernel's float32 work, beside
+        if tc:  # the float32 bound of the same work on the SIMT units, beside
             extra["bound_simt_ms"] = bound(N, dims, straddles, diag)[0]
         log(f"time {label:<30} ms={ms:.3f} plain_ms={plain_ms:.3f} "
             f"library_ms={'none' if lib_ms is None else f'{lib_ms:.3f}'} "
@@ -1861,8 +1854,8 @@ def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
             max_abs_err=worst[name], ms=r["ms"], inplace_ms=r.get("inplace_ms"),
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"])
-        if name in TC_KERNELS:  # the SIMT kernel it replaced, same operands
-            rec.update(simt_ms=r["simt_ms"], bound_simt_ms=r["bound_simt_ms"])
+        if name in TC_KERNELS:  # the float32 bound of a SIMT kernel, beside
+            rec["bound_simt_ms"] = r["bound_simt_ms"]
         if name == "lane_panel":
             rr = rows["lane_panel+rotate"]
             rec["rotate"] = dict(

@@ -3,143 +3,48 @@
 
     python3 panel_variants.py        # needs a CUDA card and nvcc
 
-Each variant is the committed source with one change, built with the
-port's flags into ``build/panel_variants/`` (one nvcc each, all started
-together) and called through the same C entries:
+Each variant is the source built with one of its measurement macros
+(``-D<name>=1``, see the note above namespace ``tc``), through
+``cuda_build`` beside the package's own build (one nvcc each, all started
+together), and called through the same C entries:
 
-- ``base``: the source as it is;
-- ``nostore``: the tile stores are skipped (what the stores cost);
-- ``chained``: every product of an output chained into the tensor cores'
-  accumulator, no float32 add per k8 step (what the promotion costs, and
-  the truncation bias it removes);
-- ``nosplit``: the TF32 split replaced by a plain bit copy (lo = 0; wrong
-  digits, the split's cost);
+- ``base``: no macro, the kernel the package runs;
+- ``nostore`` (``QST_TC_NOSTORE``): the tile stores are skipped (what the
+  stores cost);
+- ``chained`` (``QST_TC_CHAINED``): every product of an output chained
+  into the tensor cores' accumulator, no float32 add per k8 step (what
+  the promotion costs, and the truncation bias it removes);
+- ``nosplit`` (``QST_TC_NOSPLIT``): the TF32 split replaced by a plain
+  bit copy (lo = 0; wrong digits, the split's cost);
 - ``lean``: ``chained`` and ``nosplit`` together, about the mma.sync
   issue alone with its operand loads;
-- ``gauss``: Gauss's three real products (nine TF32 products a complex
-  multiply-add instead of twelve), its error and time.
+- ``gauss`` (``QST_TC_GAUSS``): Gauss's three real products (nine TF32
+  products a complex multiply-add instead of twelve), its error and time.
+
+They split the kernel's time into its parts, so a redesign of the
+routine (``wgmma`` in place of mma.sync) is measured against them: rerun
+it beside any change to namespace ``tc``.
 
 At n = 28 (the (2^21, 128) lane view and the positioned view at pos 21
-and 11) it prints each variant's median CUDA-event ms, its ||diff||_2
-against the float64 twin on a unit-norm state, the SIMT kernel
-(``QST_PANEL_SIMT=1``), the library call ``x @ W.T`` and a copy of both
-planes (the bytes floor as the card runs it), then the card's name,
-power limit and SM clock.
+and 11) it prints each variant's median CUDA-event ms and its ||diff||_2
+against the float64 twin on a unit-norm state, the library call
+``x @ W.T`` and a copy of both planes (the bytes floor as the card runs
+it), then the card's name, power limit and SM clock.
 """
 from __future__ import annotations
 
-import ctypes
 import statistics
 import subprocess
 import sys
-from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent
-SOURCE = ROOT / "quantum_simulations_tpu_torch" / "csrc" / "panels.cu"
-OUT = ROOT / "build" / "panel_variants"
-
-PROMOTED = """  float tr[4], ti[4];
-  mma0(tr, arl, brh);
-  mma(tr, arh, brl);
-  mma(tr, anl, bih);
-  mma(tr, anh, bil);
-  mma(tr, arh, brh);
-  mma(tr, anh, bih);
-  mma0(ti, arl, bih);
-  mma(ti, arh, bil);
-  mma(ti, ail, brh);
-  mma(ti, aih, brl);
-  mma(ti, arh, bih);
-  mma(ti, aih, brh);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    dr[c] += tr[c];
-    di[c] += ti[c];
-  }"""
-SPLIT = """  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));"""
-STORE = "          if ((WA ? n : m) < tl.nv) {"
-
-CHAINED = [(PROMOTED, PROMOTED.replace("tr", "dr").replace("ti", "di")
-            .replace("mma0", "mma").split("#pragma")[0]
-            .replace("  float dr[4], di[4];\n", ""))]
-NOSPLIT = [(SPLIT, "  hi = __float_as_uint(x);\n  lo = 0u;")]
-# Gauss's form (the reference's _cmul_planes): for P the A side and Q the
-# B side, k1 = (Pr + Pi) Qr, k2 = Pr (Qi - Qr), k3 = Pi (Qr + Qi), re =
-# k1 - k3, im = k1 + k2: nine TF32 products instead of twelve.
-GAUSS = [
-    ("uint32_t brh[4][2], brl[4][2], bih[4][2], bil[4][2];",
-     "uint32_t brh[4][2], brl[4][2], bih[4][2], bil[4][2], bsh[4][2], bsl[4][2];"),
-    ("""        split(br[q], brh[nj][q], brl[nj][q]);
-        split(bi[q], bih[nj][q], bil[nj][q]);""",
-     """        split(br[q], brh[nj][q], brl[nj][q]);
-        split(bi[q] - br[q], bih[nj][q], bil[nj][q]);
-        split(br[q] + bi[q], bsh[nj][q], bsl[nj][q]);"""),
-    ("""        anh[q] = aih[q] ^ 0x80000000u;
-        anl[q] = ail[q] ^ 0x80000000u;""",
-     "        split(ar[q] + ai[q], anh[q], anl[q]);"),
-    ("""      for (int nj = 0; nj < 4; ++nj)
-        cmma(acc[mi][nj][0], acc[mi][nj][1], arh, arl, aih, ail, anh, anl,
-             brh[nj], brl[nj], bih[nj], bil[nj]);""",
-     """      for (int nj = 0; nj < 4; ++nj) {
-        float t1[4], t2[4], t3[4];
-        mma0(t1, anl, brh[nj]);
-        mma(t1, anh, brl[nj]);
-        mma(t1, anh, brh[nj]);
-        mma0(t2, arl, bih[nj]);
-        mma(t2, arh, bil[nj]);
-        mma(t2, arh, bih[nj]);
-        mma0(t3, ail, bsh[nj]);
-        mma(t3, aih, bsl[nj]);
-        mma(t3, aih, bsh[nj]);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          acc[mi][nj][0][c] += t1[c] - t3[c];
-          acc[mi][nj][1][c] += t1[c] + t2[c];
-        }
-      }"""),
-]
 VARIANTS = {
-    "base": [],
-    "nostore": [(STORE, STORE.replace("tl.nv)", "tl.nv && vec == 7)"))],
-    "chained": CHAINED,
-    "nosplit": NOSPLIT,
-    "lean": CHAINED + NOSPLIT,
-    "gauss": GAUSS,
+    "base": (),
+    "nostore": ("QST_TC_NOSTORE=1",),
+    "chained": ("QST_TC_CHAINED=1",),
+    "nosplit": ("QST_TC_NOSPLIT=1",),
+    "lean": ("QST_TC_CHAINED=1", "QST_TC_NOSPLIT=1"),
+    "gauss": ("QST_TC_GAUSS=1",),
 }
-
-
-def build() -> dict:
-    sys.path.insert(0, str(ROOT))
-    from quantum_simulations_tpu_torch.ops import cuda_build
-    from quantum_simulations_tpu_torch.ops import panel_kernels as pk
-
-    OUT.mkdir(parents=True, exist_ok=True)
-    src, jobs = SOURCE.read_text(), {}
-    for name, subs in VARIANTS.items():
-        text = src
-        for old, new in subs:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: the source changed")
-            text = text.replace(old, new)
-        path = OUT / f"panels_{name}.cu"
-        path.write_text(text)
-        cmd = [cuda_build.nvcc(), *cuda_build.ARCH, *cuda_build.FLAGS,
-               "-I", str(SOURCE.parent), "-o", str(OUT / f"lib{name}.so"),
-               str(path)]
-        jobs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on variant {name}:\n{log}")
-        lib = ctypes.CDLL(str(OUT / f"lib{name}.so"))
-        for fn, (restype, argtypes) in pk._SIGNATURES.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        libs[name] = lib
-    return libs
 
 
 def ms(fn, reps: int = 10) -> float:
@@ -162,12 +67,14 @@ def main() -> int:
     import numpy as np
     import torch
 
+    from quantum_simulations_tpu_torch.ops import cuda_build
     from quantum_simulations_tpu_torch.ops import panel_kernels as pk
 
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA card")
         return 2
-    libs = build()
+    cuda_build.build([("panels", d) for d in VARIANTS.values()])
+    libs = {name: pk.variant_library(d) for name, d in VARIANTS.items()}
     dev = torch.device("cuda", 0)
     stream = torch.cuda.current_stream().cuda_stream
     n = 28
@@ -185,43 +92,31 @@ def main() -> int:
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     want = pk.lane_panel_plain(re.double(), im.double(), W)
 
-    def lane(lib, rotate=0, simt=0):
-        err = lib.qst_lane_panel(re.data_ptr(), im.data_ptr(), wr.data_ptr(),
+    def check(err: int, entry: str) -> None:
+        if err:
+            raise RuntimeError(f"{entry}: CUDA error {err}")
+
+    def lane(lib, rotate=0):
+        check(lib.qst_lane_panel(re.data_ptr(), im.data_ptr(), wr.data_ptr(),
                                  wi.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-                                 N // 128, 128, rotate, simt, None, 0, 0, 0,
-                                 stream)
-        if err:
-            raise RuntimeError(f"qst_lane_panel: CUDA error {err}")
+                                 N // 128, 128, rotate, None, 0, 0, 0, stream),
+              "qst_lane_panel")
 
-    def pos(lib, p, simt=0):
-        err = lib.qst_positioned_panel(
+    def pos(lib, p):
+        check(lib.qst_positioned_panel(
             re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-            ore.data_ptr(), oim.data_ptr(), N >> (7 + p), 128, 1 << p, simt,
-            None, 0, 0, 0, stream)
-        if err:
-            raise RuntimeError(f"qst_positioned_panel: CUDA error {err}")
-
-    def l2_vs_f64() -> float:
-        torch.cuda.synchronize()
-        return float(torch.sqrt(((ore.double() - want[0]) ** 2).sum()
-                                + ((oim.double() - want[1]) ** 2).sum()))
+            ore.data_ptr(), oim.data_ptr(), N >> (7 + p), 128, 1 << p,
+            None, 0, 0, 0, stream), "qst_positioned_panel")
 
     for name, lib in libs.items():
         lane(lib)
-        err = l2_vs_f64()
+        torch.cuda.synchronize()
+        err = float(torch.sqrt(((ore.double() - want[0]) ** 2).sum()
+                               + ((oim.double() - want[1]) ** 2).sum()))
         t = {"lane": ms(lambda: lane(lib)), "rotate": ms(lambda: lane(lib, 1)),
              "pos21": ms(lambda: pos(lib, 21)), "pos11": ms(lambda: pos(lib, 11))}
         print(f"variant {name:8s} l2_vs_f64={err:.3e} "
               + " ".join(f"{k}_ms={v:.3f}" for k, v in t.items()), flush=True)
-    base = libs["base"]
-    lane(base, simt=1)
-    err = l2_vs_f64()
-    t = {"lane": ms(lambda: lane(base, simt=1)),
-         "rotate": ms(lambda: lane(base, 1, simt=1)),
-         "pos21": ms(lambda: pos(base, 21, simt=1)),
-         "pos11": ms(lambda: pos(base, 11, simt=1))}
-    print(f"variant {'simt':8s} l2_vs_f64={err:.3e} "
-          + " ".join(f"{k}_ms={v:.3f}" for k, v in t.items()))
     xl = torch.complex(re, im).view(-1, 128)
     Wt = torch.as_tensor(W, dtype=torch.complex64, device=dev).T.contiguous()
     print(f"library x @ W.T ms={ms(lambda: xl @ Wt):.3f}")

@@ -40,12 +40,15 @@
 // ran the panel on the TPU's matrix unit at Precision.HIGHEST (:28-40).
 // The Hopper counterpart is split TF32: each float32 operand x becomes hi
 // = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), a real product is
-// a_hi b_hi + a_hi b_lo + a_lo b_hi (lo lo dropped), and a complex
-// product takes four real ones: 2^28 x 128 x 4 x 3 x 2 = 8.2e14 TF32 flop,
-// 1.67 ms at 495 TFLOP/s (Gauss's three real products would take 1.25 ms;
-// panel_variants.py measured them slower on three of four shapes: more
-// splits and adds for fewer mma).  Both lie above the 1.28 ms of bytes,
-// so the pass is bound by operations.
+// a_hi b_hi + a_hi b_lo + a_lo b_hi (lo lo dropped).  Bound: the function
+// needs Gauss's three real products a complex multiply-add (the
+// reference's form), 2^28 x 128 x 3 x 3 x 2 = 6.2e14 TF32 flop, 1.25 ms at
+// 495 TFLOP/s, under the 1.28 ms of bytes: the pass is bound by bytes.
+// This kernel takes four real products, as the error budget of the
+// four-product form was fixed first (8.2e14 flop, 1.67 ms by its own
+// operations); Gauss's form (QST_TC_GAUSS below) held the error but was
+// slower on three of four shapes (panel_variants.py): more splits and
+// adds for fewer mma.
 // The design: mma.sync m16n8k8 (TF32 in, float32 accumulators), fragments
 // loaded by the threads from shared memory, so one routine serves the
 // lane layout (r, k) and the positioned (k, c); a persistent block per SM
@@ -57,11 +60,11 @@
 // a fresh mma accumulator that a float32 add folds into the sum, because
 // the tensor cores truncate when they accumulate.
 //
-// Dims 1..64, dual_panel, and dim 128 with QST_PANEL_SIMT=1: the SIMT
-// routine contract() (float32 FMAs, no TF32), bound by float32
-// operations: the loop spends 4 FMAs (8 flop) on a complex multiply-add,
-// 2^28 x 128 x 8 = 2.7e14 flop at n = 28, 4.1 ms at 67 TFLOP/s (the
-// phase-4 bound counts the 6 flop a multiply-add needs by Gauss, 3.1 ms).
+// Dims 1..64 and dual_panel: the SIMT routine contract() (float32 FMAs,
+// no TF32), bound by float32 operations: the loop spends 4 FMAs (8 flop)
+// on a complex multiply-add, 2^28 x 128 x 8 = 2.7e14 flop for each of
+// dual_panel's 128-wide contractions at n = 28, 4.1 ms at 67 TFLOP/s (the
+// bound counts the 6 flop a multiply-add needs by Gauss, 3.1 ms).
 // A block of 512 threads owns one tile of up to 128 x 128 complex
 // amplitudes in shared memory (two padded float planes, 129 KB), read
 // from device memory once and written once; W is staged in chunks of 32
@@ -76,7 +79,7 @@
 // dual) can apply the merged diagonal run that follows it to the tile
 // after its last contraction (and post-straddler), before the store:
 // phase.cuh's arithmetic, on the resident tile with the freed W chunk as
-// scratch (SIMT), or on the accumulators (tc::diag_acc).  It adds no
+// scratch (dual_panel), or on the accumulators (tc::diag_acc).  It adds no
 // traffic.
 //
 // In place (the capacity tier; alias.cuh).  Each kernel has an ALIAS
@@ -265,7 +268,7 @@ lane_panel_kernel(typename qst::Io<float, ALIAS>::In re,
                   const float* __restrict__ wr, const float* __restrict__ wi,
                   typename qst::Io<float, ALIAS>::Out ore,
                   typename qst::Io<float, ALIAS>::Out oim,
-                  long long rows, qst::Phase ph) {
+                  long long rows) {
   static_assert(!(ROTATE && ALIAS), "the rotated store is out of place only");
   const Smem s = smem_parts();
   const long long r0 = (long long)blockIdx.x * TILE;
@@ -278,9 +281,6 @@ lane_panel_kernel(typename qst::Io<float, ALIAS>::In re,
     s.ti[r * LD + k] = ok ? im[base + e] : 0.f;
   }
   contract<DIM, 1, LD>(wr, wi, s);
-  if constexpr (DIM == TILE && !ROTATE) {
-    if (ph.words != nullptr) diag_epilogue(ph, r0, 1, s);
-  }
   if constexpr (ROTATE) {
     for (int e = threadIdx.x; e < DIM * TILE; e += NT) {
       const int k = e / TILE, r = e % TILE;
@@ -307,7 +307,7 @@ positioned_panel_kernel(typename qst::Io<float, ALIAS>::In re,
                         const float* __restrict__ wi,
                         typename qst::Io<float, ALIAS>::Out ore,
                         typename qst::Io<float, ALIAS>::Out oim, long long C,
-                        long long tiles_per_a, qst::Phase ph) {
+                        long long tiles_per_a) {
   const Smem s = smem_parts();
   const long long a = blockIdx.x / tiles_per_a;
   const long long c0 = (blockIdx.x % tiles_per_a) * TILE;
@@ -320,9 +320,6 @@ positioned_panel_kernel(typename qst::Io<float, ALIAS>::In re,
     s.ti[k * LD + c] = ok ? im[base + k * C + c] : 0.f;
   }
   contract<DIM, LD, 1>(wr, wi, s);
-  if constexpr (DIM == TILE) {  // the host asks for it only with C >= 128
-    if (ph.words != nullptr) diag_epilogue(ph, base / TILE, C / TILE, s);
-  }
   for (int e = threadIdx.x; e < DIM * TILE; e += NT) {
     const int k = e / TILE, c = e % TILE;
     if (c < nc) {
@@ -340,6 +337,27 @@ positioned_panel_kernel(typename qst::Io<float, ALIAS>::In re,
 // the tile: [128 r][PL] (lane) or [KC k][PP] (positioned).  The pitches
 // keep the fragment loads conflict-free: lane (g, t) of a warp reads g *
 // PL + t (PL = 36 = 4 mod 32) or t * PP + g (PP = 136 = 8 mod 32).
+//
+// Measurement variants, each one change to this routine, built only by
+// panel_variants.py (-D<name>=1; the package's build sets none):
+// QST_TC_NOSTORE skips the tile stores, QST_TC_CHAINED chains every
+// product of an output through the tensor cores' accumulator,
+// QST_TC_NOSPLIT replaces the split by a bit copy (lo = 0, wrong digits),
+// QST_TC_GAUSS takes Gauss's three real products (nine TF32 products a
+// complex multiply-add instead of twelve).
+#ifndef QST_TC_NOSTORE
+#define QST_TC_NOSTORE 0
+#endif
+#ifndef QST_TC_CHAINED
+#define QST_TC_CHAINED 0
+#endif
+#ifndef QST_TC_NOSPLIT
+#define QST_TC_NOSPLIT 0
+#endif
+#ifndef QST_TC_GAUSS
+#define QST_TC_GAUSS 0
+#endif
+
 namespace tc {
 
 constexpr int NT = 256;              // 8 warps: 2 along m (64 each), 4 along n (32)
@@ -359,8 +377,13 @@ static_assert(SMEM <= 232448, "one block's shared memory on sm_90");
 // hi = x rounded to TF32 (nearest, ties away), lo = (x - hi) rounded the
 // same way; x - hi is exact in float32.
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+#if QST_TC_NOSPLIT
+  hi = __float_as_uint(x);
+  lo = 0u;
+#else
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+#endif
 }
 
 // d += a b on one m16n8k8 tile, TF32 inputs, float32 accumulation.
@@ -474,23 +497,63 @@ __device__ __forceinline__ void cmma(float (&dr)[4], float (&di)[4],
                                      const uint32_t (&anh)[4], const uint32_t (&anl)[4],
                                      const uint32_t (&brh)[2], const uint32_t (&brl)[2],
                                      const uint32_t (&bih)[2], const uint32_t (&bil)[2]) {
+#if QST_TC_CHAINED
+  float (&tr)[4] = dr;
+  float (&ti)[4] = di;
+  mma(tr, arl, brh);
+#else
   float tr[4], ti[4];
   mma0(tr, arl, brh);
+#endif
   mma(tr, arh, brl);
   mma(tr, anl, bih);
   mma(tr, anh, bil);
   mma(tr, arh, brh);
   mma(tr, anh, bih);
+#if QST_TC_CHAINED
+  mma(ti, arl, bih);
+#else
   mma0(ti, arl, bih);
+#endif
   mma(ti, arh, bil);
   mma(ti, ail, brh);
   mma(ti, aih, brl);
   mma(ti, arh, bih);
   mma(ti, aih, brh);
+#if !QST_TC_CHAINED
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     dr[c] += tr[c];
     di[c] += ti[c];
+  }
+#endif
+}
+
+// The QST_TC_GAUSS variant's step: for P the A side and Q the B side, k1 =
+// (Pr + Pi) Qr, k2 = Pr (Qi - Qr), k3 = Pi (Qr + Qi), re = k1 - k3, im =
+// k1 + k2 (the reference's _cmul_planes).  as = split(Pr + Pi), bd =
+// split(Qi - Qr), bs = split(Qr + Qi).
+__device__ __forceinline__ void gauss_mma(float (&dr)[4], float (&di)[4],
+                                          const uint32_t (&arh)[4], const uint32_t (&arl)[4],
+                                          const uint32_t (&aih)[4], const uint32_t (&ail)[4],
+                                          const uint32_t (&ash)[4], const uint32_t (&asl)[4],
+                                          const uint32_t (&brh)[2], const uint32_t (&brl)[2],
+                                          const uint32_t (&bdh)[2], const uint32_t (&bdl)[2],
+                                          const uint32_t (&bsh)[2], const uint32_t (&bsl)[2]) {
+  float k1[4], k2[4], k3[4];
+  mma0(k1, asl, brh);
+  mma(k1, ash, brl);
+  mma(k1, ash, brh);
+  mma0(k2, arl, bdh);
+  mma(k2, arh, bdl);
+  mma(k2, arh, bdh);
+  mma0(k3, ail, bsh);
+  mma(k3, aih, bsl);
+  mma(k3, aih, bsh);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    dr[c] += k1[c] - k3[c];
+    di[c] += k1[c] + k2[c];
   }
 }
 
@@ -513,6 +576,9 @@ __device__ __forceinline__ void chunk_mma(const float* st, const float4* w4,
   for (int ks = 0; ks < KC / 8; ++ks) {
     const int s = ch * (KC / 8) + ks;
     uint32_t brh[4][2], brl[4][2], bih[4][2], bil[4][2];
+#if QST_TC_GAUSS
+    uint32_t bsh[4][2], bsl[4][2];  // bi holds Qi - Qr, bs Qr + Qi
+#endif
 #pragma unroll
     for (int nj = 0; nj < 4; ++nj) {
       float br[2], bi[2];  // b0 (k = t, n = g), b1 (k = t + 4, n = g)
@@ -530,7 +596,12 @@ __device__ __forceinline__ void chunk_mma(const float* st, const float4* w4,
 #pragma unroll
       for (int q = 0; q < 2; ++q) {
         split(br[q], brh[nj][q], brl[nj][q]);
+#if QST_TC_GAUSS
+        split(bi[q] - br[q], bih[nj][q], bil[nj][q]);
+        split(br[q] + bi[q], bsh[nj][q], bsl[nj][q]);
+#else
         split(bi[q], bih[nj][q], bil[nj][q]);
+#endif
       }
     }
 #pragma unroll
@@ -557,13 +628,22 @@ __device__ __forceinline__ void chunk_mma(const float* st, const float4* w4,
       for (int q = 0; q < 4; ++q) {
         split(ar[q], arh[q], arl[q]);
         split(ai[q], aih[q], ail[q]);
+#if QST_TC_GAUSS  // an holds Pr + Pi
+        split(ar[q] + ai[q], anh[q], anl[q]);
+#else
         anh[q] = aih[q] ^ 0x80000000u;
         anl[q] = ail[q] ^ 0x80000000u;
+#endif
       }
 #pragma unroll
       for (int nj = 0; nj < 4; ++nj)
+#if QST_TC_GAUSS
+        gauss_mma(acc[mi][nj][0], acc[mi][nj][1], arh, arl, aih, ail, anh, anl,
+                  brh[nj], brl[nj], bih[nj], bil[nj], bsh[nj], bsl[nj]);
+#else
         cmma(acc[mi][nj][0], acc[mi][nj][1], arh, arl, aih, ail, anh, anl,
              brh[nj], brl[nj], bih[nj], bil[nj]);
+#endif
     }
   }
 }
@@ -727,7 +807,8 @@ panel_tc_kernel(typename qst::Io<float, ALIAS>::In re,
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int m = frag_m(wm, mi, c, lane), n = frag_n(wn, nj, c, lane);
-          if ((WA ? n : m) < tl.nv) {
+          // QST_TC_NOSTORE: a test the compiler cannot fold (vec is 0 or 1)
+          if ((WA ? n : m) < tl.nv && !(QST_TC_NOSTORE && vec != 7)) {
             const long long o = o0 + n * S + m;
             ore[o] = acc[mi][nj][0][c];
             oim[o] = acc[mi][nj][1][c];
@@ -810,13 +891,13 @@ cudaError_t allow_smem(K kernel) {
 template <int DIM, bool ALIAS, bool ROTATE>
 cudaError_t launch_lane(const float* re, const float* im, const float* wr,
                         const float* wi, float* ore, float* oim,
-                        long long rows, const qst::Phase& ph, cudaStream_t st) {
+                        long long rows, cudaStream_t st) {
   cudaError_t err = allow_smem(lane_panel_kernel<DIM, ALIAS, ROTATE>);
   if (err != cudaSuccess) return err;
   const long long blocks = (rows + TILE - 1) / TILE;
   lane_panel_kernel<DIM, ALIAS, ROTATE>
       <<<(unsigned)blocks, NT, SMEM_BYTES, st>>>(re, im, wr, wi, ore, oim,
-                                                 rows, ph);
+                                                 rows);
   return cudaGetLastError();
 }
 
@@ -824,13 +905,13 @@ template <int DIM, bool ALIAS>
 cudaError_t launch_positioned(const float* re, const float* im,
                               const float* wr, const float* wi, float* ore,
                               float* oim, long long A, long long C,
-                              const qst::Phase& ph, cudaStream_t st) {
+                              cudaStream_t st) {
   cudaError_t err = allow_smem(positioned_panel_kernel<DIM, ALIAS>);
   if (err != cudaSuccess) return err;
   const long long tpa = (C + TILE - 1) / TILE;
   positioned_panel_kernel<DIM, ALIAS>
       <<<(unsigned)(A * tpa), NT, SMEM_BYTES, st>>>(re, im, wr, wi, ore, oim,
-                                                     C, tpa, ph);
+                                                     C, tpa);
   return cudaGetLastError();
 }
 
@@ -866,13 +947,12 @@ const char* qst_error_string(int err) {
 
 // dim in {1, 2, 4, ..., 128}; rows = 2^n / dim.  rotate: the transposed
 // (dim, rows) store, out of place and without a diag epilogue.  Dim 128
-// runs the tensor-core kernel, or with simt != 0 the SIMT one it replaced
-// (kept as the yardstick of its speed and accuracy).  Returns a
+// runs on the tensor cores, dims 1..64 on the SIMT units.  Returns a
 // cudaError_t.
 int qst_lane_panel(const float* re, const float* im, const float* wr,
                    const float* wi, float* ore, float* oim, long long rows,
-                   int dim, int rotate, int simt, const void* phase, int G,
-                   int T, int device, void* stream) {
+                   int dim, int rotate, const void* phase, int G, int T,
+                   int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int alias = qst::alias_mode(re, im, ore, oim);
@@ -881,7 +961,7 @@ int qst_lane_panel(const float* re, const float* im, const float* wr,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const qst::Phase ph{(const uint32_t*)phase, G, T};
-  if (dim == TILE && !simt) {
+  if (dim == TILE) {
     const long long tiles = (rows + TILE - 1) / TILE;
     return (int)(rotate
         ? tc::launch<false, false, true>(re, im, wr, wi, ore, oim, tiles, rows, 1, ph, device, st)
@@ -893,22 +973,23 @@ int qst_lane_panel(const float* re, const float* im, const float* wr,
 #define QST_LANE(D)                                                          \
     case D:                                                                  \
       return (int)(rotate                                                    \
-          ? launch_lane<D, false, true>(re, im, wr, wi, ore, oim, rows, ph, st) \
+          ? launch_lane<D, false, true>(re, im, wr, wi, ore, oim, rows, st)  \
           : alias                                                            \
-          ? launch_lane<D, true, false>(re, im, wr, wi, ore, oim, rows, ph, st) \
-          : launch_lane<D, false, false>(re, im, wr, wi, ore, oim, rows, ph, st));
+          ? launch_lane<D, true, false>(re, im, wr, wi, ore, oim, rows, st)  \
+          : launch_lane<D, false, false>(re, im, wr, wi, ore, oim, rows, st));
     QST_LANE(1) QST_LANE(2) QST_LANE(4) QST_LANE(8)
-    QST_LANE(16) QST_LANE(32) QST_LANE(64) QST_LANE(128)
+    QST_LANE(16) QST_LANE(32) QST_LANE(64)
 #undef QST_LANE
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The view (A, dim, C): C = 2^pos, dim in {1, ..., 128}; simt as above.
+// The view (A, dim, C): C = 2^pos, dim in {1, ..., 128}; dim 128 on the
+// tensor cores, as above.
 int qst_positioned_panel(const float* re, const float* im, const float* wr,
                          const float* wi, float* ore, float* oim, long long A,
-                         int dim, long long C, int simt, const void* phase,
-                         int G, int T, int device, void* stream) {
+                         int dim, long long C, const void* phase, int G, int T,
+                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int alias = qst::alias_mode(re, im, ore, oim);
@@ -916,7 +997,7 @@ int qst_positioned_panel(const float* re, const float* im, const float* wr,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const qst::Phase ph{(const uint32_t*)phase, G, T};
-  if (dim == TILE && !simt) {
+  if (dim == TILE) {
     const long long tpa = (C + TILE - 1) / TILE;
     return (int)(alias
         ? tc::launch<true, true, false>(re, im, wr, wi, ore, oim, A * tpa, C, tpa, ph, device, st)
@@ -926,10 +1007,10 @@ int qst_positioned_panel(const float* re, const float* im, const float* wr,
 #define QST_POS(D)                                                           \
     case D:                                                                  \
       return (int)(alias                                                     \
-          ? launch_positioned<D, true>(re, im, wr, wi, ore, oim, A, C, ph, st) \
-          : launch_positioned<D, false>(re, im, wr, wi, ore, oim, A, C, ph, st));
+          ? launch_positioned<D, true>(re, im, wr, wi, ore, oim, A, C, st)  \
+          : launch_positioned<D, false>(re, im, wr, wi, ore, oim, A, C, st));
     QST_POS(1) QST_POS(2) QST_POS(4) QST_POS(8)
-    QST_POS(16) QST_POS(32) QST_POS(64) QST_POS(128)
+    QST_POS(16) QST_POS(32) QST_POS(64)
 #undef QST_POS
     default: return (int)cudaErrorInvalidValue;
   }

@@ -5,8 +5,10 @@ at first use: a plain C interface, no PyTorch headers, so a build takes
 seconds.  The hash covers the source, every ``csrc/*.cuh`` header (a
 header such as ``phase.cuh`` is shared by several sources) and the
 flags, so an edited source or header is rebuilt and a stale library is
-never loaded.  ``QST_TORCH_BUILD_DIR`` moves the build directory;
-``QST_NVCC`` names the compiler.
+never loaded.  ``defines`` (``-D`` macros) build a measurement variant of
+a source beside it (``panel_variants.py``); the package's own entries use
+none.  ``QST_TORCH_BUILD_DIR`` moves the build directory; ``QST_NVCC``
+names the compiler.
 
 ``on_card``, ``check_aligned``, ``launch`` and ``store`` are the
 wrappers' shared halves: the first decides kernel (CUDA planes) or plain
@@ -53,26 +55,30 @@ def nvcc() -> str:
                        "csrc/*.cu on a machine with the CUDA toolkit")
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: tuple) -> list[str]:
+    return ARCH + FLAGS + [f"-D{d}" for d in defines]
+
+
+def library_path(name: str, defines: tuple = ()) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + b"\0" + header.read_bytes())
-    digest.update(" ".join(ARCH + FLAGS).encode())
+    digest.update(" ".join(_flags(defines)).encode())
     return build_dir() / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
-def _start(name: str, verbose: bool):
+def _start(name: str, verbose: bool, defines: tuple = ()):
     """Start nvcc for one source (None if its library is already built).
 
     ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills
     of each kernel); it does not change the code, so not the hash.
     """
-    out = library_path(name)
+    out = library_path(name, defines)
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *ARCH, *FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+    cmd = [nvcc(), *_flags(defines), *(["-Xptxas", "-v"] if verbose else []),
            "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -89,31 +95,34 @@ def _finish(name: str, job, verbose: bool) -> None:
     os.replace(tmp, out)  # atomic: concurrent builders never see half a file
 
 
-def build_all(verbose: bool = False) -> list[Path]:
-    """Build every ``csrc/*.cu``, one nvcc per source, all started together."""
-    names = sorted(p.stem for p in CSRC.glob("*.cu"))
-    jobs = {name: _start(name, verbose) for name in names}
-    for name, job in jobs.items():
+def build(specs, verbose: bool = False) -> list[Path]:
+    """Build each ``(name, defines)`` of ``specs``, one nvcc each, all
+    started together."""
+    jobs = [(name, _start(name, verbose, defines)) for name, defines in specs]
+    for name, job in jobs:
         if job is not None:
             _finish(name, job, verbose)
-    return [library_path(name) for name in names]
+    return [library_path(name, defines) for name, defines in specs]
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
+def build_all(verbose: bool = False) -> list[Path]:
+    """Build every ``csrc/*.cu``, one nvcc per source, all started together."""
+    return build([(p.stem, ()) for p in sorted(CSRC.glob("*.cu"))], verbose)
+
+
+def load(name: str, signatures: dict, defines: tuple = ()) -> ctypes.CDLL:
     """The built library of ``csrc/<name>.cu`` with its entries typed.
 
     ``signatures`` maps each C entry to ``(restype, [argtypes])``.
     """
-    lib = _LOADED.get(name)
+    lib = _LOADED.get((name, defines))
     if lib is None:
-        job = _start(name, False)
-        if job is not None:
-            _finish(name, job, False)
-        lib = ctypes.CDLL(str(library_path(name)))
+        build([(name, defines)])
+        lib = ctypes.CDLL(str(library_path(name, defines)))
         for fn, (restype, argtypes) in signatures.items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
-        _LOADED[name] = lib
+        _LOADED[(name, defines)] = lib
     return lib
 
 

@@ -37,19 +37,19 @@ The kernels take float32 planes only (the TPU kernels never ran float64
 on the chip); the twins take any float type.  At dim 128 the lane and
 positioned kernels run on the tensor cores in split TF32 (three TF32
 products a real product: float32-class accuracy; ``csrc/panels.cu``),
-narrower panels and ``dual_panel`` on the float32 SIMT units.  A W is a numpy complex
-matrix or a ``(wr, wi)`` pair of planes from :func:`w_planes`.
+narrower panels and ``dual_panel`` on the float32 SIMT units.  A W is a
+numpy complex matrix or a ``(wr, wi)`` pair of planes from
+:func:`w_planes`.
 """
 from __future__ import annotations
 
 import ctypes
-import os
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from .cuda_build import launch, on_card, outputs, store
+from .cuda_build import launch, load, on_card, outputs, store
 from .diag_kernels import DiagTerms, apply_diag_plain, fused_diag, phase_args
 
 # The reference holds panels to full float32 precision (HIGHEST); a
@@ -306,20 +306,20 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PHASE = [_P, _I, _I]  # the packed DiagTerms operand (or null), G, T
 _SIGNATURES = {
     "qst_error_string": (ctypes.c_char_p, [_I]),
-    "qst_lane_panel": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
-                            *_PHASE, _I, _P]),
-    "qst_positioned_panel": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _LL, _I,
+    "qst_lane_panel": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _I, *_PHASE,
+                            _I, _P]),
+    "qst_positioned_panel": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _LL,
                                   *_PHASE, _I, _P]),
     "qst_dual_panel": (_I, [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P,
                             _I, _P, _P, _LL, *_PHASE, _I, _P]),
 }
 
 
-def simt128() -> int:
-    """1 when ``QST_PANEL_SIMT=1``: the lane and positioned panels at dim
-    128 run the SIMT kernel that the tensor-core one replaced, kept as the
-    yardstick of its speed and accuracy (chip_smoke.py)."""
-    return int(os.environ.get("QST_PANEL_SIMT", "0") == "1")
+def variant_library(defines: tuple) -> ctypes.CDLL:
+    """``csrc/panels.cu`` built with the ``-D`` macros ``defines`` (its
+    measurement variants, ``panel_variants.py``), entries typed as the
+    wrappers' own."""
+    return load("panels", _SIGNATURES, defines)
 
 
 def _check_dim(name: str, dim: int, N: int, view: int) -> None:
@@ -350,7 +350,7 @@ def lane_panel(re, im, W, *, diag_terms=None, inplace: bool = False,
     launch("panels", _SIGNATURES, "qst_lane_panel", re.device,
            re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
            ore.data_ptr(), oim.data_ptr(), N // dim, dim, int(rotate),
-           simt128(), *phase_args(fuse, re.device))
+           *phase_args(fuse, re.device))
     LAUNCHES["lane_panel+rotate" if rotate
              else _key("lane_panel", fuse, inplace)] += 1
     if diag_terms is not None and fuse is None:
@@ -373,7 +373,7 @@ def positioned_panel(re, im, W, pos: int, *, diag_terms=None,
     launch("panels", _SIGNATURES, "qst_positioned_panel", re.device,
            re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
            ore.data_ptr(), oim.data_ptr(), N // (dim * C), dim, C,
-           simt128(), *phase_args(fuse, re.device))
+           *phase_args(fuse, re.device))
     LAUNCHES[_key("positioned_panel", fuse, inplace)] += 1
     if diag_terms is not None and fuse is None:
         return fused_diag(ore, oim, diag_terms, inplace=inplace)

@@ -560,8 +560,10 @@ def test_panel_chain_drift_against_float64(dev):
 @pytest.mark.parametrize("name", ["ghz", "qft"])
 def test_complex128_runs_on_card(dev, mode, name):
     """dtype complex128 runs every op through the plain twins (the kernels
-    take float32 planes) and agrees with the float64 twins run directly
-    within 1e-10; no kernel launches."""
+    take float32 planes): no kernel launches, the float64 twins run
+    directly agree within 1e-10, and so does the closed form (GHZ: 2^-1/2
+    at 0 and 2^12 - 1; the QFT of |0>: 2^-6 everywhere), which holds the
+    numbers and not only the route."""
     from quantum_simulations_tpu_torch import SimulatorConfig, api
     from quantum_simulations_tpu_torch.runtime import simulator
 
@@ -577,6 +579,12 @@ def test_complex128_runs_on_card(dev, mode, name):
     want = simulator.simulate(cd, dtype="complex128", device=dev, plain=True,
                               mode="window" if mode == "capacity" else mode)
     assert np.linalg.norm(got - want.cpu().numpy()) < 1e-10
+    exact = np.zeros(1 << 12, np.complex128)
+    if name == "ghz":
+        exact[[0, -1]] = 2 ** -0.5
+    else:
+        exact[:] = 2.0 ** -6
+    assert np.linalg.norm(got - exact) < 1e-10
 
 
 def test_cli_complex128_on_card(dev, tmp_path):
