@@ -11,7 +11,7 @@ Phases (any failure exits non-zero):
    (one nvcc per source, started together; ptxas register report), and
    the count of tensor-core instructions (HMMA, from ``cuobjdump -sass``)
    in each of the five instances of the dim-128 lane / positioned panel
-   kernel; fails if one has none.
+   kernel and the two of the dual panel kernel; fails if one has none.
 2. Each kernel against its plain torch twin on the card, on seeded
    unit-norm states.  At n = 28 with the operands of the requests:
    nonstab28's W's (positioned pos 11 / 14 / 21, dual with and without
@@ -42,13 +42,13 @@ Phases (any failure exits non-zero):
    lane panel's rotated store on nonstab28's first panel at n = 28 and
    on random W at n = 20 and n = 10 (R = 8 rows); at n = 10 the dim-128
    lane panel on R = 8 rows (also with a diag run) and the positioned one
-   at pos 2 (C = 4).  Every dim-128 lane and positioned case (tensor
-   cores, split TF32) is also held to its plain twin in float64, and the
-   float32 twin's own ||diff||_2 to it (a float32 contraction, the
-   accuracy of a float32 kernel) is reported beside it.  Fails on
-   ||diff||_2 > 1e-5 (to the
-   float32 twin, and for the tensor-core panels to the float64 one), or
-   on any difference for a bit permutation.
+   at pos 2 (C = 4).  Every dim-128 lane, positioned and dual case
+   (tensor cores, split TF32; the in-place ones too) is also held to its
+   plain twin in float64, and the float32 twin's own ||diff||_2 to it (a
+   float32 contraction, the accuracy of a float32 kernel) is reported
+   beside it.  Fails on ||diff||_2 > 1e-5 (to the float32 twin, and for
+   the tensor-core kernels to the float64 one), or on any difference for
+   a bit permutation.
 3. The main path, five requests through the entry points, the counters
    set to 0 just before each request and read just after it, no plain
    twin called: ``api.simulate(non_stabilizer(28, depth=4, seed=7),
@@ -96,10 +96,12 @@ Phases (any failure exits non-zero):
    cores), with the flop the function needs (6 per complex multiply-add,
    none for a select straddler, 6 per amplitude for a diag rotation,
    none for a bit permutation).  The tensor-core rows (the lane panel,
-   rotated or with a diag run, the positioned panel) count the same
-   multiply-adds as TF32 flop at 495 TFLOP/s: split TF32 takes three TF32
-   products a real product, 18 flop a complex multiply-add by Gauss (1.25
-   ms at n = 28, under the 1.28 ms of bytes); the float32 bound of a SIMT
+   rotated or with a diag run, the positioned panel, the dual panel)
+   count the same multiply-adds as TF32 flop at 495 TFLOP/s: split TF32
+   takes three TF32 products a real product, 18 flop a complex
+   multiply-add by Gauss (1.25 ms a 128-wide contraction at n = 28, under
+   the 1.28 ms of bytes; the dual's two, 2.50 ms, over them), plus a
+   straddler's and a diag run's float32 flop; the float32 bound of a SIMT
    kernel is given beside it (``bound_simt_ms``).  Each epilogue row also
    times the same panel without it.  The pair kernel at its classes (pair_update
    column (7, 27) and row (20, 27), mixed_pair (0, 27), mixed_low_pair
@@ -155,9 +157,10 @@ FP32_FLOP_PER_S = 67e12        # float32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12       # TF32 on the tensor cores, dense
 # The kernels whose dim-128 instances run on the tensor cores (split TF32,
 # csrc/panels.cu namespace tc), and the phase-4 rows timed on them.
-TC_KERNELS = ("lane_panel", "positioned_panel")
+TC_KERNELS = ("lane_panel", "positioned_panel", "dual_panel")
 TC_ROWS = ("lane_panel", "lane_panel+diag", "lane_panel+rotate",
-           "positioned_panel", "positioned_panel+diag")
+           "positioned_panel", "positioned_panel+diag", "dual_panel",
+           "dual_panel+diag")
 GIB = 1 << 30
 SEED = 7
 NQ = 28                        # the requests' width: full size, not cut
@@ -482,8 +485,9 @@ def card_line() -> str:
 
 def hmma_counts(libs) -> dict:
     """Tensor-core instructions (HMMA) in each instance of the
-    tensor-core panel kernel, from ``cuobjdump -sass`` of the built
-    library of csrc/panels.cu: {"lane_panel <template args>": count}."""
+    tensor-core panel kernels (the lane / positioned kernel's five, the
+    dual kernel's two), from ``cuobjdump -sass`` of the built library of
+    csrc/panels.cu: {"lane_panel <template args>": count}."""
     import re
 
     from quantum_simulations_tpu_torch.ops import cuda_build
@@ -499,10 +503,14 @@ def hmma_counts(libs) -> dict:
         if m:
             fn = None
             t = re.search(r"panel_tc_kernelILb(\d)ELb(\d)ELb(\d)E", m.group(1))
+            d = re.search(r"dual_tc_kernelILb(\d)E", m.group(1))
             if t:
                 pos, alias, rot = (int(b) for b in t.groups())
                 fn = (("positioned_panel" if pos else "lane_panel")
                       + (" inplace" if alias else "") + (" rotate" if rot else ""))
+                counts[fn] = 0
+            elif d:
+                fn = "dual_panel" + (" inplace" if d.group(1) == "1" else "")
                 counts[fn] = 0
         elif fn is not None and "HMMA" in line:
             counts[fn] += 1
@@ -981,7 +989,7 @@ def inplace_cases(n: int, rng) -> list:
              lambda x: pk.lane_panel_plain(*x, Wb, diag_terms=terms)),
         case("positioned ragged dim64 pos14", "positioned_panel",
              lambda re, im, ip: pk.positioned_panel(re, im, W64, n - 6, inplace=ip),
-             lambda x: pk.positioned_panel_plain(*x, W64, n - 6)),
+             lambda x: pk.positioned_panel_plain(*x, W64, n - 6), dim=64),
         case("dual (7,0)", "dual_panel",
              lambda re, im, ip: pk.dual_panel(re, im, Wa, 7, Wb, 0, inplace=ip),
              lambda x: pk.dual_panel_plain(*x, Wa, 7, Wb, 0)),
@@ -1072,12 +1080,18 @@ def check_inplace(dev, n: int, rng, worst: dict) -> None:
               and bool(torch.isfinite(re).all() and torch.isfinite(im).all()))
         if c["exact"]:
             ok = ok and torch.equal(re, want[0]) and torch.equal(im, want[1])
+        rec = dict(n=n, case="inplace " + c["label"], kernel=c["kernel"],
+                   max_abs_err=mx, l2_diff=l2, equals_out_of_place=same)
+        f64 = ""
+        if c["kernel"] in TC_KERNELS and c["dim"] == 128:
+            rec.update(against_f64_twin(c, x, (re, im), want))
+            ok = ok and rec["l2_vs_f64"] <= TOL_L2
+            f64 = (f" vs_f64: l2={rec['l2_vs_f64']:.3e} "
+                   f"f32_twin_l2={rec['f32_twin_l2_vs_f64']:.3e}")
         log(f"check n={n} inplace {c['label']:<34} max_abs_err={mx:.3e} "
             f"l2_diff={l2:.3e} aliased={aliased} =out_of_place={same}"
-            f"{' exact' if c['exact'] else ''} {'ok' if ok else 'FAIL'}")
-        RECORD["cases"].append(dict(n=n, case="inplace " + c["label"],
-                                    kernel=c["kernel"], max_abs_err=mx,
-                                    l2_diff=l2, equals_out_of_place=same))
+            f"{' exact' if c['exact'] else ''}{f64} {'ok' if ok else 'FAIL'}")
+        RECORD["cases"].append(rec)
         if not ok:
             raise AssertionError(f"{c['kernel']} in place ({c['label']}, n={n}) "
                                  f"disagrees: aliased={aliased}, equal to out of "
@@ -1903,7 +1917,7 @@ def main() -> int:
     log(f"build tensor-core instructions (HMMA, cuobjdump -sass) per instance "
         f"of the dim-128 panel kernel: {hmma}")
     RECORD["hmma"] = hmma
-    if len(hmma) != 5 or not all(hmma.values()):
+    if len(hmma) != 7 or not all(hmma.values()):
         raise AssertionError(f"the tensor-core panels are not all built with "
                              f"HMMA instructions: {hmma}")
 

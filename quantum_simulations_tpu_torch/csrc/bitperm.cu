@@ -38,12 +38,25 @@
 //                      runs the gather one plane at a time and so still
 //                      holds a third plane: 32 GiB at n = 33, where the
 //                      card has about 15 GiB beside the two planes.  The
-//                      warp of row r swaps rows r and P(r) of both planes
-//                      when P(r) > r and leaves fixed rows alone; the
+//                      kernel launches work for the 2-cycles only: the
+//                      host plan (ops/bitperm_kernels.InvolutionPlan)
+//                      numbers orbits of P on the outer row bits (a fixed
+//                      outer part, or a 2-cycle by its lower member, as a
+//                      bit deposit over one range per transposition), and
+//                      each unit's pairs span a tile set of 6 row bits
+//                      closed under P (the lowest bits with their images),
+//                      so the rows in flight are runs of 512-byte rows on
+//                      both sides of each pair.  A warp takes 4 pairs and
+//                      issues their 16 float4 loads before any store.  The
 //                      2-cycles are disjoint, so the pass is race-free with
-//                      no temporary.  The host factors any permutation of
-//                      the row bits into at most two involutions
-//                      (ops/bitperm_kernels.involution_factors).
+//                      no temporary; fixed rows are never touched.  The
+//                      host factors any permutation of the row bits into
+//                      at most two involutions
+//                      (ops/bitperm_kernels.involution_factors).  Bound:
+//                      the moved rows read and written once, 1.27 ms for
+//                      qft28's grid permutation on an H100 SXM; it takes
+//                      1.51-1.60 ms there (a warp per 4 consecutive rows,
+//                      half of them idle, took 2.16-2.21).
 //   tiled_transpose    (rows, cols) -> (cols, rows) of both planes: a bit
 //                      rotation (the low log2(cols) bits move to the top),
 //                      the rotating-panel schedule's RotateOp.  Replaces
@@ -59,7 +72,7 @@
 //
 // Bound on an H100 SXM: bytes.  Both planes are read and written once,
 // 4.3 GB at n = 28, 1.28 ms at 3.35 TB/s; there is no arithmetic (the
-// involution moves only its non-fixed rows).  All are exact (they only
+// involution reads and writes only its non-fixed rows).  All are exact (they only
 // move floats).  bitperm_swap is out of place only: a block writes rows it
 // did not read.  bitperm_transpose and bitperm_cross also run in place
 // (alias.cuh): block m reads the whole slab (*, m, *) of a plane into
@@ -122,25 +135,87 @@ bitperm_swap_kernel(const float4* __restrict__ re, const float4* __restrict__ im
   }
 }
 
-// The same 4 rows a warp as bitperm_swap; perm is an involution, so
-// gather_row(r) = P(r).  Only the lower row of each 2-cycle moves the pair.
-__global__ void __launch_bounds__(SWAP_NT)
-bitperm_involution_kernel(float4* re, float4* im, long long rows, RowPerm perm) {
-  const int lane = threadIdx.x % 32;
-  const long long r0 =
-      ((long long)blockIdx.x * (SWAP_NT / 32) + threadIdx.x / 32) * SWAP_RPW;
+// ---- bitperm_involution: the 2-cycles of P unit by unit
+// (ops/bitperm_kernels.InvolutionPlan).  A unit is an orbit of P on the
+// outer row bits: a fixed outer part g (one tile of 2^tb rows, its nfix
+// internal 2-cycles) or a 2-cycle g < P(g) (two tiles, 2^tb pairs).  A
+// block of 16 warps takes one unit a round, a warp 4 pairs: it issues all
+// 16 float4 loads (both rows of each pair, both planes) before any store.
+// The tile bits are the lowest row bits with their images, so a unit's
+// rows are runs of contiguous 512-byte rows on both sides of its pairs.
+constexpr int INV_NT = 512;
+constexpr int INV_PPW = 4;                       // pairs a warp, a round
+constexpr int INV_ROUND = INV_NT / 32 * INV_PPW;  // 64 pairs: one unit
+constexpr int MAX_RANGES = MAX_ROW_BITS / 2 + 1;
+constexpr int TILE_BITS = 6;
+
+struct InvPlan {
+  unsigned long long start[MAX_RANGES], dep[MAX_RANGES], set[MAX_RANGES];
+  long long units;
+  int dup_from[MAX_RANGES];
+  int nranges, M, tb, nfix;
+  unsigned char ob[MAX_ROW_BITS / 2], oc[MAX_ROW_BITS / 2];
+  unsigned char tbit[TILE_BITS], tperm[1 << TILE_BITS], fix_lo[1 << (TILE_BITS - 1)];
+};
+
+// The bits of v, low first, into the set bits of mask, low first.
+__device__ __forceinline__ unsigned long long deposit(unsigned long long v,
+                                                      unsigned long long mask) {
+  unsigned long long r = 0;
+  for (; mask; mask &= mask - 1, v >>= 1)
+    if (v & 1) r |= mask & (~mask + 1);
+  return r;
+}
+
+__device__ __forceinline__ long long tile_row(const InvPlan& p, int q) {
+  long long r = 0;
+  for (int k = 0; k < p.tb; ++k) r |= (long long)((q >> k) & 1) << p.tbit[k];
+  return r;
+}
+
+__global__ void __launch_bounds__(INV_NT, 1)
+bitperm_involution_kernel(float4* re, float4* im,
+                          const __grid_constant__ InvPlan p) {
+  // __grid_constant__: indexed in the parameter bank, never copied to
+  // local memory; every index is uniform across a warp.
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (long long u = blockIdx.x; u < p.units; u += gridDim.x) {
+    int k = 0;
+    while (k + 1 < p.nranges && p.start[k + 1] <= (unsigned long long)u) ++k;
+    unsigned long long g = p.set[k] | deposit(u - p.start[k], p.dep[k]);
+    for (int i = p.dup_from[k]; i < p.M; ++i) g |= ((g >> p.ob[i]) & 1ULL) << p.oc[i];
+    unsigned long long pg = g;
+    for (int i = 0; i < p.M; ++i)
+      if (((g >> p.ob[i]) ^ (g >> p.oc[i])) & 1ULL)
+        pg ^= (1ULL << p.ob[i]) | (1ULL << p.oc[i]);
+    const bool fixed = k == 0;
+    const int count = fixed ? p.nfix : 1 << p.tb;
+    for (int s0 = warp * INV_PPW; s0 < count; s0 += INV_ROUND) {
+      long long a[INV_PPW], b[INV_PPW];
+      float4 ar[INV_PPW], br[INV_PPW], ai[INV_PPW], bi[INV_PPW];
 #pragma unroll
-  for (int k = 0; k < SWAP_RPW; ++k) {
-    const long long r = r0 + k;
-    if (r >= rows) break;
-    const long long p = gather_row(r, perm);
-    if (p <= r) continue;
-    const long long a = r * (LANES / 4) + lane, b = p * (LANES / 4) + lane;
-    const float4 ar = re[a], br = re[b], ai = im[a], bi = im[b];
-    re[a] = br;
-    re[b] = ar;
-    im[a] = bi;
-    im[b] = ai;
+      for (int j = 0; j < INV_PPW; ++j) {
+        const int s = s0 + j;
+        if (s < count) {
+          const int q = fixed ? p.fix_lo[s] : s;
+          a[j] = (long long)(g | tile_row(p, q)) * (LANES / 4) + lane;
+          b[j] = (long long)(pg | tile_row(p, p.tperm[q])) * (LANES / 4) + lane;
+          ar[j] = re[a[j]];
+          br[j] = re[b[j]];
+          ai[j] = im[a[j]];
+          bi[j] = im[b[j]];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < INV_PPW; ++j) {
+        if (s0 + j < count) {
+          re[a[j]] = br[j];
+          re[b[j]] = ar[j];
+          im[a[j]] = bi[j];
+          im[b[j]] = ai[j];
+        }
+      }
+    }
   }
 }
 
@@ -277,22 +352,63 @@ int qst_bitperm_swap(const float* re, const float* im, float* ore, float* oim,
   return (int)cudaGetLastError();
 }
 
-// In place: rows and src as for qst_bitperm_swap, with src an involution
-// (src[src[b]] == b).  The planes must be 16-byte aligned.
-int qst_bitperm_involution(float* re, float* im, long long rows,
-                           const int* src, int nbits, int device,
-                           void* stream) {
+// In place: rows = 2^nbits rows of 128 floats; the plan of
+// ops/bitperm_kernels.InvolutionPlan: ranges[4 k .. 4 k + 3] = (start,
+// dep, set, dup_from) of range k (nranges of them, range 0 the fixed outer
+// units), then words = M outer pairs (b, c) sorted by c, the tb tile bits,
+// the 2^tb entries of tperm and the nfix entries of fix_lo.  The planes
+// must be 16-byte aligned.
+int qst_bitperm_involution(float* re, float* im, long long rows, int nbits,
+                           const long long* ranges, int nranges,
+                           const int* words, int M, int tb, int nfix,
+                           long long units, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  RowPerm perm;
-  if (re == im || row_perm(src, nbits, &perm) || rows != (1LL << nbits))
+  if (re == im || nbits < 0 || nbits > MAX_ROW_BITS || rows != (1LL << nbits) ||
+      nranges != M + 1 || M < 0 || M > MAX_ROW_BITS / 2 || tb < 0 ||
+      tb > TILE_BITS || tb > nbits || nfix < 0 || nfix > (1 << tb) / 2 ||
+      units < 1)
     return (int)cudaErrorInvalidValue;
-  for (int b = 0; b < nbits; ++b)
-    if (src[src[b]] != b) return (int)cudaErrorInvalidValue;
-  const long long blocks = (rows + SWAP_ROWS - 1) / SWAP_ROWS;
-  bitperm_involution_kernel<<<(unsigned)blocks, SWAP_NT, 0,
-                              (cudaStream_t)stream>>>(
-      (float4*)re, (float4*)im, rows, perm);
+  InvPlan plan{};
+  for (int k = 0; k < nranges; ++k) {
+    plan.start[k] = (unsigned long long)ranges[4 * k];
+    plan.dep[k] = (unsigned long long)ranges[4 * k + 1];
+    plan.set[k] = (unsigned long long)ranges[4 * k + 2];
+    plan.dup_from[k] = (int)ranges[4 * k + 3];
+  }
+  const int* w = words;
+  for (int i = 0; i < M; ++i, w += 2) {
+    if (w[0] < 0 || w[0] >= w[1] || w[1] >= nbits) return (int)cudaErrorInvalidValue;
+    plan.ob[i] = (unsigned char)w[0];
+    plan.oc[i] = (unsigned char)w[1];
+  }
+  for (int k = 0; k < tb; ++k, ++w) {
+    if (*w < 0 || *w >= nbits) return (int)cudaErrorInvalidValue;
+    plan.tbit[k] = (unsigned char)*w;
+  }
+  for (int q = 0; q < (1 << tb); ++q, ++w) {
+    if (*w < 0 || *w >= (1 << tb)) return (int)cudaErrorInvalidValue;
+    plan.tperm[q] = (unsigned char)*w;
+  }
+  for (int s = 0; s < nfix; ++s, ++w) {
+    if (*w < 0 || *w >= (1 << tb)) return (int)cudaErrorInvalidValue;
+    plan.fix_lo[s] = (unsigned char)*w;
+  }
+  plan.units = units;
+  plan.nranges = nranges;
+  plan.M = M;
+  plan.tb = tb;
+  plan.nfix = nfix;
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, bitperm_involution_kernel, INV_NT, 0);
+  if (err != cudaSuccess) return (int)err;
+  const long long cap = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const long long grid = units < cap ? units : cap;
+  bitperm_involution_kernel<<<(unsigned)grid, INV_NT, 0, (cudaStream_t)stream>>>(
+      (float4*)re, (float4*)im, plan);
   return (int)cudaGetLastError();
 }
 

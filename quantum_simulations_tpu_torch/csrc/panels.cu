@@ -26,7 +26,8 @@
 //                     _positioned_4d_kernel (:605, pos >= 10).
 //   dual_panel        the (0, 7) panel pair on the (A, 128, 128) view in
 //                     ONE pass, in op order, with an optional straddler
-//                     gate on (6, qb in 7..13) before and after.
+//                     gate on (6, qb in 7..13) before and after; on the
+//                     tensor cores (below).
 //                     Replaces dual_panel_planar / _dual_panel_kernel
 //                     (:343, :409) with _straddle_plan /
 //                     _straddle_prologue (:229, :278).
@@ -60,27 +61,45 @@
 // a fresh mma accumulator that a float32 add folds into the sum, because
 // the tensor cores truncate when they accumulate.
 //
-// Dims 1..64 and dual_panel: the SIMT routine contract() (float32 FMAs,
-// no TF32), bound by float32 operations: the loop spends 4 FMAs (8 flop)
-// on a complex multiply-add, 2^28 x 128 x 8 = 2.7e14 flop for each of
-// dual_panel's 128-wide contractions at n = 28, 4.1 ms at 67 TFLOP/s (the
-// bound counts the 6 flop a multiply-add needs by Gauss, 3.1 ms).
-// A block of 512 threads owns one tile of up to 128 x 128 complex
-// amplitudes in shared memory (two padded float planes, 129 KB), read
-// from device memory once and written once; W is staged in chunks of 32
-// columns, each thread keeps a 4 x 8 micro-tile of complex sums in
+// dual_panel, both contractions on the tensor cores (namespace tc,
+// dual_tc_kernel: 9.4-9.7 ms at n = 28 on an H100 SXM, where the SIMT form
+// took 15.0-15.7).  It replaces _dual_panel_kernel (:343), which ran both panels
+// of the (A, 128, 128) view on the MXU with the straddlers on the VPU.
+// Bound: the two 128-wide contractions need 2 x 18 flop a complex
+// multiply-add by Gauss in split TF32, 2^28 x 128 x 36 = 1.24e15 TF32
+// flop, 2.50 ms at 495 TFLOP/s at n = 28, over the 1.28 ms of bytes: the
+// pass is bound by operations (6.19 ms in float32 on the SIMT units).
+// Design: the k8 step of the lane / positioned kernel (k8_mma, the same
+// split, four real products, fresh accumulator per step); a persistent
+// block per SM (256 threads) keeps the tile (d, l) resident in shared
+// memory (2 x 64 KB, unpadded, swizzled so that both fragment patterns and
+// the write-back are conflict-free) and streams both W's row-major through
+// a two-stage cp.async ring in k-chunks of 32 (W1 then W2, 8 chunks a
+// tile; both stay in L2).  A tile: the pre-straddler on the tile (SIMT),
+// contraction 1, a write-back into the tile, contraction 2; then the store
+// from the accumulators, while the next tile loads slice by slice into the
+// slices contraction 2 has consumed; or, with a post-straddler or a diag
+// run, a write-back and an out-of-line SIMT epilogue on the tile and its
+// store.  The k8 steps of a chunk run as a loop: unrolled
+// (QST_TC_DUAL_UNROLL=4) the two modes' code is 4x larger and the pass 10%
+// slower (panel_variants.py).
+//
+// Dims 1..64: the SIMT routine contract() (float32 FMAs, no TF32), bound
+// by float32 operations: the loop spends 4 FMAs (8 flop) on a complex
+// multiply-add.  A block of 512 threads owns one tile of up to 128 x 128
+// complex amplitudes in shared memory (two padded float planes, 129 KB),
+// read from device memory once and written once; W is staged in chunks of
+// 32 columns, each thread keeps a 4 x 8 micro-tile of complex sums in
 // registers, so each shared-memory read feeds 5 FMAs on average.
-// dual_panel applies both contractions and the straddler gates to the
-// same resident tile, so the pair costs one pass of traffic.
 //
 // Diag epilogue (the reference's diag_terms option, pallas_kernels.py
 // :171-188, :462-503, :676-682, :725-818).  A 128-wide panel whose tile
 // rows are whole state rows of 128 lanes (lane panel, positioned pos >= 7,
 // dual) can apply the merged diagonal run that follows it to the tile
 // after its last contraction (and post-straddler), before the store:
-// phase.cuh's arithmetic, on the resident tile with the freed W chunk as
-// scratch (dual_panel), or on the accumulators (tc::diag_acc).  It adds no
-// traffic.
+// phase.cuh's arithmetic, on the accumulators (tc::diag_acc: the lane and
+// positioned panels) or on the tile written back (dual_panel, with the
+// freed W ring as scratch).  It adds no traffic.
 //
 // In place (the capacity tier; alias.cuh).  Each kernel has an ALIAS
 // instance, launched when the output planes are the input planes.  It is
@@ -88,13 +107,13 @@
 // panel's 128 rows, a positioned panel's (a, c-tile) column block, a dual
 // panel's (128, 128) tile) and reads the whole slab before it writes any
 // of it.  SIMT: it loads the slab into shared memory, the barrier at the
-// top of contract() (dual_panel: the one after the load) orders every one
-// of those loads before any thread goes on, and the stores come after the
-// last barrier; each shared-memory store of the load loop consumes its
-// global load, so no load is still in flight when the slab is
-// overwritten.  Tensor cores: the block stores a tile only after the last
-// cp.async group of that tile has landed (wait_group) and been consumed
-// behind a barrier; the groups still in flight belong to its later tiles.
+// top of contract() orders every one of those loads before any thread
+// goes on, and the stores come after the last barrier; each shared-memory
+// store of the load loop consumes its global load, so no load is still in
+// flight when the slab is overwritten.  Tensor cores: the block stores a
+// tile only after the last cp.async group of that tile has landed
+// (wait_group) and been consumed behind a barrier; the groups still in
+// flight belong to its later tiles.
 //
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises if that is not 0.
@@ -195,71 +214,6 @@ __device__ void contract(const float* __restrict__ wr,
   __syncthreads();
 }
 
-// The 2-qubit gate U on (lane bit 6, row bit qb - 7) of a resident
-// (128, 128) tile, U in (6, qb) order: basis b = 2 * bit6 + bit_qb.  The
-// reference's coefficient planes C_k[p] = U[b(p), b(p) ^ k] depend on p
-// only through b(p), so sum_k C_k[p] x[p ^ flip_k] is a 4 x 4 product on
-// each orbit {p, p ^ d, p ^ 64, p ^ d ^ 64}; a thread owns whole orbits,
-// so the update is in place without a race.  u: Re U (16), then Im U (16).
-__device__ void straddle(const float* __restrict__ u, int qb, const Smem& s) {
-  const int dbit = qb - 7;
-  float ur[16], ui[16];
-#pragma unroll
-  for (int t = 0; t < 16; ++t) {
-    ur[t] = u[t];
-    ui[t] = u[16 + t];
-  }
-  for (int o = threadIdx.x; o < TILE * TILE / 4; o += NT) {
-    const int lo = o & 63;      // lane bits 0..5
-    const int rest = o >> 6;    // the 6 row bits other than dbit
-    const int d = ((rest >> dbit) << (dbit + 1)) | (rest & ((1 << dbit) - 1));
-    int off[4];
-    float xr[4], xi[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      off[b] = (d | ((b & 1) << dbit)) * LD + (lo | ((b >> 1) << 6));
-      xr[b] = s.tr[off[b]];
-      xi[b] = s.ti[off[b]];
-    }
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      float yr = 0.f, yi = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        yr = fmaf(ur[4 * b + c], xr[c], yr);
-        yr = fmaf(-ui[4 * b + c], xi[c], yr);
-        yi = fmaf(ur[4 * b + c], xi[c], yi);
-        yi = fmaf(ui[4 * b + c], xr[c], yi);
-      }
-      s.tr[off[b]] = yr;
-      s.ti[off[b]] = yi;
-    }
-  }
-  __syncthreads();
-}
-
-// The diag epilogue on a resident 128 x 128 tile: element (t, lane) at
-// shared offset t * LD + lane lies in state row row0 + t * row_step.  The W
-// chunk is free after the last contraction and holds the phase scratch.
-static_assert(qst::phase_scratch_words(TILE) <= 2 * TILE * LDW,
-              "the phase scratch must fit the W chunk");
-
-__device__ void diag_epilogue(const qst::Phase& ph, unsigned long long row0,
-                              unsigned long long row_step, const Smem& s) {
-  constexpr int TSTEP = NT / TILE;
-  constexpr int J = TILE / TSTEP;
-  const int lane = threadIdx.x % TILE, t0 = threadIdx.x / TILE;
-  uint32_t acc[J];
-  qst::phase_angles<J, TSTEP>(ph, row0, row_step, lane, t0,
-                              reinterpret_cast<uint32_t*>(s.wr), acc);
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int o = (t0 + TSTEP * j) * LD + lane;
-    qst::phase_rotate(s.tr[o], s.ti[o], acc[j]);
-  }
-  __syncthreads();
-}
-
 // ---- lane_panel: view (R, DIM); tile = 128 rows (c) x DIM lanes (k). ----
 template <int DIM, bool ALIAS, bool ROTATE>
 __global__ void __launch_bounds__(NT, 1)
@@ -344,7 +298,11 @@ positioned_panel_kernel(typename qst::Io<float, ALIAS>::In re,
 // product of an output through the tensor cores' accumulator,
 // QST_TC_NOSPLIT replaces the split by a bit copy (lo = 0, wrong digits),
 // QST_TC_GAUSS takes Gauss's three real products (nine TF32 products a
-// complex multiply-add instead of twelve).
+// complex multiply-add instead of twelve), QST_TC_DUAL_UNROLL = 2 or 4
+// unrolls the dual kernel's four k8 steps a chunk by that factor (the
+// package keeps them a loop, 1),
+// QST_TC_KS_LOOP runs the lane / positioned kernel's four as a loop (the
+// package unrolls them).
 #ifndef QST_TC_NOSTORE
 #define QST_TC_NOSTORE 0
 #endif
@@ -356,6 +314,12 @@ positioned_panel_kernel(typename qst::Io<float, ALIAS>::In re,
 #endif
 #ifndef QST_TC_GAUSS
 #define QST_TC_GAUSS 0
+#endif
+#ifndef QST_TC_DUAL_UNROLL
+#define QST_TC_DUAL_UNROLL 1
+#endif
+#ifndef QST_TC_KS_LOOP
+#define QST_TC_KS_LOOP 0
 #endif
 
 namespace tc {
@@ -557,6 +521,61 @@ __device__ __forceinline__ void gauss_mma(float (&dr)[4], float (&di)[4],
   }
 }
 
+// acc += one k8 step of the warp's 64 x 32 block, the step both kernels
+// share (lane / positioned and dual).  load_b(nj, br, bi) gives the B
+// fragment of n8 tile nj: b0 (k = t, n = g), b1 (k = t + 4, n = g);
+// load_a(mi, ar, ai) the A fragment of m16 tile mi: a0 (m = g, k = t), a1
+// (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); each as re / im planes.
+// The step splits them and runs cmma (or gauss_mma) on every (mi, nj).
+template <typename LoadA, typename LoadB>
+__device__ __forceinline__ void k8_mma(LoadA load_a, LoadB load_b, Acc& acc) {
+  uint32_t brh[4][2], brl[4][2], bih[4][2], bil[4][2];
+#if QST_TC_GAUSS
+  uint32_t bsh[4][2], bsl[4][2];  // bi holds Qi - Qr, bs Qr + Qi
+#endif
+#pragma unroll
+  for (int nj = 0; nj < 4; ++nj) {
+    float br[2], bi[2];
+    load_b(nj, br, bi);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      split(br[q], brh[nj][q], brl[nj][q]);
+#if QST_TC_GAUSS
+      split(bi[q] - br[q], bih[nj][q], bil[nj][q]);
+      split(br[q] + bi[q], bsh[nj][q], bsl[nj][q]);
+#else
+      split(bi[q], bih[nj][q], bil[nj][q]);
+#endif
+    }
+  }
+#pragma unroll
+  for (int mi = 0; mi < 4; ++mi) {
+    uint32_t arh[4], arl[4], aih[4], ail[4], anh[4], anl[4];
+    float ar[4], ai[4];
+    load_a(mi, ar, ai);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      split(ar[q], arh[q], arl[q]);
+      split(ai[q], aih[q], ail[q]);
+#if QST_TC_GAUSS  // an holds Pr + Pi
+      split(ar[q] + ai[q], anh[q], anl[q]);
+#else
+      anh[q] = aih[q] ^ 0x80000000u;
+      anl[q] = ail[q] ^ 0x80000000u;
+#endif
+    }
+#pragma unroll
+    for (int nj = 0; nj < 4; ++nj)
+#if QST_TC_GAUSS
+      gauss_mma(acc[mi][nj][0], acc[mi][nj][1], arh, arl, aih, ail, anh, anl,
+                brh[nj], brl[nj], bih[nj], bil[nj], bsh[nj], bsl[nj]);
+#else
+      cmma(acc[mi][nj][0], acc[mi][nj][1], arh, arl, aih, ail, anh, anl,
+           brh[nj], brl[nj], bih[nj], bil[nj]);
+#endif
+  }
+}
+
 // acc += the chunk's products.  W lies in shared memory in fragment order:
 // for k8 step s and n8 tile j, lane l's float4 is (Re W b0, Re W b1, Im W
 // b0, Im W b1) of B-fragment (s, j): W[8j + g][8s + t] and [8j + g][8s +
@@ -572,79 +591,46 @@ __device__ __forceinline__ void chunk_mma(const float* st, const float4* w4,
   const int g = lane >> 2, t = lane & 3;
   const float* sr = st;
   const float* si = st + PLANE;
+#if QST_TC_KS_LOOP
+#pragma unroll 1
+#else
 #pragma unroll
+#endif
   for (int ks = 0; ks < KC / 8; ++ks) {
     const int s = ch * (KC / 8) + ks;
-    uint32_t brh[4][2], brl[4][2], bih[4][2], bil[4][2];
-#if QST_TC_GAUSS
-    uint32_t bsh[4][2], bsl[4][2];  // bi holds Qi - Qr, bs Qr + Qi
-#endif
+    k8_mma(
+        [&](int mi, float (&ar)[4], float (&ai)[4]) {
+          if constexpr (WA) {
+            const int j = wm * 8 + mi * 2;
+            const float4 w0 = w4[(s * (TILE / 8) + j) * 32 + lane];
+            const float4 w1 = w4[(s * (TILE / 8) + j + 1) * 32 + lane];
+            ar[0] = w0.x, ar[1] = w1.x, ar[2] = w0.y, ar[3] = w1.y;
+            ai[0] = w0.z, ai[1] = w1.z, ai[2] = w0.w, ai[3] = w1.w;
+          } else {
 #pragma unroll
-    for (int nj = 0; nj < 4; ++nj) {
-      float br[2], bi[2];  // b0 (k = t, n = g), b1 (k = t + 4, n = g)
-      if constexpr (WA) {  // X(r, k) with r = n: lane stage [r][k]
+            for (int q = 0; q < 4; ++q) {
+              const int m = wm * 64 + mi * 16 + g + 8 * (q & 1);
+              const int k = ks * 8 + t + 4 * (q >> 1);
+              const int o = POS ? k * PP + m : m * PL + k;
+              ar[q] = sr[o];
+              ai[q] = si[o];
+            }
+          }
+        },
+        [&](int nj, float (&br)[2], float (&bi)[2]) {
+          if constexpr (WA) {  // X(r, k) with r = n: lane stage [r][k]
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
-          const int o = (wn * 32 + nj * 8 + g) * PL + ks * 8 + t + 4 * q;
-          br[q] = sr[o];
-          bi[q] = si[o];
-        }
-      } else {
-        const float4 w = w4[(s * (TILE / 8) + wn * 4 + nj) * 32 + lane];
-        br[0] = w.x, br[1] = w.y, bi[0] = w.z, bi[1] = w.w;
-      }
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        split(br[q], brh[nj][q], brl[nj][q]);
-#if QST_TC_GAUSS
-        split(bi[q] - br[q], bih[nj][q], bil[nj][q]);
-        split(br[q] + bi[q], bsh[nj][q], bsl[nj][q]);
-#else
-        split(bi[q], bih[nj][q], bil[nj][q]);
-#endif
-      }
-    }
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi) {
-      uint32_t arh[4], arl[4], aih[4], ail[4], anh[4], anl[4];
-      float ar[4], ai[4];  // a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
-      if constexpr (WA) {
-        const int j = wm * 8 + mi * 2;
-        const float4 w0 = w4[(s * (TILE / 8) + j) * 32 + lane];
-        const float4 w1 = w4[(s * (TILE / 8) + j + 1) * 32 + lane];
-        ar[0] = w0.x, ar[1] = w1.x, ar[2] = w0.y, ar[3] = w1.y;
-        ai[0] = w0.z, ai[1] = w1.z, ai[2] = w0.w, ai[3] = w1.w;
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int m = wm * 64 + mi * 16 + g + 8 * (q & 1);
-          const int k = ks * 8 + t + 4 * (q >> 1);
-          const int o = POS ? k * PP + m : m * PL + k;
-          ar[q] = sr[o];
-          ai[q] = si[o];
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        split(ar[q], arh[q], arl[q]);
-        split(ai[q], aih[q], ail[q]);
-#if QST_TC_GAUSS  // an holds Pr + Pi
-        split(ar[q] + ai[q], anh[q], anl[q]);
-#else
-        anh[q] = aih[q] ^ 0x80000000u;
-        anl[q] = ail[q] ^ 0x80000000u;
-#endif
-      }
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-#if QST_TC_GAUSS
-        gauss_mma(acc[mi][nj][0], acc[mi][nj][1], arh, arl, aih, ail, anh, anl,
-                  brh[nj], brl[nj], bih[nj], bil[nj], bsh[nj], bsl[nj]);
-#else
-        cmma(acc[mi][nj][0], acc[mi][nj][1], arh, arl, aih, ail, anh, anl,
-             brh[nj], brl[nj], bih[nj], bil[nj]);
-#endif
-    }
+            for (int q = 0; q < 2; ++q) {
+              const int o = (wn * 32 + nj * 8 + g) * PL + ks * 8 + t + 4 * q;
+              br[q] = sr[o];
+              bi[q] = si[o];
+            }
+          } else {
+            const float4 w = w4[(s * (TILE / 8) + wn * 4 + nj) * 32 + lane];
+            br[0] = w.x, br[1] = w.y, bi[0] = w.z, bi[1] = w.w;
+          }
+        },
+        acc);
   }
 }
 
@@ -839,48 +825,358 @@ cudaError_t launch(const float* re, const float* im, const float* wr,
   return cudaGetLastError();
 }
 
-}  // namespace tc
+// ---- dual_panel on the tensor cores: view (A, 128, 128) = (a, d = bits
+// 7..13, l = bits 0..6).  Mode 0 (lane, pos 0) contracts l, mode 1 (full,
+// pos 7) contracts d.
+//
+// The tile (d, l) of both planes stays resident in shared memory, unpadded
+// and swizzled: element (d, l) at tix(d, l), the column XORed in its bits
+// 2..4 by a function of d & 7.  The swizzle keeps each fragment pattern
+// conflict-free: mode 0 reads X as B (8 rows g, 4 columns t), mode 1 as A
+// (4 rows t, 8 columns g), and the write-back of either mode's output (4
+// rows 2t + c, 8 columns g) too.  W streams in k-chunks of 32 through a
+// two-stage cp.async ring, row-major [128 i][PW] (PW = 36 = 4 mod 32: its
+// fragment loads are conflict-free); mode 0 takes W as A (m = i, X as B
+// with n = d), mode 1 as B (n = i, X as A with m = l), so in both modes
+// accumulator (m, n) is output element (row n, column m) of the tile and
+// a warp's store covers whole 32-byte sectors.  Per tile: the load, the
+// pre-straddler, contraction 1, a write-back into the tile, contraction 2
+// (the next tile loading, slice by slice, into the k-slices it has
+// consumed), then the store from the accumulators; or, with a
+// post-straddler or a diag run, a write-back, the out-of-line SIMT
+// epilogue on the tile, its store, and the next tile's whole load.
+constexpr int PW = KC + 4;
+constexpr int WSTAGE = 2 * TILE * PW;             // floats: Re W, Im W chunk
+constexpr int TILE_FLOATS = TILE * TILE;
+constexpr int DUAL_JOBS = 2 * NCHUNK;             // W chunks a tile
+constexpr size_t DUAL_SMEM =
+    sizeof(float) * (2 * TILE_FLOATS + STAGES * WSTAGE);  // 204,800 B
+static_assert(DUAL_SMEM <= 232448, "one block's shared memory on sm_90");
+static_assert(qst::phase_scratch_words(TILE / 2) <= STAGES * WSTAGE,
+              "the diag scratch must fit the W ring");
 
-// ---- dual_panel: view (A, 128, 128) = (a, d = bits 7..13, l = bits 0..6).
-// mode 0 ("lane", pos 0) contracts l; mode 1 ("full", pos 7) contracts d.
-__device__ __forceinline__ void contract_mode(int mode, const float* wr,
-                                              const float* wi, const Smem& s) {
-  if (mode == 0)
-    contract<TILE, 1, LD>(wr, wi, s);
-  else
-    contract<TILE, LD, 1>(wr, wi, s);
+__device__ __forceinline__ int tix(int r, int c) {
+  const int v = (((r >> 1 ^ r >> 2) & 1) << 2) | (((r ^ r >> 1) & 1) << 1) |
+                ((r >> 2) & 1);
+  return r * TILE + (c ^ (v << 2));
+}
+
+// acc += chunk ch of the contraction in mode MODE: X from the tile, W from
+// ring stage w ([i][PW], Re then Im).
+template <int MODE>
+__device__ __forceinline__ void dual_chunk(const float* tr, const float* ti,
+                                           const float* w, int ch, Acc& acc,
+                                           int wm, int wn, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* wr = w;
+  const float* wi = w + TILE * PW;
+#if QST_TC_DUAL_UNROLL == 4
+#pragma unroll
+#elif QST_TC_DUAL_UNROLL == 2
+#pragma unroll 2
+#else
+#pragma unroll 1
+#endif
+  for (int ks = 0; ks < KC / 8; ++ks) {
+    const int k0 = ch * KC + ks * 8;  // tile index of the step's first k
+    k8_mma(
+        [&](int mi, float (&ar)[4], float (&ai)[4]) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int m = wm * 64 + mi * 16 + g + 8 * (q & 1);
+            const int k = t + 4 * (q >> 1);
+            const int o = MODE ? tix(k0 + k, m) : m * PW + ks * 8 + k;
+            ar[q] = MODE ? tr[o] : wr[o];
+            ai[q] = MODE ? ti[o] : wi[o];
+          }
+        },
+        [&](int nj, float (&br)[2], float (&bi)[2]) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int n = wn * 32 + nj * 8 + g;
+            const int k = t + 4 * q;
+            const int o = MODE ? n * PW + ks * 8 + k : tix(n, k0 + k);
+            br[q] = MODE ? wr[o] : tr[o];
+            bi[q] = MODE ? wi[o] : ti[o];
+          }
+        },
+        acc);
+  }
+}
+
+// The 2-qubit gate U on (lane bit 6, row bit qb - 7) of the resident tile,
+// U in (6, qb) order: basis b = 2 * bit6 + bit_qb.  The reference's
+// coefficient planes C_k[p] = U[b(p), b(p) ^ k] depend on p only through
+// b(p), so sum_k C_k[p] x[p ^ flip_k] is a 4 x 4 product on each orbit
+// {p, p ^ d, p ^ 64, p ^ d ^ 64}; a thread owns whole orbits, so the update
+// is in place without a race.  u: Re U (16), then Im U (16).  Float32 on
+// the SIMT units; ends with a barrier.
+__device__ __noinline__ void straddle(const float* __restrict__ u, int qb,
+                                      float* tr, float* ti) {
+  const int dbit = qb - 7;
+  float ur[16], ui[16];
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    ur[k] = u[k];
+    ui[k] = u[16 + k];
+  }
+  // Two orbits a thread at a time, every load before any product.
+  for (int o0 = threadIdx.x; o0 < TILE_FLOATS / 4; o0 += 2 * NT) {
+    int off[2][4];
+    float xr[2][4], xi[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int o = o0 + h * NT;
+      const int lo = o & 63;      // lane bits 0..5
+      const int rest = o >> 6;    // the 6 row bits other than dbit
+      const int d = ((rest >> dbit) << (dbit + 1)) | (rest & ((1 << dbit) - 1));
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        off[h][b] = tix(d | ((b & 1) << dbit), lo | ((b >> 1) << 6));
+        xr[h][b] = tr[off[h][b]];
+        xi[h][b] = ti[off[h][b]];
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        float yr = 0.f, yi = 0.f;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          yr = fmaf(ur[4 * b + c], xr[h][c], yr);
+          yr = fmaf(-ui[4 * b + c], xi[h][c], yr);
+          yi = fmaf(ur[4 * b + c], xi[h][c], yi);
+          yi = fmaf(ui[4 * b + c], xr[h][c], yi);
+        }
+        tr[off[h][b]] = yr;
+        ti[off[h][b]] = yi;
+      }
+  }
+  __syncthreads();
+}
+
+// The epilogue on the tile written back after contraction 2, on the SIMT
+// units: the post-straddler, then the diag run (tile row d lies in state
+// row row0 + d; phase_angles in two halves of 64 rows, its scratch in the
+// W ring).  Out of line, so that its registers stay out of the
+// contractions'.  Ends with a barrier.
+__device__ __noinline__ void tile_epilogue(const float* __restrict__ u_post,
+                                           int qb_post, qst::Phase ph,
+                                           unsigned long long row0,
+                                           uint32_t* scratch, float* tr,
+                                           float* ti) {
+  if (u_post != nullptr) straddle(u_post, qb_post, tr, ti);
+  if (ph.words == nullptr) return;
+  constexpr int TSTEP = NT / TILE;
+  constexpr int J = TILE / 2 / TSTEP;
+  const int lane = threadIdx.x % TILE, t0 = threadIdx.x / TILE;
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    uint32_t a[J];
+    qst::phase_angles<J, TSTEP>(ph, row0 + h * (TILE / 2), 1, lane, t0,
+                                scratch, a);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int o = tix(h * (TILE / 2) + t0 + TSTEP * j, lane);
+      qst::phase_rotate(tr[o], ti[o], a[j]);
+    }
+  }
+  __syncthreads();
+}
+
+// One persistent block per SM walks tiles blockIdx.x, + gridDim.x, ....
+// In place (ALIAS) it is hazard-free: a block touches only its own tiles;
+// a tile's loads have all landed (cp.async.wait_group 0) and been consumed
+// behind a barrier before its first store, and the load in flight during
+// a store is the block's next tile.
+template <bool ALIAS>
+__global__ void __launch_bounds__(NT, 1)
+dual_tc_kernel(typename qst::Io<float, ALIAS>::In re,
+               typename qst::Io<float, ALIAS>::In im,
+               const float* __restrict__ w1r, const float* __restrict__ w1i,
+               int mode1, const float* __restrict__ w2r,
+               const float* __restrict__ w2i, int mode2,
+               const float* __restrict__ u_pre, int qb_pre,
+               const float* __restrict__ u_post, int qb_post,
+               typename qst::Io<float, ALIAS>::Out ore,
+               typename qst::Io<float, ALIAS>::Out oim, long long ntiles,
+               int vec, qst::Phase ph) {
+  extern __shared__ float4 tc_smem[];
+  float* const tr = reinterpret_cast<float*>(tc_smem);
+  float* const ti = tr + TILE_FLOATS;
+  float* const ring = ti + TILE_FLOATS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  const bool epilogue = u_post != nullptr || ph.words != nullptr;
+
+  // Job j of a tile: chunk j % NCHUNK of W1 (j < NCHUNK) or W2, into ring
+  // stage j % STAGES.
+  auto issue_w = [&](int j) {
+    const float* wr = j < NCHUNK ? w1r : w2r;
+    const float* wi = j < NCHUNK ? w1i : w2i;
+    const int k0 = (j % NCHUNK) * KC;
+    float* st = ring + (j % STAGES) * WSTAGE;
+    for (int e = threadIdx.x; e < 2 * TILE * KC / 4; e += NT) {
+      const int p = e / (TILE * KC / 4), r = e % (TILE * KC / 4);
+      const int i = r / (KC / 4), q = r % (KC / 4);
+      const float* src = (p ? wi : wr) + i * TILE + k0 + 4 * q;
+      float* dst = st + p * TILE * PW + i * PW + 4 * q;
+      if (vec) {
+        cp_async16(dst, src);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) dst[c] = src[c];
+      }
+    }
+  };
+  // Slice h of tile t along the k axis of mode m (m = 1: rows 32h ..
+  // 32h + 31; m = 0: those columns), both planes.
+  auto issue_slice = [&](long long t, int h, int m) {
+    const long long base = t * TILE_FLOATS;
+    for (int e = threadIdx.x; e < 2 * TILE_FLOATS / 16; e += NT) {
+      const int p = e / (TILE_FLOATS / 16), r = e % (TILE_FLOATS / 16);
+      const int d = m ? h * KC + r / (TILE / 4) : r / (KC / 4);
+      const int c = m ? 4 * (r % (TILE / 4)) : h * KC + 4 * (r % (KC / 4));
+      const float* src = (p ? im : re) + base + d * TILE + c;
+      float* dst = (p ? ti : tr) + tix(d, c);
+      if (vec) {
+        cp_async16(dst, src);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) dst[k] = src[k];
+      }
+    }
+  };
+  // Accumulator (m, n) <-> tile element (row n, column m).
+  auto write_back = [&](Acc& acc) {
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int o = tix(frag_n(wn, nj, c, lane), frag_m(wm, mi, c, lane));
+          tr[o] = acc[mi][nj][0][c];
+          ti[o] = acc[mi][nj][1][c];
+          acc[mi][nj][0][c] = acc[mi][nj][1][c] = 0.f;
+        }
+  };
+  if ((long long)blockIdx.x < ntiles) {
+    for (int h = 0; h < NCHUNK; ++h) issue_slice(blockIdx.x, h, 1);
+    issue_w(0);
+    cp_async_commit();
+  }
+
+#pragma unroll 1
+  for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    const long long base = t * TILE_FLOATS, next = t + gridDim.x;
+    // The next tile loads slice by slice into the slices contraction 2 has
+    // consumed, unless the epilogue still needs the tile.
+    const bool prefetch = next < ntiles && !epilogue;
+    cp_async_wait<0>();  // the tile and job 0 (this thread's copies)
+    __syncthreads();     // ... everyone's
+    if (u_pre != nullptr) straddle(u_pre, qb_pre, tr, ti);
+    Acc acc;
+#pragma unroll
+    for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mi][nj][0][c] = acc[mi][nj][1][c] = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < DUAL_JOBS; ++j) {
+      if (j > 0) {
+        cp_async_wait<0>();  // job j has landed
+        __syncthreads();     // ... everyone's; stage (j + 1) % 2 is consumed
+      }
+      if (j + 1 < DUAL_JOBS) issue_w(j + 1);
+      if (prefetch && j > NCHUNK) issue_slice(next, j - NCHUNK - 1, mode2);
+      cp_async_commit();
+      const float* st = ring + (j % STAGES) * WSTAGE;
+      if ((j < NCHUNK ? mode1 : mode2) != 0)
+        dual_chunk<1>(tr, ti, st, j % NCHUNK, acc, wm, wn, lane);
+      else
+        dual_chunk<0>(tr, ti, st, j % NCHUNK, acc, wm, wn, lane);
+      if (j == NCHUNK - 1) {
+        __syncthreads();  // every read of the tile by contraction 1 is done
+        write_back(acc);  // job j + 1's barrier orders it before contraction 2
+      }
+    }
+    __syncthreads();  // every read of the tile and of the ring is done
+    if (!epilogue) {
+      // The rest of the next tile (its last slice) loads under the store.
+      if (next < ntiles) {
+        issue_slice(next, NCHUNK - 1, mode2);
+        issue_w(0);
+        cp_async_commit();
+      }
+#pragma unroll
+      for (int mi = 0; mi < 4; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const long long o = base + frag_n(wn, nj, c, lane) * TILE +
+                                frag_m(wm, mi, c, lane);
+            ore[o] = acc[mi][nj][0][c];
+            oim[o] = acc[mi][nj][1][c];
+          }
+    } else {
+      write_back(acc);
+      __syncthreads();
+      tile_epilogue(u_post, qb_post, ph, (unsigned long long)t * TILE,
+                    reinterpret_cast<uint32_t*>(ring), tr, ti);
+      for (int e = threadIdx.x; e < 2 * TILE_FLOATS / 4; e += NT) {
+        const int p = e / (TILE_FLOATS / 4), r = e % (TILE_FLOATS / 4);
+        const int d = r / (TILE / 4), c = 4 * (r % (TILE / 4));
+        const float* src = (p ? ti : tr) + tix(d, c);
+        float* dst = (p ? oim : ore) + base + d * TILE + c;
+        if (vec) {
+          *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) dst[k] = src[k];
+        }
+      }
+      __syncthreads();  // the tile is read out: the next one may land
+      if (next < ntiles) {
+        for (int h = 0; h < NCHUNK; ++h) issue_slice(next, h, 1);
+        issue_w(0);
+        cp_async_commit();
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
 template <bool ALIAS>
-__global__ void __launch_bounds__(NT, 1)
-dual_panel_kernel(typename qst::Io<float, ALIAS>::In re,
-                  typename qst::Io<float, ALIAS>::In im,
-                  const float* __restrict__ w1r, const float* __restrict__ w1i,
-                  int mode1, const float* __restrict__ w2r,
-                  const float* __restrict__ w2i, int mode2,
-                  const float* __restrict__ u_pre, int qb_pre,
-                  const float* __restrict__ u_post, int qb_post,
-                  typename qst::Io<float, ALIAS>::Out ore,
-                  typename qst::Io<float, ALIAS>::Out oim, qst::Phase ph) {
-  const Smem s = smem_parts();
-  const long long base = (long long)blockIdx.x * TILE * TILE;
-  for (int e = threadIdx.x; e < TILE * TILE; e += NT) {
-    const int d = e / TILE, l = e % TILE;
-    s.tr[d * LD + l] = re[base + e];
-    s.ti[d * LD + l] = im[base + e];
-  }
-  __syncthreads();
-  if (u_pre != nullptr) straddle(u_pre, qb_pre, s);
-  contract_mode(mode1, w1r, w1i, s);
-  contract_mode(mode2, w2r, w2i, s);
-  if (u_post != nullptr) straddle(u_post, qb_post, s);
-  if (ph.words != nullptr) diag_epilogue(ph, (long long)blockIdx.x * TILE, 1, s);
-  for (int e = threadIdx.x; e < TILE * TILE; e += NT) {
-    const int d = e / TILE, l = e % TILE;
-    ore[base + e] = s.tr[d * LD + l];
-    oim[base + e] = s.ti[d * LD + l];
-  }
+cudaError_t launch_dual(const float* re, const float* im, const float* w1r,
+                        const float* w1i, int mode1, const float* w2r,
+                        const float* w2i, int mode2, const float* u_pre,
+                        int qb_pre, const float* u_post, int qb_post,
+                        float* ore, float* oim, long long ntiles,
+                        const qst::Phase& ph, int device, cudaStream_t st) {
+  auto kernel = dual_tc_kernel<ALIAS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DUAL_SMEM);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // cp.async moves 16 bytes: every plane must start on a 16-byte boundary.
+  const int vec = ((reinterpret_cast<uintptr_t>(re) | reinterpret_cast<uintptr_t>(im) |
+                    reinterpret_cast<uintptr_t>(w1r) | reinterpret_cast<uintptr_t>(w1i) |
+                    reinterpret_cast<uintptr_t>(w2r) | reinterpret_cast<uintptr_t>(w2i)) &
+                   15) == 0;
+  const long long grid = ntiles < sms ? ntiles : sms;
+  kernel<<<(unsigned)grid, NT, DUAL_SMEM, st>>>(
+      re, im, w1r, w1i, mode1, w2r, w2i, mode2, u_pre, qb_pre, u_post, qb_post,
+      ore, oim, ntiles, vec, ph);
+  return cudaGetLastError();
 }
+
+}  // namespace tc
 
 template <typename K>
 cudaError_t allow_smem(K kernel) {
@@ -912,21 +1208,6 @@ cudaError_t launch_positioned(const float* re, const float* im,
   positioned_panel_kernel<DIM, ALIAS>
       <<<(unsigned)(A * tpa), NT, SMEM_BYTES, st>>>(re, im, wr, wi, ore, oim,
                                                      C, tpa);
-  return cudaGetLastError();
-}
-
-template <bool ALIAS>
-cudaError_t launch_dual(const float* re, const float* im, const float* w1r,
-                        const float* w1i, int mode1, const float* w2r,
-                        const float* w2i, int mode2, const float* u_pre,
-                        int qb_pre, const float* u_post, int qb_post,
-                        float* ore, float* oim, long long A,
-                        const qst::Phase& ph, cudaStream_t st) {
-  cudaError_t err = allow_smem(dual_panel_kernel<ALIAS>);
-  if (err != cudaSuccess) return err;
-  dual_panel_kernel<ALIAS><<<(unsigned)A, NT, SMEM_BYTES, st>>>(
-      re, im, w1r, w1i, mode1, w2r, w2i, mode2, u_pre, qb_pre, u_post,
-      qb_post, ore, oim, ph);
   return cudaGetLastError();
 }
 
@@ -1031,10 +1312,10 @@ int qst_dual_panel(const float* re, const float* im, const float* w1r,
   const qst::Phase ph{(const uint32_t*)phase, G, T};
   cudaStream_t st = (cudaStream_t)stream;
   return (int)(alias
-      ? launch_dual<true>(re, im, w1r, w1i, mode1, w2r, w2i, mode2, u_pre,
-                          qb_pre, u_post, qb_post, ore, oim, A, ph, st)
-      : launch_dual<false>(re, im, w1r, w1i, mode1, w2r, w2i, mode2, u_pre,
-                           qb_pre, u_post, qb_post, ore, oim, A, ph, st));
+      ? tc::launch_dual<true>(re, im, w1r, w1i, mode1, w2r, w2i, mode2, u_pre,
+                              qb_pre, u_post, qb_post, ore, oim, A, ph, device, st)
+      : tc::launch_dual<false>(re, im, w1r, w1i, mode1, w2r, w2i, mode2, u_pre,
+                               qb_pre, u_post, qb_post, ore, oim, A, ph, device, st));
 }
 
 }  // extern "C"

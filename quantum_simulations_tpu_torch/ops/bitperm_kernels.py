@@ -35,6 +35,7 @@ twin agree bit for bit.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -162,6 +163,112 @@ def involution_factors(src) -> list[list[int]]:
     return [t for t in (t1, t2) if t != list(range(n))]
 
 
+TILE_BITS = 6  # row bits of an involution tile: 64 rows, one block's round
+
+
+@dataclass(frozen=True)
+class InvolutionPlan:
+    """The pair enumeration of ``bitperm_involution`` for an involution P
+    of the ``nbits`` row bits (a product of disjoint transpositions).
+
+    The row bits split into a tile set T (at most 6 bits, closed under P:
+    the lowest bits with their images) and the outer bits.  A unit is an
+    orbit of P on the outer part g of a row: a fixed g (one tile, whose
+    2-cycles are the pairs (q, tperm[q]) for q in ``fix_lo``, q <
+    tperm[q]) or a 2-cycle g < P(g) (two tiles, row (g, q) <-> (P(g),
+    tperm[q]) for every q).  So the rows a unit touches are runs of
+    contiguous rows on both sides of each pair.
+
+    Units are numbered by ranges: range 0 holds the fixed outer g, range
+    j + 1 the g whose highest differing outer transposition (``pairs``
+    sorted by c) is j, with (b_j, c_j) = (1, 0).  Unit u of range k is
+    ``g = setbits[k] | deposit(u - start[k], dep[k])``, then bit c_i set
+    to bit b_i for i >= dup_from[k] (the transpositions whose two bits
+    are equal in g).  Row index = outer bits of g | the tile bits of q
+    (``tile_bits``, bit k of q to row bit tile_bits[k])."""
+    nbits: int
+    tile_bits: tuple
+    tperm: tuple
+    fix_lo: tuple
+    pairs: tuple                      # outer transpositions (b, c), by c
+    ranges: tuple                     # (start, dep, setbits, dup_from)
+    units: int
+
+    @classmethod
+    def of(cls, rowperm) -> "InvolutionPlan":
+        p = [int(x) for x in rowperm]
+        nbits = len(p)
+        tile: list[int] = []
+        for b in range(nbits):
+            add = {b, p[b]} - set(tile)
+            if len(tile) + len(add) <= TILE_BITS:
+                tile += sorted(add)
+            if len(tile) == TILE_BITS:
+                break
+        tile = sorted(tile)
+        tpos = {b: k for k, b in enumerate(tile)}
+        tperm = []
+        for q in range(1 << len(tile)):
+            tperm.append(sum(((q >> k) & 1) << tpos[p[b]]
+                             for k, b in enumerate(tile)))
+        fix_lo = tuple(q for q in range(1 << len(tile)) if q < tperm[q])
+        outer = [b for b in range(nbits) if b not in tpos]
+        pairs = sorted(((b, p[b]) for b in outer if p[b] > b),
+                       key=lambda bc: bc[1])
+        free = sum(1 << b for b in outer if p[b] == b)
+        ranges, start = [], 0
+
+        def add_range(dep, setbits, dup_from):
+            nonlocal start
+            ranges.append((start, dep, setbits, dup_from))
+            start += 1 << bin(dep).count("1")
+
+        add_range(free | sum(1 << b for b, _ in pairs), 0, 0)
+        for j, (bj, _) in enumerate(pairs):
+            dep = (free | sum((1 << b) | (1 << c) for b, c in pairs[:j])
+                   | sum(1 << b for b, _ in pairs[j + 1:]))
+            add_range(dep, 1 << bj, j + 1)
+        return cls(nbits, tuple(tile), tuple(tperm), fix_lo, tuple(pairs),
+                   tuple(ranges), start)
+
+    def unit_rows(self, u: int) -> tuple[int, int, bool]:
+        """(g, P(g), fixed) of unit u: the kernel's decode."""
+        k = max(i for i, r in enumerate(self.ranges) if r[0] <= u)
+        start, dep, g, dup_from = self.ranges[k]
+        v = u - start
+        for b in range(self.nbits):
+            if dep >> b & 1:
+                g |= (v & 1) << b
+                v >>= 1
+        for b, c in self.pairs[dup_from:]:
+            g |= (g >> b & 1) << c
+        pg = g
+        for b, c in self.pairs:
+            if (g >> b ^ g >> c) & 1:
+                pg ^= (1 << b) | (1 << c)
+        return g, pg, k == 0
+
+    def tile_offset(self, q: int) -> int:
+        return sum(((q >> k) & 1) << b for k, b in enumerate(self.tile_bits))
+
+    def row_pairs(self):
+        """Every (a, b) row pair the kernel swaps, unit by unit."""
+        for u in range(self.units):
+            g, pg, fixed = self.unit_rows(u)
+            for q in (self.fix_lo if fixed else range(len(self.tperm))):
+                yield g | self.tile_offset(q), pg | self.tile_offset(self.tperm[q])
+
+    def operands(self):
+        """The C entry's arrays: ranges (start, dep, setbits, dup_from) as
+        int64, then the int32 words pairs (b, c), tile_bits, tperm,
+        fix_lo."""
+        r = (ctypes.c_longlong * (4 * len(self.ranges)))(
+            *[x for rg in self.ranges for x in rg])
+        words = ([x for bc in self.pairs for x in bc] + list(self.tile_bits)
+                 + list(self.tperm) + list(self.fix_lo))
+        return r, (ctypes.c_int * len(words))(*words)
+
+
 def cross_sources(n: int, cross) -> list[int]:
     """src[b] (as :func:`bit_sources`) of the transpositions lane l <->
     bit cross[l]."""
@@ -271,7 +378,9 @@ _SIGNATURES = {
     "qst_error_string": (ctypes.c_char_p, [_I]),
     "qst_bitperm_swap": (_I, [_P, _P, _P, _P, _LL, ctypes.POINTER(_I), _I,
                               _I, _P]),
-    "qst_bitperm_involution": (_I, [_P, _P, _LL, ctypes.POINTER(_I), _I,
+    "qst_bitperm_involution": (_I, [_P, _P, _LL, _I,
+                                    ctypes.POINTER(_LL), _I,
+                                    ctypes.POINTER(_I), _I, _I, _I, _LL,
                                     _I, _P]),
     "qst_bitperm_transpose": (_I, [_P, _P, _P, _P, _LL, _I, _P]),
     "qst_bitperm_cross": (_I, [_P, _P, _P, _P, _LL, _P, _I, _P]),
@@ -312,7 +421,8 @@ def bitperm_swap(re, im, pairs, grid_map=None, *, inplace: bool = False,
 def bitperm_involution(re, im, src, *, plain: bool = False):
     """In place: rows r <-> P(r) of the (2^n / 128, 128) view, P the
     involution ``src`` of the bits >= 7 (``src[src[b]] == b``, the lane
-    bits fixed): out[i] = in[S(i)], bit b of S(i) bit src[b] of i."""
+    bits fixed): out[i] = in[S(i)], bit b of S(i) bit src[b] of i.  The
+    kernel walks the 2-cycles of P by :class:`InvolutionPlan`."""
     n = _n_of(re)
     src = [int(s) for s in src]
     if (len(src) != n or src[:LANE_BITS] != list(range(LANE_BITS))
@@ -322,11 +432,20 @@ def bitperm_involution(re, im, src, *, plain: bool = False):
     if plain or not on_card("bitperm_involution", re, im):
         return bitperm_involution_plain(re, im, src)
     check_aligned("bitperm_involution", re, im)
+    plan, ranges, words = _involution_operands(
+        tuple(s - LANE_BITS for s in src[LANE_BITS:]))
     launch("bitperm", _SIGNATURES, "qst_bitperm_involution", re.device,
-           re.data_ptr(), im.data_ptr(), re.numel() // LANES, _row_map(src),
-           n - LANE_BITS)
+           re.data_ptr(), im.data_ptr(), re.numel() // LANES, plan.nbits,
+           ranges, len(plan.ranges), words, len(plan.pairs),
+           len(plan.tile_bits), len(plan.fix_lo), plan.units)
     LAUNCHES["bitperm_involution"] += 1
     return re, im
+
+
+@functools.lru_cache(maxsize=64)
+def _involution_operands(rowperm: tuple):
+    plan = InvolutionPlan.of(rowperm)
+    return (plan, *plan.operands())
 
 
 def bitperm_transpose(re, im, *, inplace: bool = False, plain: bool = False):

@@ -35,9 +35,10 @@ panel and then the diag twin's arithmetic
 
 The kernels take float32 planes only (the TPU kernels never ran float64
 on the chip); the twins take any float type.  At dim 128 the lane and
-positioned kernels run on the tensor cores in split TF32 (three TF32
-products a real product: float32-class accuracy; ``csrc/panels.cu``),
-narrower panels and ``dual_panel`` on the float32 SIMT units.  A W is a
+positioned kernels and both contractions of ``dual_panel`` run on the
+tensor cores in split TF32 (three TF32 products a real product:
+float32-class accuracy; ``csrc/panels.cu``), narrower panels and the
+dual's straddlers on the float32 SIMT units.  A W is a
 numpy complex matrix or a ``(wr, wi)`` pair of planes from
 :func:`w_planes`.
 """

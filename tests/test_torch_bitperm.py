@@ -144,3 +144,60 @@ def test_bitperm_cross_rejects_what_the_reference_rejects(n, cross, match):
     x = torch.zeros(1 << n, dtype=torch.float64)
     with pytest.raises(ValueError, match=match):
         bk.bitperm_cross(x, x, cross)
+
+
+def _random_involution(nbits, rng):
+    """A random involution of ``nbits`` row bits: k disjoint
+    transpositions (k from 0 to nbits // 2)."""
+    bits = [int(b) for b in rng.permutation(nbits)]
+    p = list(range(nbits))
+    for i in range(int(rng.integers(0, nbits // 2 + 1))):
+        a, b = bits[2 * i], bits[2 * i + 1]
+        p[a], p[b] = b, a
+    return p
+
+
+@pytest.mark.parametrize("n", range(8, 21))
+def test_involution_plan_covers_each_2_cycle_once(n):
+    """bitperm_involution's pair enumeration (InvolutionPlan, the
+    kernel's decode): on random involutions of the row bits, every
+    2-cycle of P appears once, by its lower row, and no fixed row does."""
+    rng = np.random.default_rng(n)
+    nbits = n - bk.LANE_BITS
+    for _ in range(4):
+        p = _random_involution(nbits, rng)
+        perm = np.zeros(1 << nbits, np.int64)
+        rows = np.arange(1 << nbits)
+        for b in range(nbits):
+            perm |= ((rows >> b) & 1) << p[b]
+        plan = bk.InvolutionPlan.of(p)
+        pairs = np.array(list(plan.row_pairs()), np.int64).reshape(-1, 2)
+        assert (perm[pairs[:, 0]] == pairs[:, 1]).all()
+        lower = np.sort(np.minimum(pairs[:, 0], pairs[:, 1]))
+        np.testing.assert_array_equal(lower, rows[perm > rows])
+        assert {p[b] for b in plan.tile_bits} == set(plan.tile_bits)
+
+
+def test_involution_plan_of_qft28():
+    """qft28's grid permutation: the tile holds the three lowest row bits
+    and their images, so a unit's rows are runs of 8 rows on both sides."""
+    src = bk.bit_sources(28, ((7, 20), (8, 19), (9, 18), (10, 17)),
+                         {21: 27, 22: 26, 23: 25, 25: 23, 26: 22, 27: 21})
+    t, = bk.involution_factors(src)
+    plan = bk.InvolutionPlan.of([s - bk.LANE_BITS for s in t[bk.LANE_BITS:]])
+    assert plan.tile_bits == (0, 1, 2, 11, 12, 13)
+    moved = (1 << 21) - (1 << 14)
+    fixed_units = plan.ranges[1][0]
+    assert fixed_units * len(plan.fix_lo) + (plan.units - fixed_units) * 64 == moved // 2
+
+
+def test_bitperm_involution_twin_is_the_gather():
+    """In place on the CPU: the twin, equal to the out-of-place gather."""
+    n, pairs = 16, ((7, 15), (9, 12))
+    psi = _state(n, 3)
+    src = bk.bit_sources(n, pairs, {})
+    re, im = torch.from_numpy(psi.real.copy()), torch.from_numpy(psi.imag.copy())
+    bk.reset_counts()
+    got = bk.bitperm_involution(re, im, src)
+    assert got[0] is re and bk.PLAIN_CALLS["bitperm_involution"] == 1
+    _exact((re.numpy(), im.numpy()), _port(bk.bitperm_swap, psi, pairs, {}))

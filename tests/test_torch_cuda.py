@@ -601,3 +601,96 @@ def test_cli_complex128_on_card(dev, tmp_path):
     res = json.loads(proc.stdout)
     assert sorted(i for i, _ in res["top"]) == ["0x0", "0xfff"]
     assert all(abs(p - 0.5) < 1e-12 for _, p in res["top"])
+
+
+# ---------------------------------------------------------------------------
+# dual_panel on the tensor cores; bitperm_involution by its pair plan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", ["plain", "straddlers", "diag", "inplace"])
+@pytest.mark.parametrize("order", [(0, 7), (7, 0)])
+def test_dual_panel_tensor_cores(dev, order, variant):
+    """The split-TF32 dual against its float32 and float64 twins, with
+    general complex pre- and post-straddlers, a diag epilogue, in place
+    (all three at once)."""
+    n = 18
+    x, W1, W2 = _state(n, 11, dev), _unitary(128, 21), _unitary(128, 22)
+    kw = {}
+    if variant in ("straddlers", "inplace"):
+        kw.update(straddle=(6, 9, _unitary(4, 5)), post_straddle=(6, 13, _unitary(4, 6)))
+    if variant in ("diag", "inplace"):
+        kw["diag_terms"] = _terms(n, 60, 7)
+    key = "dual_panel" + ("+diag" if "diag_terms" in kw else "") + (
+        " inplace" if variant == "inplace" else "")
+    want = pk.dual_panel_plain(*x, W1, order[0], W2, order[1], **kw)
+    want64 = pk.dual_panel_plain(*_f64(x), W1, order[0], W2, order[1], **kw)
+    before = pk.LAUNCHES[key]
+    if variant == "inplace":
+        re, im = x[0].clone(), x[1].clone()
+        got = pk.dual_panel(re, im, W1, order[0], W2, order[1], inplace=True, **kw)
+        assert got[0] is re and got[1] is im
+    else:
+        got = pk.dual_panel(*x, W1, order[0], W2, order[1], **kw)
+    assert pk.LAUNCHES[key] == before + 1
+    assert _l2(got, want) < TOL_L2 and _l2(got, want64) < TOL_L2
+
+
+def test_dual_panel_runs_hmma(dev):
+    """Both instances of the dual kernel (out of place, in place) hold
+    tensor-core instructions (cuobjdump -sass of the built library)."""
+    import re
+    import subprocess
+    from pathlib import Path
+
+    from quantum_simulations_tpu_torch.ops import cuda_build
+
+    lib = next(p for p in cuda_build.build_all()
+               if p.name.startswith("libpanels-"))
+    tool = Path(cuda_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            d = re.search(r"dual_tc_kernelILb(\d)E", m.group(1))
+            fn = d.group(1) if d else None
+            if fn is not None:
+                counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    assert set(counts) == {"0", "1"} and all(counts.values()), counts
+
+
+def _random_involution_src(n, rng):
+    bits = [int(b) for b in rng.permutation(np.arange(7, n))]
+    k = int(rng.integers(1, (n - 7) // 2 + 1))
+    pairs = tuple((bits[2 * i], bits[2 * i + 1]) for i in range(k))
+    return pairs, bk.bit_sources(n, pairs, {})
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bitperm_involution_random_exact(dev, seed):
+    """In place, bit for bit equal to the plain twin, one launch."""
+    pairs, src = _random_involution_src(20, np.random.default_rng(seed))
+    x = _state(20, 30 + seed, dev)
+    re, im = x[0].clone(), x[1].clone()
+    before = bk.LAUNCHES["bitperm_involution"]
+    got = bk.bitperm_involution(re, im, src)
+    assert got[0] is re and bk.LAUNCHES["bitperm_involution"] == before + 1
+    want = bk.bitperm_swap_plain(*x, pairs, {})
+    assert torch.equal(re, want[0]) and torch.equal(im, want[1])
+
+
+def test_bitperm_involution_qft28_exact(dev):
+    """qft28's grid permutation (one involution) at n = 28."""
+    from quantum_simulations_tpu_torch.runtime.simulator import schedule
+
+    op = next(op for op, _ in schedule(library.qft(28))
+              if type(op).__name__ == "BitPermGridOp")
+    t, = bk.involution_factors(bk.bit_sources(28, op.pairs, dict(op.grid_map)))
+    x = _state(28, 2, dev)
+    re, im = x[0].clone(), x[1].clone()
+    bk.bitperm_involution(re, im, t)
+    want = bk.bitperm_involution(*x, t, plain=True)
+    assert torch.equal(re, want[0]) and torch.equal(im, want[1])
