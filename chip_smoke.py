@@ -136,6 +136,38 @@ Phases (any failure exits non-zero):
    probability >= 1 - 1e-5; every |norm2 - 1| <= 1e-5.  Times:
    nonstab33 and qft33 by (t(2) - t(1)) / 1, ghz33 and qpe33 one run.
 
+6. The tiers around the dense engine, each request through the entry
+   points with the counters set to 0 before it and read after it, no
+   plain twin called.  The sparse tier: ``api.simulate(cd,
+   SimulatorConfig(sparse=True))`` of ghz(62) (nnz 2, both amplitudes
+   2^-1/2 within 1e-12) and w_state(62) (nnz 62, each |amp|^2 = 1/62
+   within 1e-12) on the card's COO tier, ``simulate_sparse(ghz(63),
+   force_tier="numpy")`` (bit 62), hadamard_wall(22) (nnz 2^22, every
+   amplitude 2^-11 within 1e-12; the COO gates timed alone), ``api.sample``
+   of ghz62 (every row all 0 or all 1) and ghz(1000) on the host's
+   bigint tier.  The adaptive tier at n = 26 (its dense cap): qft(26) and
+   hadamard_wall(26) with ``sparse="auto"``, fused (the default) and
+   window: ``switched_at`` and ``nnz_history`` as the rule gives them on
+   |0> (the H that takes nnz past 2^22: gate 23 of the wall), the
+   hand-off's kernels launched (ADAPT_NEED; the wall's fused hand-off is
+   three plain torch gates, ADAPT_DENSE), the API's numpy result equal
+   to the tier's, and each state within 1e-5 of the whole circuit run in
+   float64 through the plain twins on the card (the wall uniform 2^-13
+   within 1e-6); the fused runs' COO gates timed alone.  The trajectory
+   tier: traj28 (``traj_circuit(28)``: non_stabilizer(28, 4, 7), two
+   MEASUREs, two conditions, RESET, non_stabilizer(28, 2, 8), a last
+   MEASURE) through ``api.simulate(cd, SimulatorConfig(trajectory_seed=s))``
+   for each seed of TRAJ_SEEDS (lane_panel, pair_update and mixed_low_pair
+   launched), then the tier once more warm (its e2e time) and in
+   complex128 on the card (the plain twins): the same outcomes and
+   registers, ||psi - psi_f64||_2 <= 1e-5, |norm2 - 1| <= 1e-5;
+   ``api.sample`` of traj28, every shot's bit 20 the last outcome.  The
+   CLI as subprocesses: ``run ghz62.json --sparse`` (top 0x0 and
+   0x3fffffffffffffff at 2^-1/2), ``run mixed.qasm --trajectory
+   --trajectory-seed 3`` (its probabilities those of the port's oracle
+   copy within 1e-6) and ``export qft8.json --format qasm`` (``to_qasm``'s
+   text).
+
 The last lines: the card line as nvidia-smi prints it, one JSON object
 ``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.  The
 whole record also goes to ``chiprun_out/chip_smoke.json``.
@@ -325,6 +357,42 @@ PEAK_LIMIT = 65 * GIB          # the two planes (64 GiB) + 1 GiB
 E2E = ("nonstab28", "qft28", "qaoa28", "qpe28", "qft_adder28")
 TOL_L2 = 1e-5
 TOL_CAPACITY = 1e-6            # capacity-tier state against the window run's
+# Phase 6: the sparse (COO on the card, bigint on the host), adaptive and
+# trajectory tiers.
+NSPARSE = 62                   # the COO tier's widest (int64 indices)
+NWALL_SPARSE = 22              # hwall22: 2^22 nonzeros at its last gate
+NADAPT = 26                    # sparse/adaptive.DENSE_MAX_QUBITS
+TRAJ_SEEDS = (3, 11)
+# The kernels each phase-6 request must launch (> 0), and the calls of
+# the plain torch gate paths (ops/dense.py, the reference's XLA paths) its
+# hand-off makes: fused mode runs 1q gates above the lane window there.
+# The wall's fused hand-off is three 1q gates on bits 23-25 and launches
+# no kernel.
+ADAPT_NEED = {"qft26 auto": ("lane_panel", "mixed_pair", "bitperm_swap"),
+              "qft26 auto window": ("lane_panel", "bitperm_swap",
+                                    "bitperm_transpose"),
+              "hwall26 auto": (),
+              "hwall26 auto window": ("positioned_panel",)}
+ADAPT_DENSE = {"qft26 auto": 3, "qft26 auto window": 0, "hwall26 auto": 3,
+               "hwall26 auto window": 0}
+TRAJ_NEED = ("lane_panel", "pair_update", "mixed_low_pair")
+# The 4-qubit MIXED circuit of tests/test_trajectory.py (RESET, two
+# MEASUREs, two conditions), for the CLI's --trajectory.
+MIXED_QASM = """OPENQASM 2.0;
+qreg q[4];
+creg c[2];
+h q[0];
+cx q[0],q[1];
+measure q[0] -> c[0];
+if(c==1) x q[2];
+reset q[1];
+h q[1];
+rz(pi/3) q[2];
+measure q[1] -> c[1];
+if(c==3) z q[3];
+h q[3];
+cp(pi/4) q[2],q[3];
+"""
 
 RECORD: dict = {"cases": [], "times": []}
 
@@ -374,6 +442,31 @@ def circuits33() -> dict:
             "nonstab33": library.non_stabilizer(NBIG, depth=4, seed=7),
             "qft33": library.qft(NBIG),
             "qpe33": library.qpe(NBIG - 1)}
+
+
+def traj_circuit(n: int) -> dict:
+    """traj28 at width n (tests/test_torch_trajectory.py runs n = 14):
+    non_stabilizer(n, depth=4, seed=7); MEASURE q0 -> c[0], q(n-1) ->
+    c[1]; X q(n/2) if c == 1, Z q(3n/4) if c == 3; RESET q3, H q3,
+    CNOT(3, 5n/7); non_stabilizer(n, depth=2, seed=8); MEASURE q(5n/7)
+    -> c[2]."""
+    from quantum_simulations_tpu_torch.circuit import library
+
+    def measure(q, cbit):
+        return {"qubits": [q], "gate": "MEASURE",
+                "params": {"creg": "c", "cbit": cbit}}
+
+    t = 5 * n // 7
+    gates = list(library.non_stabilizer(n, depth=4, seed=7)["gates"])
+    gates += [measure(0, 0), measure(n - 1, 1),
+              {"qubits": [n // 2], "gate": "X", "cond": {"creg": "c", "value": 1}},
+              {"qubits": [3 * n // 4], "gate": "Z",
+               "cond": {"creg": "c", "value": 3}},
+              {"qubits": [3], "gate": "RESET"}, {"qubits": [3], "gate": "H"},
+              {"qubits": [3, t], "gate": "CNOT"}]
+    gates += library.non_stabilizer(n, depth=2, seed=8)["gates"]
+    gates.append(measure(t, 2))
+    return {"number_of_qubits": n, "gates": gates}
 
 
 def inverse(cd: dict) -> dict:
@@ -1847,6 +1940,349 @@ def capacity33(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the sparse, adaptive and trajectory tiers
+# ---------------------------------------------------------------------------
+
+def tier_request(label: str, run, need=(), dense_calls=None) -> tuple:
+    """Run one phase-6 request with the counters set to 0 just before it:
+    no plain twin may run, every kernel in ``need`` must launch, and the
+    plain torch gate paths must run ``dense_calls`` times where given."""
+    import torch
+
+    from quantum_simulations_tpu_torch.ops import dense
+
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, plain, gates = launches(), plain_calls(), dense.GATE_CALLS
+    log(f"tiers {label}: {wall:.3f} s launches={got} plain_calls={plain} "
+        f"dense_gate_calls={gates}")
+    missing = [k for k in need if not got.get(k)]
+    if plain or missing or (dense_calls is not None and gates != dense_calls):
+        raise AssertionError(f"{label}: launches {got}, plain {plain}, dense "
+                             f"{gates}; want {need} launched, no plain call, "
+                             f"{dense_calls} dense calls")
+    return out, got, wall
+
+
+def coo_gates(cd: dict, upto: int, dev) -> tuple:
+    """Seconds of the COO tier's loop over the circuit's first ``upto``
+    gates on the card from |0> (synchronised; no SparseState built), and
+    its (idx, amp) tensors."""
+    import torch
+
+    from quantum_simulations_tpu_torch.circuit import gates as G
+    from quantum_simulations_tpu_torch.circuit.contract import validate_circuit_dict
+    from quantum_simulations_tpu_torch.sparse import engine
+
+    gates = validate_circuit_dict(cd)["gates"][:upto]
+    idx, amp = engine.coo_zero_state(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for g in gates:
+        idx, amp = engine._apply_gate_coo(
+            idx, amp, g["qubits"], G.gate_matrix(g["gate"], g["params"]),
+            engine.DEFAULT_THRESHOLD)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, (idx, amp)
+
+
+def sparse_requests(dev, rec: dict, counts: dict) -> None:
+    """The sparse tier through the entry points: the COO tier on the card
+    (ghz62, w62, ghz63 forced, hwall22: 2^22 nonzeros), its sampler, and
+    the bigint tier on the host (ghz1000)."""
+    import torch
+
+    from quantum_simulations_tpu_torch import SimulatorConfig, api, library
+    from quantum_simulations_tpu_torch.sparse import engine
+
+    cfg = SimulatorConfig(sparse=True)
+    amp = 2.0 ** -0.5
+    checks = {
+        "ghz62 sparse": (lambda: api.simulate(library.ghz(NSPARSE), cfg,
+                                              device=dev),
+                         [0, (1 << NSPARSE) - 1], lambda a: abs(a - amp)),
+        "w62 sparse": (lambda: api.simulate(library.w_state(NSPARSE), cfg,
+                                            device=dev),
+                       [1 << q for q in range(NSPARSE)],
+                       lambda a: abs(abs(a) ** 2 - 1 / NSPARSE)),
+        "ghz63 sparse coo": (lambda: engine.simulate_sparse(
+            library.ghz(63), force_tier="numpy", device=dev),
+            [0, (1 << 63) - 1], lambda a: abs(a - amp)),
+        "ghz1000 sparse bigint": (lambda: api.simulate(library.ghz(1000), cfg,
+                                                       device=dev),
+                                  [0, (1 << 1000) - 1], lambda a: abs(a - amp)),
+    }
+    for label, (run, support, err) in checks.items():
+        st, counts[label], wall = tier_request(label, run)
+        worst = max(err(a) for _, a in st.items())
+        ok = sorted(i for i, _ in st.items()) == support and worst <= 1e-12
+        log(f"tiers {label}: nnz={len(st)} worst={worst:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        rec[label] = dict(wall_s=wall, nnz=len(st), worst_err=worst)
+        if not ok:
+            raise AssertionError(f"{label} is off its closed form")
+
+    # hwall22: real card work, 2^22 entries (int64 + complex128) at its
+    # last gate.  The COO gates alone, synchronised, then the request.
+    wall22 = library.hadamard_wall(NWALL_SPARSE)
+    coo_s, (idx, a) = coo_gates(wall22, NWALL_SPARSE, dev)
+    worst_dev = float((a - 2.0 ** (-NWALL_SPARSE / 2)).abs().max())
+    del idx, a
+    label = f"hwall{NWALL_SPARSE} sparse"
+    st, counts[label], wall = tier_request(
+        label, lambda: api.simulate(wall22, cfg, device=dev))
+    target = 2.0 ** (-NWALL_SPARSE / 2)
+    worst = max(abs(v - target) for _, v in st.items())
+    ok = len(st) == 1 << NWALL_SPARSE and worst <= 1e-12 and worst_dev <= 1e-12
+    log(f"tiers {label}: nnz={len(st)} max |amp - 2^-{NWALL_SPARSE // 2}| = "
+        f"{worst:.3e}; COO gates on the card {coo_s * 1e3:.3f} ms "
+        f"({len(wall22['gates'])} gates), the request {wall:.3f} s "
+        f"(its SparseState a host dict) {'ok' if ok else 'FAIL'}")
+    rec[label] = dict(wall_s=wall, coo_ms=coo_s * 1e3, nnz=len(st),
+                      worst_err=worst)
+    del st
+    if not ok:
+        raise AssertionError(f"{label} is off the uniform state")
+
+    label = "ghz62 sparse sample"
+    bits, counts[label], wall = tier_request(label, lambda: api.sample(
+        library.ghz(NSPARSE), 64, seed=1, config=cfg, device=dev))
+    rows = set(bits.sum(axis=1).tolist())
+    log(f"tiers {label}: rows' bit sums {sorted(rows)}")
+    rec[label] = dict(wall_s=wall, row_sums=sorted(rows))
+    if not (bits.shape == (64, NSPARSE) and rows <= {0, NSPARSE}):
+        raise AssertionError(f"{label}: a row is neither all 0 nor all 1")
+
+
+def adaptive_requests(dev, rec: dict, counts: dict) -> None:
+    """qft26 and hwall26 with ``sparse="auto"`` at n = 26 (the dense cap):
+    the COO tier on the card until nnz > 2^22, then the hand-off to the
+    dense tier on the card, fused (the default) and window."""
+    import numpy as np
+    import torch
+
+    from quantum_simulations_tpu_torch import SimulatorConfig, api, library
+    from quantum_simulations_tpu_torch.sparse import adaptive
+
+    for name, cd in (("qft26", library.qft(NADAPT)),
+                     ("hwall26", library.hadamard_wall(NADAPT))):
+        # On |0>, only an H changes the support of these circuits (it
+        # doubles it): the rule switches after the H that takes nnz past
+        # 2^n / 16, the (n - 3)th.
+        hs = [i for i, g in enumerate(cd["gates"]) if g["gate"] == "H"]
+        want_at = hs[NADAPT - 4] + 1
+        want_hist = [2 ** sum(1 for h in hs if h <= i) for i in range(want_at)]
+        for mode in ("fused", "window"):
+            label = f"{name} auto" + (" window" if mode == "window" else "")
+            res, counts[label], wall = tier_request(
+                label, lambda cd=cd, mode=mode: adaptive.simulate_adaptive(
+                    cd, mode=mode, device=dev),
+                ADAPT_NEED[label], ADAPT_DENSE.get(label))
+            r = dict(wall_s=wall, switched_at=res.switched_at,
+                     nnz_at_switch=res.nnz_history[-1], gates=len(cd["gates"]))
+            ok = (res.switched_at == want_at and res.nnz_history == want_hist
+                  and res.is_dense and res.state.device.type == dev.type
+                  and res.state.dtype == torch.complex64)
+            # The same request through the API: a host numpy vector.
+            psi = api.simulate(cd, SimulatorConfig(sparse="auto", mode=mode),
+                               device=dev)
+            ok = ok and isinstance(psi, np.ndarray) and np.array_equal(
+                psi, res.state.cpu().numpy())
+            if name == "hwall26":
+                r["max_err_vs_exact"] = float(
+                    (res.state - 2.0 ** (-NADAPT / 2)).abs().max())
+                ok = ok and r["max_err_vs_exact"] <= 1e-6
+            del psi
+            r.update(against_f64(label, res.state, cd, dev, mode="window"))
+            log(f"tiers {label}: switched_at={res.switched_at} (want {want_at}) "
+                f"nnz at the switch {res.nnz_history[-1]} "
+                f"{'ok' if ok else 'FAIL'}")
+            del res
+            torch.cuda.empty_cache()
+            rec[label] = r
+            if not ok:
+                raise AssertionError(f"{label} fails its check: {r}")
+        rec[f"{name} auto"]["split"] = adaptive_split(name, cd, want_at, dev)
+
+
+def adaptive_split(name: str, cd: dict, at: int, dev, reps: int = 3) -> list:
+    """The fused adaptive run's three stages, each synchronised, ``reps``
+    times over (the hand-off's schedule is built by then): the COO gates
+    up to the switch at gate ``at``, the scatter into a dense complex64
+    tensor, and the rest of the circuit through ``simulator.simulate``."""
+    import torch
+
+    from quantum_simulations_tpu_torch.runtime import simulator
+
+    n = cd["number_of_qubits"]
+    rest = {"number_of_qubits": n, "gates": cd["gates"][at:]}
+    out = []
+    for _ in range(reps):
+        coo_s, (idx, amp) = coo_gates(cd, at, dev)
+        t0 = time.perf_counter()
+        psi = torch.zeros(1 << n, dtype=torch.complex64, device=dev)
+        psi.index_put_((idx,), amp.to(torch.complex64))
+        torch.cuda.synchronize()
+        scatter_s = time.perf_counter() - t0
+        del idx, amp
+        t0 = time.perf_counter()
+        psi = simulator.simulate(rest, initial_state=psi, device=dev)
+        torch.cuda.synchronize()
+        out.append(dict(coo_s=coo_s, scatter_s=scatter_s,
+                        handoff_s=time.perf_counter() - t0))
+        del psi
+    log(f"tiers {name} auto split (fused; COO gates, scatter, hand-off in s): "
+        + "; ".join(f"{r['coo_s']:.4f}, {r['scatter_s']:.4f}, "
+                    f"{r['handoff_s']:.4f}" for r in out))
+    return out
+
+
+def trajectory_requests(dev, rec: dict, counts: dict) -> None:
+    """traj28 (``traj_circuit(28)``) through ``api.simulate`` for each seed
+    of TRAJ_SEEDS, held to its float64 twin on the card (the same tier in
+    complex128: the plain twins); then ``api.sample`` of it."""
+    import torch
+
+    from quantum_simulations_tpu_torch import SimulatorConfig, api
+    from quantum_simulations_tpu_torch.runtime.trajectory import simulate_trajectory
+
+    cd = traj_circuit(NQ)
+    outs_by_seed = {}
+    for seed in TRAJ_SEEDS:
+        label = f"traj28 seed {seed}"
+        psi, counts[label], wall = tier_request(
+            label, lambda seed=seed: api.simulate(
+                cd, SimulatorConfig(trajectory_seed=seed), device=dev),
+            TRAJ_NEED)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, cregs, outs = simulate_trajectory(cd, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        same = float(torch.linalg.vector_norm(
+            got - torch.from_numpy(psi).to(dev)))
+        del psi
+        ref, cregs64, outs64 = simulate_trajectory(
+            cd, seed=seed, dtype="complex128", device=dev)
+        l2 = float(torch.linalg.vector_norm(got.to(torch.complex128) - ref))
+        del ref
+        nrm2 = norm2(got.real, got.imag)
+        del got
+        torch.cuda.empty_cache()
+        ok = (outs == outs64 and cregs == cregs64 and l2 <= TOL_L2
+              and abs(nrm2 - 1) <= 1e-5 and same <= TOL_CAPACITY)
+        outs_by_seed[seed] = outs
+        rec[label] = dict(first_call_s=wall, e2e_ms=warm * 1e3, outcomes=outs,
+                          cregs=cregs, l2_vs_f64=l2, norm2=nrm2,
+                          l2_vs_api=same, gates=len(cd["gates"]))
+        log(f"tiers {label}: outcomes {outs} (f64 {outs64}) cregs {cregs} "
+            f"||psi - psi_f64||_2={l2:.3e} norm2={nrm2:.9f} "
+            f"||psi - psi_api||_2={same:.3e}; e2e {warm * 1e3:.3f} ms "
+            f"(a second run, segments built) {'ok' if ok else 'FAIL'}")
+        log(f"e2e traj28 seed {seed}: {warm * 1e3:.3f} ms per run "
+            f"({len(cd['gates'])} gates, one run after the first)")
+        if not ok:
+            raise AssertionError(f"{label} is off its float64 twin: {rec[label]}")
+
+    seed = TRAJ_SEEDS[0]
+    label = "traj28 sample"
+    bits, counts[label], wall = tier_request(label, lambda: api.sample(
+        cd, 64, seed=1, config=SimulatorConfig(trajectory_seed=seed),
+        device=dev), TRAJ_NEED)
+    q = cd["gates"][-1]["qubits"][0]
+    col = set(bits[:, q].tolist())
+    rec[label] = dict(wall_s=wall, measured_qubit=q, column=sorted(col))
+    log(f"tiers {label}: bit {q} of every shot in {sorted(col)}, the last "
+        f"outcome {outs_by_seed[seed][-1]}")
+    if not (bits.shape == (64, NQ) and col == {outs_by_seed[seed][-1]}):
+        raise AssertionError(f"{label}: the measured bit is not collapsed")
+
+
+def cli_tiers(dev, rec: dict) -> None:
+    """The CLI on the card, as subprocesses: ``run ghz62.json --sparse``,
+    ``run mixed.qasm --trajectory --trajectory-seed 3`` (the CPU tests'
+    4-qubit MIXED circuit, against the port's oracle copy) and ``export
+    qft8.json --format qasm`` (against ``to_qasm`` in this process)."""
+    import numpy as np
+
+    from quantum_simulations_tpu_torch import library, oracle
+    from quantum_simulations_tpu_torch.circuit.export_qasm import to_qasm
+    from quantum_simulations_tpu_torch.circuit.import_qasm import qasm_to_dict
+
+    root = Path(__file__).resolve().parent
+    out = root / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "ghz62.json").write_text(json.dumps(library.ghz(NSPARSE)))
+    (out / "mixed.qasm").write_text(MIXED_QASM)
+    (out / "qft8.json").write_text(json.dumps(library.qft(8)))
+
+    def cli(*argv) -> str:
+        cmd = [sys.executable, "-m", "quantum_simulations_tpu_torch", *argv]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{argv} exited {proc.returncode}:\n{proc.stderr}")
+        rec["cli " + " ".join(argv[:2])] = dict(wall_s=time.perf_counter() - t0)
+        return proc.stdout
+
+    res = json.loads(cli("run", str(out / "ghz62.json"), "--sparse", "--top",
+                         "2", "--device", dev.type))
+    amp = 2.0 ** -0.5
+    ok = ([i for i, _ in res["top"]] == ["0x0", hex((1 << NSPARSE) - 1)]
+          and res["nonzero"] == 2
+          and all(abs(complex(*a) - amp) <= 1e-12 for _, a in res["top"]))
+    log(f"tiers cli run ghz62.json --sparse: {res} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the CLI's sparse ghz62 output is off")
+
+    res = json.loads(cli("run", str(out / "mixed.qasm"), "--trajectory",
+                         "--trajectory-seed", "3", "--top", "16",
+                         "--device", dev.type))
+    psi_o, _, _ = oracle.simulate_trajectory(
+        qasm_to_dict(MIXED_QASM, nonunitary="trajectory"), seed=3)
+    probs = np.abs(psi_o) ** 2
+    got = {int(i, 16): p for i, p in res["top"]}
+    worst = max(abs(got.get(i, 0.0) - float(probs[i])) for i in range(16))
+    ok = (res["n_amplitudes"] == 16 and worst <= 1e-6
+          and {i for i, p in got.items() if p > 1e-6}
+          == {i for i in range(16) if probs[i] > 1e-6})
+    log(f"tiers cli run mixed.qasm --trajectory --trajectory-seed 3: top "
+        f"{res['top'][:4]}, max |p - p_oracle| = {worst:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the CLI's trajectory output is off the oracle")
+
+    text = cli("export", str(out / "qft8.json"), "--format", "qasm")
+    ok = text == to_qasm(library.qft(8))
+    log(f"tiers cli export qft8.json --format qasm: {len(text)} bytes "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the CLI's export differs from to_qasm")
+
+
+def tiers(dev) -> dict:
+    """Phase 6: the sparse, adaptive and trajectory tiers, then the CLI."""
+    import gc
+
+    import torch
+
+    rec: dict = {}
+    counts: dict = {}
+    sparse_requests(dev, rec, counts)
+    adaptive_requests(dev, rec, counts)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trajectory_requests(dev, rec, counts)
+    cli_tiers(dev, rec)
+    RECORD["tiers"] = dict(launches=counts, **rec)
+    return counts
+
+
 def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
     """One record per kernel: its launches in the request that runs it
     (a panel's "+diag" and "+rotate" launches included; the requests
@@ -1944,6 +2380,7 @@ def main() -> int:
     counts.update(panel_path(dev))
     rows = times(dev, scheds)
     counts.update(capacity33(dev))
+    counts.update(tiers(dev))
     kernels = kernels_line(counts, rows, worst)
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -10,8 +10,12 @@ use).  Entry points run on the card unless the caller passes
 
 The port runs the dense single-device tier in its four modes (fused, the
 default; panel, the CLI's default; window; auto), the capacity tier in
-place, their readout, and the CLI (``python -m
-quantum_simulations_tpu_torch``); see ROADMAP.md for what follows.
+place, their readout, the sparse tier (COO on the card; bigint indices
+on the host), the adaptive sparse -> dense tier, the trajectory tier
+(RESET / mid-circuit MEASURE / ``if``), the numpy oracle
+(``oracle``), and the CLI (``python -m quantum_simulations_tpu_torch``
+``run`` / ``sample`` / ``stats`` / ``export``); see ROADMAP.md for what
+follows.
 """
 from .circuit.contract import (
     ENDIANNESS,
@@ -19,6 +23,7 @@ from .circuit.contract import (
     validate_circuit_dict,
 )
 from .circuit import gates, library
+from .oracle import dense_numpy as oracle
 from .utils.config import SimulatorConfig
 
 __version__ = "0.1.0"
@@ -31,13 +36,22 @@ def simulate(circuit_dict, config=None, **kw):
     return api.simulate(circuit_dict, config, **kw)
 
 
+def sample(circuit_dict, shots, **kw):
+    """Top-level convenience: see :func:`quantum_simulations_tpu_torch.api.sample`."""
+    from . import api
+
+    return api.sample(circuit_dict, shots, **kw)
+
+
 __all__ = [
     "ENDIANNESS",
     "validate_circuit_dict",
     "levelize",
     "gates",
     "library",
+    "oracle",
     "simulate",
+    "sample",
     "SimulatorConfig",
     "__version__",
 ]

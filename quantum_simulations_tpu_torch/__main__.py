@@ -1,15 +1,19 @@
 """Command-line interface of the port (the JAX package's ``run``,
-``sample`` and ``stats``, with the same flags, defaults and JSON output).
+``sample``, ``stats`` and ``export``, with the same flags, defaults and
+output).
 
     python -m quantum_simulations_tpu_torch run circuit.json [--mode panel] ...
+    python -m quantum_simulations_tpu_torch run circuit.json --sparse [auto]
+    python -m quantum_simulations_tpu_torch run circuit.qasm --trajectory
     python -m quantum_simulations_tpu_torch sample circuit.qasm --shots 100
     python -m quantum_simulations_tpu_torch stats circuit.json
+    python -m quantum_simulations_tpu_torch export circuit.json --format qasm|dot|json
 
 Circuit files are contract JSON dicts or OpenQASM 2.0 (.qasm).  Runs on
 the card; ``--device cpu`` runs the kernels' plain torch twins on the
 CPU.  Flags of the tiers the port does not run yet (``--devices`` > 1,
-``--stripe-qubits``, ``--sparse``, ``--work-dir``, ``--trajectory``)
-exit with status 1 and the API's ``NotImplementedError`` text.
+``--stripe-qubits``, ``--work-dir``) exit with status 1 and the API's
+``NotImplementedError`` text.
 """
 from __future__ import annotations
 
@@ -19,12 +23,13 @@ import sys
 from pathlib import Path
 
 
-def _load_circuit(path: str) -> dict:
+def _load_circuit(path: str, trajectory: bool = False) -> dict:
     p = Path(path)
     if p.suffix == ".qasm":
         from .circuit.import_qasm import load_qasm
 
-        return load_qasm(p)
+        return load_qasm(
+            p, nonunitary="trajectory" if trajectory else "error")
     return json.loads(p.read_text())
 
 
@@ -78,7 +83,30 @@ def _parser() -> argparse.ArgumentParser:
 
     sub.add_parser("stats", parents=[common],
                    help="compile statistics (fusion/panel)")
+
+    p_export = sub.add_parser(
+        "export", parents=[common],
+        help="serialise the circuit (qasm to stdout, dot for the DAG)")
+    p_export.add_argument("--format", default="qasm",
+                          choices=["qasm", "dot", "json"])
+    p_export.add_argument("--partitions", type=int, default=None,
+                          help="dot only: cluster by partition()")
     return ap
+
+
+def _export(cd: dict, fmt: str, partitions) -> None:
+    if fmt == "qasm":
+        from .circuit.export_qasm import to_qasm
+
+        sys.stdout.write(to_qasm(cd))
+    elif fmt == "dot":
+        from .circuit.dag import partition, to_dot
+
+        parts = (partition(cd, partitions, "locality")
+                 if partitions else None)
+        sys.stdout.write(to_dot(cd, parts))
+    else:
+        print(json.dumps(cd, indent=1))
 
 
 def _stats(cd: dict) -> dict:
@@ -113,9 +141,22 @@ def _dense_summary(psi, top: int) -> dict:
     }
 
 
+def _sparse_summary(st, top: int) -> dict:
+    """The reference's ``run`` output of a run that stayed sparse."""
+    return {
+        "nonzero": len(st),
+        "norm": st.norm(),
+        "top": [[hex(i), [complex(a).real, complex(a).imag]]
+                for i, a in st.top_amplitudes(top)],
+    }
+
+
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    cd = _load_circuit(args.circuit)
+    cd = _load_circuit(args.circuit, trajectory=args.trajectory)
+    if args.cmd == "export":
+        _export(cd, args.format, args.partitions)
+        return 0
     if args.cmd == "stats":
         print(json.dumps(_stats(cd), indent=1))
         return 0
@@ -133,8 +174,6 @@ def main(argv=None) -> int:
         trajectory_seed=args.trajectory_seed,
     )
     try:
-        if args.trajectory:
-            raise api._tier("trajectory", cfg)
         if args.cmd == "sample":
             bits = api.sample(cd, args.shots, seed=args.seed, config=cfg,
                               device=args.device)
@@ -147,6 +186,8 @@ def main(argv=None) -> int:
         return 1
     if hasattr(result, "summary"):  # capacity tier: planar readout
         print(json.dumps(result.summary(args.top), indent=1))
+    elif hasattr(result, "top_amplitudes"):  # stayed sparse (incl. auto)
+        print(json.dumps(_sparse_summary(result, args.top), indent=1))
     else:
         print(json.dumps(_dense_summary(result, args.top), indent=1))
     return 0

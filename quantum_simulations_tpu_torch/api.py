@@ -1,8 +1,13 @@
 """High-level user API of the port: the dense single-device tier (modes
-fused, panel, window and auto) and the capacity tier.
+fused, panel, window and auto), the capacity tier, the sparse and
+adaptive sparse tiers, and the trajectory tier.
 
-Routes like ``quantum_simulations_tpu/api.py``; the tiers the port has
-not reached yet raise ``NotImplementedError`` naming the tier.
+Routes like ``quantum_simulations_tpu/api.py`` (:39-73): a circuit with
+RESET / mid-circuit MEASURE / ``if`` goes to the trajectory tier
+(seeded by ``trajectory_seed``), ``sparse="auto"`` to the adaptive
+tier, ``sparse=True`` to the sparse tier, then the capacity and dense
+tiers.  The tiers the port has not reached yet (out-of-core spill, the
+WAL runner, sharded runs) raise ``NotImplementedError`` naming the tier.
 
 .. code-block:: python
 
@@ -13,6 +18,8 @@ not reached yet raise ``NotImplementedError`` naming the tier.
     res = api.simulate(library.qft(33),
                        SimulatorConfig(mode="capacity"))  # in place
     res.norm2(), res.top_amplitudes(4), res.sample_bits(100)
+    st = api.simulate(library.ghz(62), SimulatorConfig(sparse=True))
+    len(st), st.top_amplitudes(2)                         # a SparseState
 """
 from __future__ import annotations
 
@@ -27,7 +34,8 @@ def _tier(name: str, cfg: SimulatorConfig) -> NotImplementedError:
     return NotImplementedError(
         f"the {name} tier is not ported yet (mode={cfg.mode!r}): the port "
         f"runs the dense-tier modes (fused, panel, window, auto) on one "
-        f"device and the capacity tier")
+        f"device, the capacity tier, the sparse and adaptive sparse tiers "
+        f"and the trajectory tier")
 
 
 def _is_capacity(cfg: SimulatorConfig, n: int, work_dir=None) -> bool:
@@ -39,12 +47,8 @@ def _is_capacity(cfg: SimulatorConfig, n: int, work_dir=None) -> bool:
 
 def _unported(circuit_dict: dict, cfg: SimulatorConfig, work_dir=None):
     """The error of a tier the port does not run yet, or None."""
-    if has_nonunitary(circuit_dict):
-        return _tier("trajectory", cfg)
-    if cfg.sparse == "auto":
-        return _tier("adaptive sparse", cfg)
-    if cfg.sparse:
-        return _tier("sparse", cfg)
+    if has_nonunitary(circuit_dict) or cfg.sparse:
+        return None
     n = validate_circuit_dict(circuit_dict)["number_of_qubits"]
     if _is_capacity(cfg, n, work_dir):
         return None
@@ -59,13 +63,43 @@ def _unported(circuit_dict: dict, cfg: SimulatorConfig, work_dir=None):
 
 def run(circuit_dict: dict, cfg: SimulatorConfig, *, work_dir=None,
         device="cuda"):
-    """Run a circuit and keep the result on the device: the capacity
-    tier's ``CapacityResult``, or the dense tier's final state as a
-    complex tensor on ``device``."""
+    """Run a circuit and keep the result on the device: the trajectory,
+    dense and switched adaptive tiers' final state as a complex tensor on
+    ``device``, the capacity tier's ``CapacityResult``, or the sparse
+    tiers' ``SparseState`` (host dict)."""
     err = _unported(circuit_dict, cfg, work_dir)
     if err is not None:
         raise err
+    if has_nonunitary(circuit_dict):
+        from .runtime.trajectory import simulate_trajectory
+
+        psi, _, _ = simulate_trajectory(
+            circuit_dict, seed=cfg.trajectory_seed, dtype=cfg.dtype,
+            use_fusion=cfg.use_fusion, panel_width=cfg.panel_width,
+            device=device)
+        return psi
     cd = validate_circuit_dict(circuit_dict)
+
+    if cfg.log_level:
+        import logging
+
+        from .utils.logging import setup_logging
+
+        setup_logging(getattr(logging, cfg.log_level.upper(), logging.INFO))
+
+    if cfg.sparse == "auto":
+        from .sparse.adaptive import simulate_adaptive
+
+        return simulate_adaptive(
+            cd, threshold=cfg.sparse_threshold, dtype=cfg.dtype,
+            mode=cfg.mode if cfg.mode in ("fused", "window") else "fused",
+            device=device).state
+    if cfg.sparse:
+        from .sparse.engine import simulate_sparse
+
+        return simulate_sparse(cd, threshold=cfg.sparse_threshold,
+                               device=device)
+
     if _is_capacity(cfg, cd["number_of_qubits"], work_dir):
         from .runtime.capacity import simulate_capacity
 
@@ -85,11 +119,13 @@ def simulate(circuit_dict: dict, config: SimulatorConfig | None = None,
     """Run a circuit under the given config.  Runs on the card unless
     ``device="cpu"``.
 
-    The dense tier returns the final state as a host numpy complex
-    vector.  The capacity tier (``mode="capacity"``, or ``"auto"`` at
-    n >= 29) returns a :class:`runtime.capacity.CapacityResult`: the
-    planes stay on the device, read out by norm, top amplitudes,
-    sampling and Z-string expectations.
+    The dense and trajectory tiers (and an adaptive run that switched
+    to dense) return the final state as a host numpy complex vector.
+    The capacity tier (``mode="capacity"``, or ``"auto"`` at n >= 29)
+    returns a :class:`runtime.capacity.CapacityResult`: the planes stay
+    on the device, read out by norm, top amplitudes, sampling and
+    Z-string expectations.  The sparse tiers return a
+    :class:`sparse.engine.SparseState`.
     """
     res = run(circuit_dict, config or SimulatorConfig(), work_dir=work_dir,
               device=device)
@@ -102,12 +138,17 @@ def sample(circuit_dict: dict, shots: int, *, seed: int = 0,
            config: SimulatorConfig | None = None,
            device="cuda") -> np.ndarray:
     """Simulate then draw bitstring samples; (shots, n) int8 matrix,
-    column q = qubit q.  The dense tier samples its state on the device
-    with a ``torch.Generator`` seeded by ``seed``."""
+    column q = qubit q.  A state on the device (the dense and trajectory
+    tiers, an adaptive run that switched) is sampled there with a
+    ``torch.Generator`` seeded by ``seed``; a ``SparseState`` samples
+    over its nonzeros (numpy, the reference's bits), the capacity tier
+    from its planes."""
     from .ops import sampling
 
+    n = validate_circuit_dict(
+        circuit_dict, allow_nonunitary=has_nonunitary(circuit_dict),
+    )["number_of_qubits"]
     res = run(circuit_dict, config or SimulatorConfig(), device=device)
-    n = validate_circuit_dict(circuit_dict)["number_of_qubits"]
     if isinstance(res, torch.Tensor):
         gen = torch.Generator(device=res.device).manual_seed(seed)
         return sampling.sample_bits(res, gen, shots, n).cpu().numpy()

@@ -1,5 +1,6 @@
-"""Pauli-string observables (a copy of ``parse_pauli`` and
-``expectation_pauli`` from ``quantum_simulations_tpu/ops/observables.py``).
+"""Pauli-string observables (``parse_pauli``, ``expectation_pauli``,
+``expectation_sum`` and ``maxcut_energy`` of
+``quantum_simulations_tpu/ops/observables.py``).
 
 A Pauli string P (P_q in {I, X, Y, Z}) is evaluated by rotating each X /
 Y axis into Z with a basis-change layer (H for X, S-dagger then H for Y)
@@ -39,3 +40,17 @@ def expectation_pauli(psi, pauli: str | dict[int, str]) -> float:
         if p in change:
             re, im = dense.apply_gate_planar(re, im, (q,), change[p])
     return sampling.expectation_z_planar(re, im, sorted(ps))
+
+
+def expectation_sum(psi, terms: list[tuple[float, str | dict[int, str]]]) -> float:
+    """Expectation of a Hamiltonian given as (coeff, pauli-string) terms."""
+    return sum((coeff * expectation_pauli(psi, pauli) for coeff, pauli in terms),
+               0.0)
+
+
+def maxcut_energy(psi, edges: list[tuple[int, int]],
+                  weights: list[float] | None = None) -> float:
+    """QAOA MaxCut objective  sum_e w_e (1 - <Z_i Z_j>) / 2."""
+    w = weights or [1.0] * len(edges)
+    return sum((0.5 * wij * (1.0 - sampling.expectation_z(psi, [i, j]))
+               for (i, j), wij in zip(edges, w)), 0.0)

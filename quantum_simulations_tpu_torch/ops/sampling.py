@@ -7,7 +7,9 @@ Port of ``quantum_simulations_tpu/ops/sampling.py``.  The dense half
 ``(re, im)`` planes and reads the planes through the planar half below:
 the same sums and the same sampler at every size.  The planar half
 (``_parity_fold`` / ``_bit_parity`` :28-42, :141-285) is the capacity
-tier's readout.  The reference
+tier's readout; ``collapse_planar_`` is the trajectory tier's collapse
+in place, and ``normalize`` / ``project`` / ``measure_qubit`` /
+``fidelity`` (:24, :62, :75, :124) work on complex tensors.  The reference
 leans on XLA fusing ``re * re + im * im`` into each reduction.  Here every
 reduction runs over chunks of at most 2^``CHUNK_BITS`` = 2^28 amplitudes and no
 temporary is larger than a chunk: at n = 33 the probability vector alone
@@ -89,17 +91,41 @@ def expectation_z_planar(re: torch.Tensor, im: torch.Tensor, qubits) -> float:
     return float(acc)
 
 
-def qubit_probability_planar(re: torch.Tensor, im: torch.Tensor, q: int) -> float:
-    """P(qubit q = 1) from the planes."""
-    acc = torch.zeros((), dtype=torch.float64, device=re.device)
+def qubit_probability_planar(re: torch.Tensor, im: torch.Tensor, q: int,
+                             acc_dtype=torch.float64) -> float:
+    """P(qubit q = 1) from the planes, summed in ``acc_dtype`` (the
+    trajectory tier sums in float32, as the reference's does)."""
+    acc = torch.zeros((), dtype=acc_dtype, device=re.device)
     step = _chunk(re)
     for start, p in _prob_chunks(re, im):
         if (1 << q) >= step:
             if (start >> q) & 1:
-                acc += p.sum(dtype=torch.float64)
+                acc += p.sum(dtype=acc_dtype)
         else:
-            acc += p.view(-1, 2, 1 << q)[:, 1].sum(dtype=torch.float64)
+            acc += p.view(-1, 2, 1 << q)[:, 1].sum(dtype=acc_dtype)
     return float(acc)
+
+
+def collapse_planar_(re: torch.Tensor, im: torch.Tensor, q: int,
+                     outcome: int, to_zero: bool = False) -> None:
+    """Project qubit q onto |outcome> in place and renormalize: the other
+    half of each plane's (A, 2, B) view is zeroed (``to_zero``, RESET:
+    the kept half moves to the |0> slot first), then both planes are
+    scaled by rsqrt of the kept half's norm2, computed on the device (no
+    host sync; a zero norm gives NaN planes, as the reference's rsqrt).
+    No temporary beyond one half plane."""
+    dest = 0 if to_zero else outcome
+    B = 1 << q
+    views = [p.view(-1, 2, B) for p in (re, im)]
+    for v in views:
+        if dest != outcome:
+            v[:, dest].copy_(v[:, outcome])
+        v[:, 1 - dest].zero_()
+    r, i = (v[:, dest] for v in views)
+    nrm2 = (r * r).sum(dtype=torch.float64) + (i * i).sum(dtype=torch.float64)
+    scale = torch.rsqrt(nrm2).to(re.dtype)
+    re.mul_(scale)
+    im.mul_(scale)
 
 
 def top_amplitudes_planar(re: torch.Tensor, im: torch.Tensor, k: int = 8):
@@ -252,4 +278,35 @@ def sample_bits(psi, generator: torch.Generator, shots: int,
                 n: int) -> torch.Tensor:
     """Samples as a (shots, n) int8 bit matrix, column q = qubit q."""
     return index_bits(sample(psi, generator, shots), n)
+
+
+def normalize(psi: torch.Tensor) -> torch.Tensor:
+    return psi / norm(psi)
+
+
+def project(psi: torch.Tensor, q: int, value: int, *,
+            renormalize: bool = True) -> torch.Tensor:
+    """Project qubit q onto |value> (and renormalize by default)."""
+    x = psi.reshape(-1, 2, 1 << q)
+    out = torch.zeros_like(x)
+    out[:, value] = x[:, value]
+    out = out.reshape(psi.shape)
+    return normalize(out) if renormalize else out
+
+
+def measure_qubit(psi: torch.Tensor, q: int, generator: torch.Generator):
+    """Sample qubit q; returns (outcome, collapsed state).  The draw is
+    ``u < P(1)`` with u from ``generator`` (float64 uniform): the
+    reference's ``jax.random.bernoulli`` draws from a JAX key, so the two
+    follow the same distribution, not the same bits."""
+    p1 = qubit_probability(psi, q)
+    u = float(torch.rand((), generator=generator, dtype=torch.float64,
+                         device=generator.device))
+    outcome = int(u < p1)
+    return outcome, project(psi, q, outcome)
+
+
+def fidelity(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|<a|b>| — phase-invariant overlap."""
+    return float(torch.vdot(a.reshape(-1), b.reshape(-1)).abs())
 

@@ -159,16 +159,24 @@ def test_sample_draws_from_the_state(capsys, files):
     assert len(rows) == 30 and all(len(r) == 9 for r in rows)
 
 
-@pytest.mark.parametrize("flags", [["--devices", "2"], ["--stripe-qubits", "4"],
-                                   ["--sparse"], ["--sparse", "auto"],
-                                   ["--work-dir", "wd"], ["--trajectory"]],
-                         ids=["devices", "stripe", "sparse", "sparse-auto",
-                              "work-dir", "trajectory"])
-def test_unported_tier_flags_exit_1(capsys, files, flags, tmp_path):
+# The sparse, adaptive and trajectory flags run now
+# (tests/test_torch_sparse.py, test_torch_trajectory.py); their cases
+# hold an unported tier's error to naming those tiers among what runs
+# (``--trajectory`` on a unitary circuit with ``--work-dir`` is the runner).
+@pytest.mark.parametrize("flags,names", [
+    (["--devices", "2"], ""), (["--stripe-qubits", "4"], ""),
+    (["--devices", "2", "--mode", "window"], "sparse"),
+    (["--stripe-qubits", "4", "--spill-backend", "disk"], "adaptive sparse"),
+    (["--work-dir", "wd"], ""), (["--trajectory", "--work-dir", "wd"],
+                                 "trajectory")],
+    ids=["devices", "stripe", "sparse", "sparse-auto", "work-dir",
+         "trajectory"])
+def test_unported_tier_flags_exit_1(capsys, files, flags, names, tmp_path):
     flags = [str(tmp_path / f) if f == "wd" else f for f in flags]
     assert main(["run", str(files["ghz"]), "--device", "cpu", *flags]) == 1
     err = capsys.readouterr().err
     assert "not ported yet" in err and "NotImplementedError" not in err
+    assert names in err.split("runs", 1)[1]
 
 
 def test_default_device_is_the_card(files):

@@ -694,3 +694,52 @@ def test_bitperm_involution_qft28_exact(dev):
     bk.bitperm_involution(re, im, t)
     want = bk.bitperm_involution(*x, t, plain=True)
     assert torch.equal(re, want[0]) and torch.equal(im, want[1])
+
+
+# ---------------------------------------------------------------------------
+# The sparse COO tier and the trajectory tier on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name,n", [("ghz", 62), ("w_state", 40), ("qft", 9),
+                                    ("random_circuit", 10)])
+def test_sparse_coo_on_card_equals_cpu(dev, name, n):
+    """The COO tier on the card: the same index set as its CPU run, in the
+    same (ascending) order, amplitudes within 1e-12."""
+    from quantum_simulations_tpu_torch.sparse.engine import simulate_sparse
+
+    cd = (library.random_circuit(n, 80, seed=2) if name == "random_circuit"
+          else getattr(library, name)(n))
+    h, hc = [], []
+    got = simulate_sparse(cd, nnz_history=h, device=dev)
+    want = simulate_sparse(cd, nnz_history=hc, device="cpu")
+    assert h == hc
+    assert [i for i, _ in got.items()] == [i for i, _ in want.items()]
+    assert max(abs(a - want.amplitude(i)) for i, a in got.items()) <= 1e-12
+
+
+def test_sparse_coo_ghz63_on_card(dev):
+    from quantum_simulations_tpu_torch.sparse.engine import simulate_sparse
+
+    st = simulate_sparse(library.ghz(63), force_tier="numpy", device=dev)
+    assert [i for i, _ in st.items()] == [0, (1 << 63) - 1]
+    assert all(abs(a - 2 ** -0.5) <= 1e-12 for _, a in st.items())
+
+
+def test_trajectory_mixed_on_card(dev):
+    """MIXED (tests/test_trajectory.py) in complex64 on the card: the
+    oracle's outcomes and registers, the state within 1e-5."""
+    from quantum_simulations_tpu_torch import oracle
+    from quantum_simulations_tpu_torch.circuit.import_qasm import qasm_to_dict
+    from quantum_simulations_tpu_torch.runtime.trajectory import simulate_trajectory
+
+    src = ("OPENQASM 2.0;\nqreg q[4];\ncreg c[2];\nh q[0];\ncx q[0],q[1];\n"
+           "measure q[0] -> c[0];\nif(c==1) x q[2];\nreset q[1];\nh q[1];\n"
+           "rz(pi/3) q[2];\nmeasure q[1] -> c[1];\nif(c==3) z q[3];\n"
+           "h q[3];\ncp(pi/4) q[2],q[3];\n")
+    cd = qasm_to_dict(src, nonunitary="trajectory")
+    for seed in range(8):
+        psi, cregs, outs = simulate_trajectory(cd, seed=seed, device=dev)
+        psi_o, cregs_o, outs_o = oracle.simulate_trajectory(cd, seed=seed)
+        assert psi.device.type == "cuda" and psi.dtype == torch.complex64
+        assert outs == outs_o and cregs == cregs_o
+        assert np.linalg.norm(psi.cpu().numpy() - psi_o) <= TOL_L2

@@ -15,8 +15,10 @@ MODULES = [
     "quantum_simulations_tpu_torch.api",
     "quantum_simulations_tpu_torch.convert",
     "quantum_simulations_tpu_torch.circuit.dag",
+    "quantum_simulations_tpu_torch.circuit.export_qasm",
     "quantum_simulations_tpu_torch.circuit.fusion",
     "quantum_simulations_tpu_torch.circuit.import_qasm",
+    "quantum_simulations_tpu_torch.circuit.import_qiskit",
     "quantum_simulations_tpu_torch.circuit.panelize",
     "quantum_simulations_tpu_torch.ops.bitperm_kernels",
     "quantum_simulations_tpu_torch.ops.cuda_build",
@@ -26,8 +28,14 @@ MODULES = [
     "quantum_simulations_tpu_torch.ops.pair_kernels",
     "quantum_simulations_tpu_torch.ops.panel_kernels",
     "quantum_simulations_tpu_torch.ops.sampling",
+    "quantum_simulations_tpu_torch.oracle",
     "quantum_simulations_tpu_torch.runtime.capacity",
     "quantum_simulations_tpu_torch.runtime.simulator",
+    "quantum_simulations_tpu_torch.runtime.trajectory",
+    "quantum_simulations_tpu_torch.sparse.adaptive",
+    "quantum_simulations_tpu_torch.sparse.engine",
+    "quantum_simulations_tpu_torch.sparse.merge",
+    "quantum_simulations_tpu_torch.utils.logging",
 ]
 
 
@@ -83,6 +91,22 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         simulator.build_window_circuit_fn(cd)
     assert api.simulate(cd, cfg, device="cpu").shape == (1 << 14,)
+    # the sparse COO, adaptive and trajectory tiers
+    from quantum_simulations_tpu_torch.runtime.trajectory import simulate_trajectory
+    from quantum_simulations_tpu_torch.sparse.adaptive import simulate_adaptive
+    from quantum_simulations_tpu_torch.sparse.engine import simulate_sparse
+
+    traj = {"number_of_qubits": 2, "gates": [
+        {"qubits": [0], "gate": "H"}, {"qubits": [0], "gate": "RESET"}]}
+    for run in (lambda: simulate_sparse(library.ghz(10)),
+                lambda: simulate_sparse(library.ghz(63), force_tier="numpy"),
+                lambda: simulate_adaptive(library.qft(8)),
+                lambda: simulate_trajectory(traj),
+                lambda: api.simulate(library.ghz(10), SimulatorConfig(sparse=True)),
+                lambda: api.simulate(traj)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run()
+    assert len(simulate_sparse(library.ghz(10), device="cpu")) == 2
 
 
 def test_cuda_build_needs_nvcc(monkeypatch, tmp_path):
