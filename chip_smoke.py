@@ -168,6 +168,32 @@ Phases (any failure exits non-zero):
    copy within 1e-6) and ``export qft8.json --format qasm`` (``to_qasm``'s
    text).
 
+7. The out-of-core spill tier (``runtime/spill.py``: the state in host
+   DRAM or disk chunks, streamed through the card in stripes), each
+   request counted from 0 with its launches equal to ``spill_want`` (every
+   op of every step through ``gate_route`` at the stacked group's width,
+   once per group), no plain twin, and its plain torch gate calls as
+   planned.  First the host's facts: MemTotal / MemAvailable, CPUs, free
+   disk, numpy, the PCIe link, and pinned copy rates of 1 GiB each way
+   alone and both at once.  nonstab30 (``non_stabilizer(30, 4, 7)``) on
+   the host backend at m = 26, unstaged (16 steps, groups up to 2^30),
+   pipelined, ``pipeline=False`` and ``transfer="f32"``: equal bit for bit,
+   within 1e-5 of fused mode in HBM.  At full size, single copy, m = 28
+   (64 GiB through the card each way per step) when MemAvailable holds the
+   state and 8 GiB: ghz33 pipelined and synchronous (closed form within
+   1e-6, chunk by chunk on the card) and nonstab33 staged (7 steps,
+   groups of at most 2^30, the un-permute in place), within 1e-5 of the
+   capacity tier's nonstab33, chunk by chunk; ghz34 needs 128 GiB and is
+   not run.  nonstab28 on the disk backend at m = 24 in subprocesses:
+   crashed by ``QST_CRASH_AFTER_STRIPE`` inside its first group step (the
+   WAL's done_steps below the total), resumed in a fresh process, within
+   1e-5 of fused mode in HBM.  The CLI: ``run ghz28.json --mode fused
+   --stripe-qubits 24``, host and disk, the in-HBM run's output.  The
+   native oracle (g++) on nonstab20 within 1e-10 of the numpy oracle.
+   Each request prints its seconds, steps, groups, bytes and GB/s each
+   way beside the pinned rates, the host's wait and allocation seconds,
+   launches, plain gate calls and peak device memory.
+
 The last lines: the card line as nvidia-smi prints it, one JSON object
 ``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.  The
 whole record also goes to ``chiprun_out/chip_smoke.json``.
@@ -2283,6 +2309,520 @@ def tiers(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the out-of-core spill tier (host and disk stripes through the card)
+# ---------------------------------------------------------------------------
+
+NSPILL, SPILL_M = 33, 28       # 64 GiB in host DRAM, stripes of 2 GiB
+NSPILL_MID, SPILL_M_MID = 30, 26   # nonstab30: 16 steps, groups to 2^30
+NDISK, DISK_M = 28, 24         # nonstab28 on disk: stripes of 128 MiB
+NNATIVE = 20                   # the native oracle against the numpy one
+HOST_MARGIN = 8 * GIB          # host RAM a full-size request leaves free
+SPILL_CHUNK = 1 << 26          # amplitudes per chunk of a host-side check
+
+
+def meminfo() -> dict:
+    """/proc/meminfo in bytes (MemTotal, MemAvailable, ...)."""
+    out = {}
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        key, val = line.split(":", 1)
+        out[key] = int(val.split()[0]) * 1024
+    return out
+
+
+def pcie_rates(dev, nbytes: int = GIB, reps: int = 5) -> dict:
+    """Median GB/s of pinned host -> device and device -> host copies of
+    ``nbytes`` (CUDA events on a copy stream), each direction alone, then
+    both at once on two streams (the spill pipeline's case)."""
+    import torch
+
+    host = [torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+            for _ in range(2)]
+    card = [torch.empty(nbytes, dtype=torch.uint8, device=dev)
+            for _ in range(2)]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+
+    def timed(copies) -> float:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for st, (dst, src) in zip(streams, copies):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                dst.copy_(src, non_blocking=True)
+        for st in streams[:len(copies)]:
+            torch.cuda.current_stream().wait_stream(st)
+        ev[1].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / 1e3
+
+    out = {}
+    for name, copies in (("h2d", [(card[0], host[0])]),
+                         ("d2h", [(host[1], card[1])]),
+                         ("both", [(card[0], host[0]), (host[1], card[1])])):
+        timed(copies)
+        t = statistics.median(timed(copies) for _ in range(reps))
+        out[name + "_gbps"] = nbytes / t / 1e9
+    del host, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def spill_env(dev, work: Path) -> dict:
+    """The facts a spill run is bounded by: host RAM, CPUs, disk, numpy,
+    the PCIe link and the pinned copy rates."""
+    import shutil
+
+    import numpy as np
+
+    mem = meminfo()
+    link = subprocess.run(
+        ["nvidia-smi", "--query-gpu=pcie.link.gen.current,pcie.link.width.current,"
+         "pcie.link.gen.max,pcie.link.width.max", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    work.mkdir(parents=True, exist_ok=True)
+    import torch
+
+    env = dict(mem_total_gib=mem["MemTotal"] / GIB,
+               mem_available_gib=mem["MemAvailable"] / GIB,
+               cpu_count=os.cpu_count(), numpy=np.__version__,
+               disk_free_gib=shutil.disk_usage(work).free / GIB,
+               pcie_link=link,
+               host_cache_release=hasattr(torch._C, "_host_emptyCache"),
+               **pcie_rates(dev))
+    log("spill env: " + " ".join(
+        f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in env.items()))
+    return env
+
+
+def spill_want(cd: dict, m: int) -> tuple:
+    """The launches the spill tier must make for ``cd`` (already staged)
+    at stripe width m, by kernel key, and its plain torch gate calls:
+    every op of every step through ``simulator.gate_route`` at the
+    stacked array's width m + r, once per group (2^(n - m - r) groups)."""
+    from quantum_simulations_tpu_torch.circuit.fusion import LowPanelOp
+    from quantum_simulations_tpu_torch.runtime import simulator, spill
+
+    n = cd["number_of_qubits"]
+    want: dict = {}
+    dense_calls = 0
+    for step in spill.compile_steps(cd, k=m, panel_width=7):
+        bits = spill._group_bits(step, m)
+        groups = 1 << (n - m - len(bits))
+        for op in spill._remap_ops(step, m, bits):
+            key = ("lane_panel" if isinstance(op, LowPanelOp) else
+                   simulator.gate_route(op.qubits, op.U, m + len(bits)))
+            if key == "dense":
+                dense_calls += groups
+            else:
+                want[key] = want.get(key, 0) + groups
+    return want, dense_calls
+
+
+def spill_request(label: str, run, want: dict, dense_calls: int) -> tuple:
+    """One spill request with the counters set to 0 just before it: the
+    launches must be ``want`` exactly, no plain twin, ``dense_calls``
+    plain torch gates; returns (result, launches, wall s, peak GiB)."""
+    import torch
+
+    from quantum_simulations_tpu_torch.ops import dense
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, plain, gates = launches(), plain_calls(), dense.GATE_CALLS
+    peak = torch.cuda.max_memory_allocated() / GIB
+    log(f"spill {label}: {wall:.3f} s launches={got} plain_calls={plain} "
+        f"dense_gate_calls={gates} peak={peak:.3f} GiB")
+    if got != want or plain or gates != dense_calls:
+        raise AssertionError(f"{label}: launches {got}, plain {plain}, dense "
+                             f"{gates}; want {want}, no plain call, "
+                             f"{dense_calls} dense calls")
+    return out, got, wall, peak
+
+
+def spill_line(label: str, st: dict, wall: float, env: dict) -> dict:
+    """The request's record: steps, groups, bytes and GB/s each way over
+    its streaming seconds (the request less its host-buffer allocation)
+    beside the pinned rates, and the host's wait and allocation seconds."""
+    stream = wall - st["alloc_s"]
+    rec = dict(wall_s=wall, stream_s=stream, **st,
+               up_gbps=st["bytes_up"] / stream / 1e9,
+               down_gbps=st["bytes_down"] / stream / 1e9)
+    log(f"spill {label}: steps={st['steps']} groups={st['groups']} "
+        f"bytes up/down={st['bytes_up'] / GIB:.1f}/{st['bytes_down'] / GIB:.1f} "
+        f"GiB in {stream:.3f} s of streaming, {rec['up_gbps']:.3f}/"
+        f"{rec['down_gbps']:.3f} GB/s (pinned copies alone {env['h2d_gbps']:.3f}/"
+        f"{env['d2h_gbps']:.3f} GB/s, both at once {env['both_gbps']:.3f} "
+        f"each), host waits {st['wait_s']:.3f} s, host buffers "
+        f"{st['alloc_s']:.3f} s (pinned={st['pinned']})")
+    return rec
+
+
+def host_distance(psi, dev, ref_chunk) -> float:
+    """||psi - ref||_2 over a host state, chunk by chunk on the card:
+    ``ref_chunk(lo, hi)`` gives the reference's (re, im) planes (or a
+    complex tensor) of amplitudes [lo, hi) on the card."""
+    import torch
+
+    total = 0.0
+    for lo in range(0, psi.size, SPILL_CHUNK):
+        hi = min(lo + SPILL_CHUNK, psi.size)
+        x = torch.from_numpy(psi[lo:hi]).to(dev).to(torch.complex128)
+        ref = ref_chunk(lo, hi)
+        if isinstance(ref, tuple):
+            ref = torch.complex(ref[0].double(), ref[1].double())
+        total += float(((x - ref.to(torch.complex128)).abs() ** 2).sum())
+    return math.sqrt(total)
+
+
+def spill_mid(dev, env: dict, rec: dict, counts: dict) -> None:
+    """nonstab30 on the host backend at m = 26, unstaged (16 steps, groups
+    up to 2^30): within 1e-5 of fused mode in HBM on the card; then
+    ``pipeline=False`` and ``transfer="f32"``, each equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from quantum_simulations_tpu_torch import library
+    from quantum_simulations_tpu_torch.runtime import simulator, spill
+    from quantum_simulations_tpu_torch.utils.transfer import release_pinned_cache
+
+    n, m = NSPILL_MID, SPILL_M_MID
+    cd = library.non_stabilizer(n, 4, SEED)
+    want, dense_calls = spill_want(cd, m)
+    runs = {}
+    for label, kw in ((f"nonstab{n}", {}),
+                      (f"nonstab{n} sync", dict(pipeline=False)),
+                      (f"nonstab{n} f32", dict(transfer="f32"))):
+        st: dict = {}
+        psi, counts[label + " spill"], wall, peak = spill_request(
+            label, lambda kw=kw, st=st: spill.run_out_of_core(
+                cd, stripe_qubits=m, device=dev, stats=st, **kw),
+            want, dense_calls)
+        r = spill_line(label, st, wall, env)
+        r.update(peak_gib=peak, dense_gate_calls=dense_calls)
+        runs[label] = psi
+        rec[label] = r
+    base = runs[f"nonstab{n}"]
+    same = {k: bool(np.array_equal(v, base)) for k, v in runs.items()}
+    del psi
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = simulator.simulate(cd, device=dev)
+    torch.cuda.synchronize()
+    rec[f"nonstab{n}"]["fused_in_hbm_s"] = time.perf_counter() - t0
+    l2 = float(torch.linalg.vector_norm(
+        torch.from_numpy(base).to(dev).to(torch.complex128)
+        - ref.to(torch.complex128)))
+    del ref, runs, base
+    torch.cuda.empty_cache()
+    release_pinned_cache()
+    rec[f"nonstab{n}"].update(l2_vs_fused=l2, bit_equal=same)
+    t = {k: rec[k]["stream_s"] for k in rec if k.startswith(f"nonstab{n}")}
+    ok = l2 <= TOL_L2 and all(same.values())
+    log(f"spill nonstab{n}: ||psi - psi_fused_hbm||_2={l2:.3e}, bit-equal "
+        f"{same}; pipelined {t[f'nonstab{n}']:.3f} s, sync "
+        f"{t[f'nonstab{n} sync']:.3f} s (overlap saves "
+        f"{t[f'nonstab{n} sync'] - t[f'nonstab{n}']:.3f} s), f32 "
+        f"{t[f'nonstab{n} f32']:.3f} s; fused in HBM "
+        f"{rec[f'nonstab{n}']['fused_in_hbm_s']:.3f} s {'ok' if ok else 'FAIL'} "
+        f"(streaming seconds: each request less its host-buffer allocation)")
+    if not ok:
+        raise AssertionError(f"nonstab{n} spill is off: {rec[f'nonstab{n}']}")
+
+
+def spill_big(dev, env: dict, rec: dict, counts: dict) -> None:
+    """ghz33 (pipelined, then synchronous) and staged nonstab33 on the
+    host backend, single copy, m = 28: 64 GiB through the card each way
+    per step.  ghz33 against its closed form, nonstab33 against the
+    capacity tier's run on the card, chunk by chunk."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from quantum_simulations_tpu_torch import SimulatorConfig, api, library
+    from quantum_simulations_tpu_torch.circuit import staging
+    from quantum_simulations_tpu_torch.runtime import spill
+    from quantum_simulations_tpu_torch.utils.transfer import release_pinned_cache
+
+    n, m = NSPILL, SPILL_M
+    need = (8 << n) + HOST_MARGIN
+    # Measured before phase 7 pinned anything: memory CUDA unpinned stays
+    # out of MemAvailable, though CUDA hands it out again.
+    avail = env["mem_available_gib"] * GIB
+    if avail < need:
+        log(f"spill n={n}: SKIPPED, host MemAvailable {avail / GIB:.1f} GiB "
+            f"< {need / GIB:.1f} GiB (the state + margin)")
+        rec["big_skipped"] = dict(mem_available_gib=avail / GIB,
+                                  need_gib=need / GIB)
+        return
+    amp = 2.0 ** -0.5
+    ghz = library.ghz(n)
+    want, dense_calls = spill_want(ghz, m)
+    psi = None
+    for label, kw in ((f"ghz{n}", {}), (f"ghz{n} sync", dict(pipeline=False))):
+        if psi is not None:
+            # The synchronous run adopts the first run's pinned buffer,
+            # reset to |0>, instead of pinning 64 GiB anew.
+            torch.from_numpy(psi.view(np.uint8)).zero_()
+            psi[0] = 1
+            kw = dict(kw, initial_state=psi)
+        st: dict = {}
+        psi, counts[label + " spill"], wall, peak = spill_request(
+            label, lambda kw=kw, st=st: spill.run_out_of_core(
+                ghz, stripe_qubits=m, single_copy=True, device=dev, stats=st,
+                **kw), want, dense_calls)
+        r = spill_line(label, st, wall, env)
+        ends = (complex(psi[0]), complex(psi[-1]))
+        top = (1 << n) - 1
+
+        def closed(lo, hi, dev=dev):
+            z = torch.zeros(hi - lo, dtype=torch.complex128, device=dev)
+            if lo == 0:
+                z[0] = amp
+            if hi == 1 << n:
+                z[-1] = amp
+            return z
+
+        t0 = time.perf_counter()
+        r.update(peak_gib=peak, end_err=max(abs(a - amp) for a in ends),
+                 l2_vs_closed=host_distance(psi, dev, closed),
+                 check_s=time.perf_counter() - t0, top=top)
+        ok = r["end_err"] <= 1e-6 and r["l2_vs_closed"] <= 1e-6
+        log(f"spill {label}: end amplitudes within {r['end_err']:.3e} of "
+            f"2^-1/2, ||psi - closed form||_2={r['l2_vs_closed']:.3e} "
+            f"(checked in {r['check_s']:.3f} s) {'ok' if ok else 'FAIL'}")
+        rec[label] = r
+        if not ok:
+            raise AssertionError(f"{label} is off its closed form: {r}")
+    del psi, kw  # its pinned block stays cached for nonstab33's buffer
+    gc.collect()
+    log(f"spill ghz{n}: pipelined {rec[f'ghz{n}']['stream_s']:.3f} s of "
+        f"streaming (its host buffer {rec[f'ghz{n}']['alloc_s']:.3f} s more), "
+        f"sync {rec[f'ghz{n} sync']['stream_s']:.3f} s (the buffer adopted)")
+
+    cd = library.non_stabilizer(n, 4, SEED)
+    t0 = time.perf_counter()
+    staged, l2p, _ = staging.stage_circuit(cd, m, "heuristic")
+    plan_s = time.perf_counter() - t0
+    want, dense_calls = spill_want(staged, m)
+    label = f"nonstab{n} staged"
+    st = {}
+    psi, counts[label + " spill"], wall, peak = spill_request(
+        label, lambda: spill.run_out_of_core(
+            cd, stripe_qubits=m, single_copy=True, use_staging=True,
+            device=dev, stats=st), want, dense_calls)
+    r = spill_line(label, st, wall, env)
+    r.update(peak_gib=peak, plan_s=plan_s, blocks_unpermuted=len(
+        staging._bit_runs(l2p)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cap = api.simulate(cd, SimulatorConfig(mode="capacity"), device=dev)
+    torch.cuda.synchronize()
+    r["capacity_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r["l2_vs_capacity"] = host_distance(
+        psi, dev, lambda lo, hi: (cap.re[lo:hi], cap.im[lo:hi]))
+    r["check_s"] = time.perf_counter() - t0
+    del cap, psi
+    gc.collect()
+    torch.cuda.empty_cache()
+    release_pinned_cache()
+    ok = r["l2_vs_capacity"] <= TOL_L2
+    log(f"spill {label}: ||psi - psi_capacity||_2={r['l2_vs_capacity']:.3e} "
+        f"(capacity run {r['capacity_s']:.3f} s, check {r['check_s']:.3f} s; "
+        f"staging plan {plan_s:.3f} s) {'ok' if ok else 'FAIL'}")
+    rec[label] = r
+    if not ok:
+        raise AssertionError(f"{label} is off the capacity tier: {r}")
+    log(f"spill ghz{n + 1}: not run, host MemAvailable {avail / GIB:.1f} GiB "
+        f"< {((16 << n) + HOST_MARGIN) / GIB:.1f} GiB"
+        if avail < (16 << n) + HOST_MARGIN else
+        f"spill ghz{n + 1}: not run (optional; the budget)")
+
+
+def spill_disk(dev, work: Path, rec: dict) -> None:
+    """nonstab28 on the disk backend at m = 24, in subprocesses: crashed by
+    QST_CRASH_AFTER_STRIPE inside its first group step (the WAL's
+    done_steps below the total), resumed in a fresh process, then within
+    1e-5 of fused mode in HBM."""
+    import shutil
+
+    import torch
+
+    from quantum_simulations_tpu_torch import library
+    from quantum_simulations_tpu_torch.runtime import simulator, spill
+
+    n, m = NDISK, DISK_M
+    cd = library.non_stabilizer(n, 4, SEED)
+    steps = spill.compile_steps(cd, k=m, panel_width=7)
+    group = next(i for i, s in enumerate(steps) if spill._group_bits(s, m))
+    per_step = 1 << (n - m)
+    crash = group * per_step + per_step // 2
+    wd = work / f"nonstab{n}_disk"
+    shutil.rmtree(wd, ignore_errors=True)
+    root = Path(__file__).resolve().parent
+    cdfile = work / f"nonstab{n}.json"
+    cdfile.write_text(json.dumps(cd))
+    script = (f"import json, sys; sys.path.insert(0, {str(root)!r}); "
+              f"from quantum_simulations_tpu_torch.runtime import spill; "
+              f"spill.run_out_of_core(json.loads(open({str(cdfile)!r}).read()), "
+              f"stripe_qubits={m}, backend='disk', work_dir={str(wd)!r}, "
+              f"device='cuda')")
+    env = dict(os.environ, **{spill.CRASH_ENV: str(crash)})
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", script], env=env, cwd=root,
+                          capture_output=True, text=True, timeout=900)
+    crash_s = time.perf_counter() - t0
+    done = json.loads((wd / "wal.json").read_text())["done_steps"]
+    env.pop(spill.CRASH_ENV)
+    t0 = time.perf_counter()
+    proc2 = subprocess.run([sys.executable, "-c", script], env=env, cwd=root,
+                           capture_output=True, text=True, timeout=900)
+    resume_s = time.perf_counter() - t0
+    if proc.returncode != 1 or proc2.returncode != 0:
+        raise AssertionError(f"disk crash {proc.returncode} / resume "
+                             f"{proc2.returncode}:\n{proc.stderr}\n{proc2.stderr}")
+    psi = spill.collect_state(wd)
+    ref = simulator.simulate(cd, device=dev)
+    l2 = float(torch.linalg.vector_norm(
+        torch.from_numpy(psi).to(dev).to(torch.complex128)
+        - ref.to(torch.complex128)))
+    del psi, ref
+    torch.cuda.empty_cache()
+    shutil.rmtree(wd, ignore_errors=True)
+    r = dict(steps=len(steps), first_group_step=group, crash_after=crash,
+             done_steps_at_crash=done, crash_run_s=crash_s, resume_s=resume_s,
+             l2_vs_fused=l2)
+    ok = done == group < len(steps) and l2 <= TOL_L2
+    log(f"spill nonstab{n} disk: crashed after {crash + 1} stripe writes "
+        f"(step {group} of {len(steps)}, a group step) in {crash_s:.3f} s, "
+        f"WAL done_steps={done}; resumed in a fresh process in "
+        f"{resume_s:.3f} s; ||psi - psi_fused_hbm||_2={l2:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    rec[f"nonstab{n} disk"] = r
+    if not ok:
+        raise AssertionError(f"nonstab{n} disk crash/resume is off: {r}")
+
+
+def spill_cli(dev, work: Path, rec: dict) -> None:
+    """``run ghz28.json --mode fused --stripe-qubits 24``, host and disk
+    backend, as subprocesses: the same output as the in-HBM run's (the
+    same command without ``--stripe-qubits``, in this process)."""
+    import contextlib
+    import io
+    import shutil
+
+    from quantum_simulations_tpu_torch import library
+    from quantum_simulations_tpu_torch.__main__ import main as cli_main
+
+    root = Path(__file__).resolve().parent
+    path = work / f"ghz{NDISK}.json"
+    path.write_text(json.dumps(library.ghz(NDISK)))
+    base = ["run", str(path), "--mode", "fused", "--top", "2",
+            "--device", dev.type]
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        if cli_main(base) != 0:
+            raise AssertionError("the in-HBM CLI run failed")
+    outs = {"in HBM": json.loads(text.getvalue())}
+    for label, extra in (("host", ["--stripe-qubits", str(DISK_M)]),
+                         ("disk", ["--stripe-qubits", str(DISK_M),
+                                   "--spill-backend", "disk", "--work-dir",
+                                   str(work / "cli_disk")])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "quantum_simulations_tpu_torch", *base,
+             *extra], cwd=root, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {label} exited {proc.returncode}:\n"
+                                 f"{proc.stderr}")
+        outs[label] = json.loads(proc.stdout)
+        rec[f"cli ghz{NDISK} {label}"] = dict(wall_s=time.perf_counter() - t0)
+    shutil.rmtree(work / "cli_disk", ignore_errors=True)
+    want = outs["in HBM"]
+    for label in ("host", "disk"):
+        got = outs[label]
+        exact = got == want
+        ok = (exact or (
+            [i for i, _ in got["top"]] == [i for i, _ in want["top"]]
+            and all(abs(a - b) <= 1e-6 for (_, a), (_, b)
+                    in zip(got["top"], want["top"]))
+            and abs(got["norm2"] - want["norm2"]) <= 1e-6))
+        rec[f"cli ghz{NDISK} {label}"].update(exact=exact, top=got["top"])
+        log(f"spill cli run ghz{NDISK}.json --mode fused --stripe-qubits "
+            f"{DISK_M} ({label}): top {got['top'][:2]} norm2 {got['norm2']}; "
+            f"{'equal to' if exact else 'within 1e-6 of'} the in-HBM run's "
+            f"output {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the CLI's {label} spill output differs: "
+                                 f"{got} vs {want}")
+
+
+def native_check(rec: dict) -> None:
+    """The native oracle (C++/OpenMP, built with g++) on nonstab20 within
+    1e-10 of the numpy oracle."""
+    import numpy as np
+
+    from quantum_simulations_tpu_torch import library, native
+    from quantum_simulations_tpu_torch.oracle import dense_numpy
+    from quantum_simulations_tpu_torch.oracle import native as nat
+
+    cd = library.non_stabilizer(NNATIVE, 4, SEED)
+    t0 = time.perf_counter()
+    if not nat.available():
+        raise AssertionError(f"the native engine did not build: "
+                             f"{native.BUILD_ERROR}")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = nat.simulate(cd)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = dense_numpy.simulate(cd)
+    numpy_s = time.perf_counter() - t0
+    err = float(np.abs(got - want).max())
+    ok = err <= 1e-10
+    rec[f"native nonstab{NNATIVE}"] = dict(max_abs=err, build_s=build_s,
+                                          native_s=native_s, numpy_s=numpy_s)
+    log(f"spill native nonstab{NNATIVE}: max |psi - psi_numpy| = {err:.3e}; "
+        f"build {build_s:.3f} s, native {native_s:.3f} s, numpy "
+        f"{numpy_s:.3f} s (host CPU) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the native oracle is off the numpy oracle")
+
+
+def spill_tier(dev) -> dict:
+    """Phase 7: the spill tier's requests; returns their launch counts."""
+    import gc
+    import shutil
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_spill"
+    rec: dict = {}
+    counts: dict = {}
+    try:
+        env = spill_env(dev, work)
+        rec["env"] = env
+        spill_big(dev, env, rec, counts)
+        spill_mid(dev, env, rec, counts)
+        spill_disk(dev, work, rec)
+        spill_cli(dev, work, rec)
+        native_check(rec)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    RECORD["spill"] = dict(launches=counts, **rec)
+    return counts
+
+
 def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
     """One record per kernel: its launches in the request that runs it
     (a panel's "+diag" and "+rotate" launches included; the requests
@@ -2381,6 +2921,7 @@ def main() -> int:
     rows = times(dev, scheds)
     counts.update(capacity33(dev))
     counts.update(tiers(dev))
+    counts.update(spill_tier(dev))
     kernels = kernels_line(counts, rows, worst)
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)

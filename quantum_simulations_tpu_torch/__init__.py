@@ -10,12 +10,14 @@ use).  Entry points run on the card unless the caller passes
 
 The port runs the dense single-device tier in its four modes (fused, the
 default; panel, the CLI's default; window; auto), the capacity tier in
-place, their readout, the sparse tier (COO on the card; bigint indices
-on the host), the adaptive sparse -> dense tier, the trajectory tier
-(RESET / mid-circuit MEASURE / ``if``), the numpy oracle
-(``oracle``), and the CLI (``python -m quantum_simulations_tpu_torch``
-``run`` / ``sample`` / ``stats`` / ``export``); see ROADMAP.md for what
-follows.
+place, their readout, the out-of-core spill tier (the state in host DRAM
+or disk chunks, streamed through the card in stripes; WAL and crash
+recovery on disk; Atlas staging), the sparse tier (COO on the card;
+bigint indices on the host), the adaptive sparse -> dense tier, the
+trajectory tier (RESET / mid-circuit MEASURE / ``if``), the numpy and
+native C++ oracles (``oracle``), and the CLI (``python -m
+quantum_simulations_tpu_torch`` ``run`` / ``sample`` / ``stats`` /
+``export``); see ROADMAP.md for what follows.
 """
 from .circuit.contract import (
     ENDIANNESS,

@@ -5,15 +5,19 @@ output).
     python -m quantum_simulations_tpu_torch run circuit.json [--mode panel] ...
     python -m quantum_simulations_tpu_torch run circuit.json --sparse [auto]
     python -m quantum_simulations_tpu_torch run circuit.qasm --trajectory
+    python -m quantum_simulations_tpu_torch run circuit.json --stripe-qubits 24 \
+        [--spill-backend disk --work-dir wd] [--staging]
     python -m quantum_simulations_tpu_torch sample circuit.qasm --shots 100
     python -m quantum_simulations_tpu_torch stats circuit.json
     python -m quantum_simulations_tpu_torch export circuit.json --format qasm|dot|json
 
 Circuit files are contract JSON dicts or OpenQASM 2.0 (.qasm).  Runs on
 the card; ``--device cpu`` runs the kernels' plain torch twins on the
-CPU.  Flags of the tiers the port does not run yet (``--devices`` > 1,
-``--stripe-qubits``, ``--work-dir``) exit with status 1 and the API's
-``NotImplementedError`` text.
+CPU.  ``--stripe-qubits`` runs the out-of-core spill tier (host DRAM, or
+with ``--spill-backend disk`` chunk files under ``--work-dir``, which it
+then needs, as in the reference).  Flags of the tiers the port does not
+run yet (``--devices`` > 1, ``--work-dir`` without disk spill) exit with
+status 1 and the API's ``NotImplementedError`` text.
 """
 from __future__ import annotations
 
@@ -188,7 +192,11 @@ def main(argv=None) -> int:
         print(json.dumps(result.summary(args.top), indent=1))
     elif hasattr(result, "top_amplitudes"):  # stayed sparse (incl. auto)
         print(json.dumps(_sparse_summary(result, args.top), indent=1))
-    else:
+    else:  # a dense state: a tensor, or the spill tier's host array
+        import torch
+
+        if not isinstance(result, torch.Tensor):
+            result = torch.from_numpy(result)
         print(json.dumps(_dense_summary(result, args.top), indent=1))
     return 0
 

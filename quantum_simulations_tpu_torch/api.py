@@ -1,13 +1,15 @@
 """High-level user API of the port: the dense single-device tier (modes
-fused, panel, window and auto), the capacity tier, the sparse and
-adaptive sparse tiers, and the trajectory tier.
+fused, panel, window and auto), the capacity tier, the out-of-core spill
+tier, the sparse and adaptive sparse tiers, and the trajectory tier.
 
-Routes like ``quantum_simulations_tpu/api.py`` (:39-73): a circuit with
+Routes like ``quantum_simulations_tpu/api.py`` (:39-99): a circuit with
 RESET / mid-circuit MEASURE / ``if`` goes to the trajectory tier
 (seeded by ``trajectory_seed``), ``sparse="auto"`` to the adaptive
-tier, ``sparse=True`` to the sparse tier, then the capacity and dense
-tiers.  The tiers the port has not reached yet (out-of-core spill, the
-WAL runner, sharded runs) raise ``NotImplementedError`` naming the tier.
+tier, ``sparse=True`` to the sparse tier, then the capacity tier, the
+spill tier (``stripe_qubits`` set: the state in host DRAM or disk
+chunks, streamed through the card) and the dense tier.  The tiers the
+port has not reached yet (the WAL runner, sharded runs) raise
+``NotImplementedError`` naming the tier.
 
 .. code-block:: python
 
@@ -20,6 +22,10 @@ WAL runner, sharded runs) raise ``NotImplementedError`` naming the tier.
     res.norm2(), res.top_amplitudes(4), res.sample_bits(100)
     st = api.simulate(library.ghz(62), SimulatorConfig(sparse=True))
     len(st), st.top_amplitudes(2)                         # a SparseState
+    psi = api.simulate(library.ghz(33), SimulatorConfig(
+        stripe_qubits=28))             # 64 GiB in host DRAM, 2 GiB stripes
+    psi = api.simulate(library.qft(20), SimulatorConfig(
+        stripe_qubits=16, spill_backend="disk"), work_dir="wd")
 """
 from __future__ import annotations
 
@@ -34,8 +40,8 @@ def _tier(name: str, cfg: SimulatorConfig) -> NotImplementedError:
     return NotImplementedError(
         f"the {name} tier is not ported yet (mode={cfg.mode!r}): the port "
         f"runs the dense-tier modes (fused, panel, window, auto) on one "
-        f"device, the capacity tier, the sparse and adaptive sparse tiers "
-        f"and the trajectory tier")
+        f"device, the capacity tier, the out-of-core spill tier, the sparse "
+        f"and adaptive sparse tiers and the trajectory tier")
 
 
 def _is_capacity(cfg: SimulatorConfig, n: int, work_dir=None) -> bool:
@@ -50,10 +56,8 @@ def _unported(circuit_dict: dict, cfg: SimulatorConfig, work_dir=None):
     if has_nonunitary(circuit_dict) or cfg.sparse:
         return None
     n = validate_circuit_dict(circuit_dict)["number_of_qubits"]
-    if _is_capacity(cfg, n, work_dir):
+    if _is_capacity(cfg, n, work_dir) or cfg.stripe_qubits is not None:
         return None
-    if cfg.stripe_qubits is not None:
-        return _tier("out-of-core spill", cfg)
     if work_dir is not None:
         return _tier("runner (WAL)", cfg)
     if (cfg.n_devices or 1) > 1:
@@ -63,10 +67,12 @@ def _unported(circuit_dict: dict, cfg: SimulatorConfig, work_dir=None):
 
 def run(circuit_dict: dict, cfg: SimulatorConfig, *, work_dir=None,
         device="cuda"):
-    """Run a circuit and keep the result on the device: the trajectory,
-    dense and switched adaptive tiers' final state as a complex tensor on
-    ``device``, the capacity tier's ``CapacityResult``, or the sparse
-    tiers' ``SparseState`` (host dict)."""
+    """Run a circuit and keep the result where its tier keeps it: the
+    trajectory, dense and switched adaptive tiers' final state as a
+    complex tensor on ``device``, the capacity tier's ``CapacityResult``,
+    the spill tier's host numpy state (read back from the disk chunks
+    for ``spill_backend="disk"``, which needs ``work_dir``), or the
+    sparse tiers' ``SparseState`` (host dict)."""
     err = _unported(circuit_dict, cfg, work_dir)
     if err is not None:
         raise err
@@ -105,6 +111,19 @@ def run(circuit_dict: dict, cfg: SimulatorConfig, *, work_dir=None,
 
         return simulate_capacity(cd, dtype=cfg.dtype, device=device)
 
+    if cfg.stripe_qubits is not None:
+        from .runtime import spill
+
+        out = spill.run_out_of_core(
+            cd, stripe_qubits=cfg.stripe_qubits, backend=cfg.spill_backend,
+            work_dir=work_dir, dtype=cfg.dtype, use_fusion=cfg.use_fusion,
+            panel_width=cfg.panel_width, use_staging=cfg.use_staging,
+            staging_method=cfg.staging_method, transfer=cfg.spill_transfer,
+            device=device)
+        if cfg.spill_backend == "disk":
+            return spill.collect_state(out)
+        return out
+
     from .runtime import simulator
 
     return simulator.simulate(
@@ -114,13 +133,25 @@ def run(circuit_dict: dict, cfg: SimulatorConfig, *, work_dir=None,
     )
 
 
+def _on_device(res, device):
+    """The spill tier's host numpy state as a tensor on ``device`` (the
+    reference's ``jnp.asarray`` before its readout); any other result as
+    it is."""
+    if isinstance(res, np.ndarray):
+        from .utils.device import resolve_device
+
+        return torch.from_numpy(res).to(resolve_device(device))
+    return res
+
+
 def simulate(circuit_dict: dict, config: SimulatorConfig | None = None,
              *, work_dir=None, device="cuda"):
     """Run a circuit under the given config.  Runs on the card unless
     ``device="cpu"``.
 
-    The dense and trajectory tiers (and an adaptive run that switched
-    to dense) return the final state as a host numpy complex vector.
+    The dense, spill and trajectory tiers (and an adaptive run that
+    switched to dense) return the final state as a host numpy complex
+    vector.
     The capacity tier (``mode="capacity"``, or ``"auto"`` at n >= 29)
     returns a :class:`runtime.capacity.CapacityResult`: the planes stay
     on the device, read out by norm, top amplitudes, sampling and
@@ -140,15 +171,17 @@ def sample(circuit_dict: dict, shots: int, *, seed: int = 0,
     """Simulate then draw bitstring samples; (shots, n) int8 matrix,
     column q = qubit q.  A state on the device (the dense and trajectory
     tiers, an adaptive run that switched) is sampled there with a
-    ``torch.Generator`` seeded by ``seed``; a ``SparseState`` samples
-    over its nonzeros (numpy, the reference's bits), the capacity tier
-    from its planes."""
+    ``torch.Generator`` seeded by ``seed``, and so is the spill tier's
+    host state once moved to ``device`` (the reference's readout); a
+    ``SparseState`` samples over its nonzeros (numpy, the reference's
+    bits), the capacity tier from its planes."""
     from .ops import sampling
 
     n = validate_circuit_dict(
         circuit_dict, allow_nonunitary=has_nonunitary(circuit_dict),
     )["number_of_qubits"]
-    res = run(circuit_dict, config or SimulatorConfig(), device=device)
+    res = _on_device(run(circuit_dict, config or SimulatorConfig(),
+                         device=device), device)
     if isinstance(res, torch.Tensor):
         gen = torch.Generator(device=res.device).manual_seed(seed)
         return sampling.sample_bits(res, gen, shots, n).cpu().numpy()
@@ -161,7 +194,8 @@ def expectation_z(circuit_dict: dict, qubits: list[int],
     """<Z_q1 Z_q2 ...> of the circuit's final state."""
     from .ops import sampling
 
-    res = run(circuit_dict, config or SimulatorConfig(), device=device)
+    res = _on_device(run(circuit_dict, config or SimulatorConfig(),
+                         device=device), device)
     if isinstance(res, torch.Tensor):
         return sampling.expectation_z(res, qubits)
     return res.expectation_z(qubits)

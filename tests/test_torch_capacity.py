@@ -558,15 +558,27 @@ def test_api_sample_and_expectation_route_capacity():
 
 @pytest.mark.parametrize("cfg,err", [
     # The dense tier reads out (tests/test_torch_panel_mode.py); beside a
-    # spill stripe it is the spill tier, whose error names the dense-tier
-    # modes that run.
-    (SimulatorConfig(mode="window", stripe_qubits=8), "dense-tier"),
+    # spill stripe it is the spill tier, which runs now
+    # (tests/test_torch_spill.py) and reads out the reference's state
+    # (err None).
+    (SimulatorConfig(mode="window", stripe_qubits=8, dtype="complex128"),
+     None),
     (SimulatorConfig(mode="capacity", n_devices=2), "sharded"),
     # sparse=True runs and samples (tests/test_torch_sparse.py); the
     # sharded tier's error names it among the tiers that run.
     (SimulatorConfig(mode="window", n_devices=2), "sparse"),
 ])
 def test_api_readout_of_unported_tiers_raises(cfg, err):
+    if err is None:
+        from quantum_simulations_tpu.api import expectation_z as rexp
+
+        bits = api.sample(rlib.ghz(10), 10, config=cfg, device=CPU)
+        assert bits.shape == (10, 10)
+        assert set(bits.sum(axis=1).tolist()) <= {0, 10}
+        cd = rlib.qft(10)
+        _close(api.expectation_z(cd, [0, 9], config=cfg, device=CPU),
+               rexp(cd, [0, 9], cfg))
+        return
     with pytest.raises(NotImplementedError, match=err):
         api.sample(rlib.ghz(10), 10, config=cfg, device=CPU)
     with pytest.raises(NotImplementedError, match=err):

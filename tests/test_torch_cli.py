@@ -163,16 +163,33 @@ def test_sample_draws_from_the_state(capsys, files):
 # (tests/test_torch_sparse.py, test_torch_trajectory.py); their cases
 # hold an unported tier's error to naming those tiers among what runs
 # (``--trajectory`` on a unitary circuit with ``--work-dir`` is the runner).
+# ``--stripe-qubits`` runs the spill tier now (tests/test_torch_spill.py):
+# its case prints the reference's output (names None), and disk spill
+# without ``--work-dir`` raises the reference's own ValueError.
 @pytest.mark.parametrize("flags,names", [
-    (["--devices", "2"], ""), (["--stripe-qubits", "4"], ""),
+    (["--devices", "2"], ""), (["--stripe-qubits", "4"], None),
     (["--devices", "2", "--mode", "window"], "sparse"),
-    (["--stripe-qubits", "4", "--spill-backend", "disk"], "adaptive sparse"),
+    (["--stripe-qubits", "4", "--spill-backend", "disk"], ValueError),
     (["--work-dir", "wd"], ""), (["--trajectory", "--work-dir", "wd"],
                                  "trajectory")],
     ids=["devices", "stripe", "sparse", "sparse-auto", "work-dir",
          "trajectory"])
 def test_unported_tier_flags_exit_1(capsys, files, flags, names, tmp_path):
     flags = [str(tmp_path / f) if f == "wd" else f for f in flags]
+    argv = ["run", str(files["ghz"]), *flags]
+    if names is None:
+        got, want = _both(capsys, argv + ["--top", "2"])
+        assert got["n_amplitudes"] == want["n_amplitudes"] == 1 << 10
+        assert abs(got["norm2"] - want["norm2"]) <= TOL
+        assert [i for i, _ in got["top"]] == ["0x0", "0x3ff"]
+        _same_top(sorted(got["top"]), sorted(want["top"]))
+        return
+    if names is ValueError:
+        with pytest.raises(ValueError, match="disk backend requires work_dir"):
+            rmain(argv)
+        with pytest.raises(ValueError, match="disk backend requires work_dir"):
+            main(argv + ["--device", "cpu"])
+        return
     assert main(["run", str(files["ghz"]), "--device", "cpu", *flags]) == 1
     err = capsys.readouterr().err
     assert "not ported yet" in err and "NotImplementedError" not in err

@@ -743,3 +743,111 @@ def test_trajectory_mixed_on_card(dev):
         assert psi.device.type == "cuda" and psi.dtype == torch.complex64
         assert outs == outs_o and cregs == cregs_o
         assert np.linalg.norm(psi.cpu().numpy() - psi_o) <= TOL_L2
+
+
+# ---------------------------------------------------------------------------
+# The out-of-core spill tier on the card
+# ---------------------------------------------------------------------------
+
+def _fused_in_hbm(cd, dev):
+    from quantum_simulations_tpu_torch.runtime import simulator
+
+    return simulator.simulate(cd, device=dev).cpu().numpy()
+
+
+def _l2_np(a, b):
+    return float(np.linalg.norm(a.astype(np.complex128) - b))
+
+
+@pytest.mark.parametrize("pipeline", [True, False])
+def test_spill_host_n20_against_fused(dev, pipeline):
+    """nonstab20 through host stripes of 2^14 (groups up to 2^20): within
+    1e-5 of fused mode in HBM, kernels launched, the host buffer pinned;
+    pipelined and synchronous bit for bit, and ``transfer='f32'`` too."""
+    from quantum_simulations_tpu_torch.runtime import spill
+
+    cd = library.non_stabilizer(20, 4, 7)
+    want = _fused_in_hbm(cd, dev)
+    before = pk.LAUNCHES["lane_panel"], pq.LAUNCHES["pair_update"]
+    st = {}
+    got = spill.run_out_of_core(cd, stripe_qubits=14, pipeline=pipeline,
+                                device=dev, stats=st)
+    assert pk.LAUNCHES["lane_panel"] > before[0]
+    assert pq.LAUNCHES["pair_update"] > before[1]
+    assert st["pinned"] and st["bytes_up"] == st["bytes_down"] == (
+        st["steps"] * 8 << 20)
+    assert _l2_np(got, want) < TOL_L2
+    other = spill.run_out_of_core(cd, stripe_qubits=14,
+                                  pipeline=not pipeline, device=dev)
+    np.testing.assert_array_equal(got, other)
+    f32 = spill.run_out_of_core(cd, stripe_qubits=14, transfer="f32",
+                                device=dev)
+    np.testing.assert_array_equal(got, f32)
+
+
+def test_spill_staged_and_single_copy_on_card(dev):
+    from quantum_simulations_tpu_torch.runtime import spill
+
+    cd = library.non_stabilizer(20, 4, 7)
+    want = _fused_in_hbm(cd, dev)
+    got = spill.run_out_of_core(cd, stripe_qubits=15, use_staging=True,
+                                single_copy=True, device=dev)
+    assert _l2_np(got, want) < TOL_L2
+    psi0 = np.zeros(1 << 20, np.complex64)
+    psi0[0] = 1
+    adopted = spill.run_out_of_core(cd, stripe_qubits=14, initial_state=psi0,
+                                    single_copy=True, device=dev)
+    assert adopted is psi0 and _l2_np(adopted, want) < TOL_L2
+
+
+def test_spill_disk_crash_and_resume_on_card(dev, tmp_path):
+    import json
+    import os
+    import subprocess
+    import sys
+    import textwrap
+    from pathlib import Path
+
+    from quantum_simulations_tpu_torch.runtime import spill
+
+    cd = library.non_stabilizer(16, 4, 7)
+    steps = spill.compile_steps(cd, k=12, panel_width=7)
+    group = next(i for i, s in enumerate(steps) if spill._group_bits(s, 12))
+    crash = group * 16 + 3  # the 4th write of the first group step
+    root = Path(__file__).resolve().parent.parent
+    script = textwrap.dedent(f"""
+        import json, sys
+        sys.path.insert(0, {str(root)!r})
+        from quantum_simulations_tpu_torch.runtime import spill
+        spill.run_out_of_core(json.loads('''{json.dumps(cd)}'''),
+                              stripe_qubits=12, backend="disk",
+                              work_dir={str(tmp_path)!r}, device="cuda")
+    """)
+    env = dict(os.environ, **{spill.CRASH_ENV: str(crash)})
+    res = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 1, res.stderr
+    done = json.loads((tmp_path / "wal.json").read_text())["done_steps"]
+    assert done == group < len(steps)
+    env.pop(spill.CRASH_ENV)
+    res = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    assert _l2_np(spill.collect_state(tmp_path), _fused_in_hbm(cd, dev)) < TOL_L2
+
+
+def test_spill_pinned_route(dev):
+    """The host buffer is page-locked (``is_pinned`` on its tensor view),
+    the slot copies run on their own streams, and the API routes there."""
+    from quantum_simulations_tpu_torch import SimulatorConfig, api
+    from quantum_simulations_tpu_torch.runtime.chunk_store import HostBuffer
+
+    buf = HostBuffer(16, 12, device=dev)
+    assert buf.pinned and torch.from_numpy(buf.data).is_pinned()
+    assert buf.data[0] == 1 and not buf.data[1:].any()
+    cd = library.ghz(16)
+    got = api.simulate(cd, SimulatorConfig(stripe_qubits=12), device=dev)
+    assert abs(got[0] - 2 ** -0.5) < 1e-6 and abs(got[-1] - 2 ** -0.5) < 1e-6
+    bits = api.sample(cd, 8, config=SimulatorConfig(stripe_qubits=12),
+                      device=dev)
+    assert bits.shape == (8, 16) and set(bits.sum(axis=1).tolist()) <= {0, 16}

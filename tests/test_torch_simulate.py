@@ -147,12 +147,22 @@ def test_diag_op_raises_naming_the_op():
     # The sparse tier runs (tests/test_torch_sparse.py); the sharded
     # tier's error names it among the tiers that run.
     (dict(mode="window", n_devices=2), "sparse"),
-    (dict(mode="window", stripe_qubits=10), "spill"),
+    # The spill tier runs now (tests/test_torch_spill.py): the reference's
+    # spill result (match None).
+    (dict(mode="window", stripe_qubits=10, dtype="complex128"), None),
     (dict(mode="window", n_devices=4), "sharded"),
 ])
 def test_unported_tiers_raise(kw, match):
+    cd = rlib.non_stabilizer(14)
+    if match is None:
+        from quantum_simulations_tpu.api import simulate as rsimulate
+
+        np.testing.assert_allclose(
+            api.simulate(cd, SimulatorConfig(**kw), device=CPU),
+            rsimulate(cd, SimulatorConfig(**kw)), atol=1e-10)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        api.simulate(rlib.non_stabilizer(14), SimulatorConfig(**kw), device=CPU)
+        api.simulate(cd, SimulatorConfig(**kw), device=CPU)
 
 
 def test_inplace_and_diag_epilogue_raise():
