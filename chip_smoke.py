@@ -194,6 +194,45 @@ Phases (any failure exits non-zero):
    way beside the pinned rates, the host's wait and allocation seconds,
    launches, plain gate calls and peak device memory.
 
+8. The sharded tier and the WAL runner (``parallel/``,
+   ``runtime/runner.py``), positions sharing the card
+   (``make_mesh(devices=[cuda:0] * D)``).  Each request is counted from
+   0: its launches summed over the positions, its plain torch gate calls
+   and the bytes ``parallel/comm`` hands between positions must equal
+   ``sharded_want`` (derived before it runs: each step's local ops
+   dispatched dry on meta planes, each zero-traffic gate's block per
+   position, ``exchange_bytes`` / ``reshard_bytes``), and no plain twin
+   may run.  nonstab30 (``non_stabilizer(30, 4, 7)``) in window mode on
+   8 positions of 2^27, within 1e-5 of the one-device window run, warm
+   ms beside it; its readout on the mesh (<Z0 Z29>, P(1) of q3 and q29
+   within 1e-9 of the same sums over the gathered planes and 2e-5 of the
+   one-device ones, the collapses by ``measure_qubit_sharded`` within
+   1e-6 / 1e-5 of the gathered / one-device collapse); ghz30's 1000 shots
+   by ``sample_bits_sharded``, every row all 0 or all 1; random30
+   (600 gates, seed 9) staged by ``stage_circuit(cd, 27, "heuristic")``,
+   its boundary SWAPs as all_to_all reshards, within 1e-5 of the
+   unstaged one-device run after the permutation; qft28 in fused mode
+   within 1e-5 of the one-device window run; qft31 in place on 2
+   positions of 2^30: unstaged its build raises the capacity
+   ``ValueError``, staged from a seeded random state it reshards in the
+   shards' memory (peak at most one shard plane above the state) and
+   lands within 1e-5 of the one-device capacity run after the
+   permutation.  The runner: nonstab28 on 4 positions, window mode, one
+   level a step, in a subprocess crashed by ``QST_CRASH_AFTER_STEP=1``
+   (WAL done_steps 1), resumed in a fresh one, ``collect_state`` equal
+   bit for bit to an uninterrupted run in this process (checkpoint s and
+   GB/s); nonstab30 through ``api.simulate(cd, SimulatorConfig(mode=
+   "capacity"), work_dir=...)`` within 1e-6 of the capacity tier.  A pod
+   of 2 processes x 2 positions over gloo, card pieces staged through
+   host memory, both on this card (``parallel.pod_worker``): every
+   shard's sha256 equal to the in-process 4-position run's, launches
+   summed over the processes equal to the plan, the host-staged bytes and
+   GB/s.  The CLI in this process: ``run ghz28.json --work-dir`` twice
+   (the second finds the run done: the same output and WAL),
+   ``placement --devices 1 --qubits 28`` (exit 0), ``run --devices 2``
+   (exit 1, naming the one card).  Phase 8's seconds and the card line
+   close it.
+
 The last lines: the card line as nvidia-smi prints it, one JSON object
 ``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.  The
 whole record also goes to ``chiprun_out/chip_smoke.json``.
@@ -2823,6 +2862,758 @@ def spill_tier(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the sharded tier and the WAL runner, positions sharing the card
+# ---------------------------------------------------------------------------
+
+NSH, SH_POS = 30, 8            # the reference's sharded size: 8 shards of 2^27
+NSH_CAP, CAP_POS = 31, 2       # 2 shards of 2^30 (the capacity guard: 2^27)
+NRUN, RUN_POS = 28, 4          # the runner's crash / resume request
+POD_PROCS, POD_POS = 2, 2      # the gloo pod: processes x positions each
+NRUN_CAP = 30                  # the runner in place on one position
+RANDOM_GATES = 600
+SHOTS = 1000
+# A readout scalar of the sharded state against the same sum over its
+# gathered planes (float64 sums in another order), and against the
+# one-device state's (two float32 runs ||dpsi||_2 <= 1e-5 apart: a
+# probability moves by at most 2 ||dpsi||_2).
+TOL_READOUT = 1e-9
+TOL_READOUT_ONE = 2 * TOL_L2
+
+
+class dry_run:
+    """``with dry_run(): ...``: the kernel wrappers take meta tensors for
+    card planes and launch nothing, so the launch counts are those the
+    dispatch would make (tests/test_torch_capacity.py's dry run)."""
+
+    def __enter__(self):
+        self.saved = [(m, m.on_card, m.launch) for m in count_modules()]
+        for m in count_modules():
+            m.on_card = lambda name, re, im: True
+            m.launch = lambda *a: None
+        return self
+
+    def __exit__(self, *exc):
+        for m, on_card, launch in self.saved:
+            m.on_card, m.launch = on_card, launch
+
+
+def _counted(run) -> tuple:
+    """(launches, plain torch gate calls) a dry ``run()`` makes."""
+    from quantum_simulations_tpu_torch.ops import dense
+
+    reset_counts()
+    run()
+    return launches(), dense.GATE_CALLS
+
+
+def _add(total: dict, part: dict, times: int = 1) -> None:
+    for key, v in part.items():
+        total[key] = total.get(key, 0) + v * times
+
+
+def sharded_want(cd: dict, positions: int, mode: str = "window",
+                 inplace: bool = False, max_levels=None) -> tuple:
+    """The plan of a sharded request, derived before it runs: (launches
+    summed over the positions, plain torch gate calls, bytes moved
+    between positions).  Each step's local ops are dispatched once, dry,
+    on meta planes of 2^k (the same on every position); each zero-traffic
+    gate's W_0 per position (window mode; an identity block is skipped);
+    an exchanging gate ships ``exchange_bytes`` a position and makes one
+    plain gate call a position for offset 0 and for each offset that ships
+    the whole shard (``offset_traffic`` 1.0) when it has a local qubit; a
+    reshard ships ``reshard_bytes``' all_to_all_bytes a position."""
+    import numpy as np
+    import torch
+
+    from quantum_simulations_tpu_torch.circuit.fusion import compile_steps
+    from quantum_simulations_tpu_torch.ops import exchange
+    from quantum_simulations_tpu_torch.parallel import executor as E
+    from quantum_simulations_tpu_torch.parallel.reshard import (
+        plan_boundary_reshard, reshard_bytes)
+    from quantum_simulations_tpu_torch.runtime import simulator
+
+    n = cd["number_of_qubits"]
+    k = n - (positions.bit_length() - 1)
+    window = mode == "window"
+    steps = compile_steps(cd, k=k, panel_width=None if window else 7,
+                          max_levels_per_step=max_levels)
+    meta, f32 = torch.device("meta"), torch.float32
+
+    def planes():
+        return (torch.empty(1 << k, device=meta),
+                torch.empty(1 << k, device=meta))
+
+    def local(i, step):
+        re, im = planes()
+        if window:
+            for op, dt in simulator.prepare_schedule(paired[i], meta, f32):
+                re, im = simulator.apply_window_op(re, im, op, dt,
+                                                   inplace=inplace)
+        else:
+            for op, _ in simulator.prepare_passes(
+                    [(op, False) for op in step.local_ops], meta, f32):
+                re, im = simulator.apply_panel_op(re, im, op)
+
+    want: dict = {}
+    dense_calls = nbytes = 0
+    with dry_run():
+        paired = E.window_ops(steps, k, inplace) if window else None
+        for i, step in enumerate(steps):
+            got, calls = _counted(lambda: local(i, step))
+            _add(want, got, positions)
+            dense_calls += calls * positions
+            pairs, rest = plan_boundary_reshard(step.nonlocal_ops, k)
+            if pairs:
+                nbytes += positions * reshard_bytes(k, len(pairs))[
+                    "all_to_all_bytes"]
+            for op in rest:
+                U, qs = np.asarray(op.U), tuple(op.qubits)
+                traffic = exchange.offset_traffic(U, qs, k)
+                if window and not traffic:
+                    for s in range(positions):
+                        W, loc = E._zero_block(op, k, s)
+                        if loc and not np.array_equal(W, np.eye(len(W))):
+                            got, calls = _counted(lambda: simulator.apply_gate(
+                                *planes(), loc, W, inplace=inplace,
+                                name=op.name))
+                            _add(want, got)
+                            dense_calls += calls
+                    continue
+                nbytes += positions * exchange.exchange_bytes(U, qs, k)
+                if any(q < k for q in qs):
+                    per = (0 in exchange.nonzero_offsets(U, qs, k)) + sum(
+                        frac == 1.0 for _, frac in traffic)
+                    dense_calls += positions * per
+    reset_counts()
+    return want, dense_calls, nbytes
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _free(dev) -> None:
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _peak_reset(dev) -> int:
+    """Reset the peak; returns the bytes held now."""
+    import torch
+
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _peak(dev) -> int:
+    import torch
+
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+
+
+def sharded_request(label: str, run, plan: tuple, dev) -> tuple:
+    """One phase-8 request with the counters set to 0 just before it: its
+    launches must be the plan's, no plain twin may run, its plain torch
+    gate calls and its bytes moved between positions (``comm``) the
+    plan's.  Returns (result, launches, wall s, bytes)."""
+    from quantum_simulations_tpu_torch.ops import dense
+    from quantum_simulations_tpu_torch.parallel import comm
+
+    want, dense_calls, nbytes = plan
+    reset_counts()
+    comm.reset_counts()
+    t0 = time.perf_counter()
+    out = run()
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    got, plain, gates = launches(), plain_calls(), dense.GATE_CALLS
+    moved = comm.moved_bytes()
+    log(f"sharded {label}: {wall * 1e3:.3f} ms (first call: schedule, "
+        f"operand upload) launches={got} plain_calls={plain} "
+        f"dense_gate_calls={gates} bytes_moved={moved} "
+        f"(ppermute {comm.TRAFFIC['ppermute_bytes']}, all_to_all "
+        f"{comm.TRAFFIC['all_to_all_bytes']})")
+    if got != want or plain or gates != dense_calls or moved != nbytes:
+        raise AssertionError(
+            f"{label}: launches {got}, plain {plain}, dense {gates}, bytes "
+            f"{moved}; the plan: {want}, no plain call, {dense_calls} dense "
+            f"calls, {nbytes} bytes")
+    return out, got, wall, moved
+
+
+def shard_distance(state, ref_re, ref_im) -> float:
+    """||psi_sharded - psi_ref||_2 in float64, shard by shard against the
+    reference planes' slices."""
+    k = state.k
+    acc = 0.0
+    for s, (re, im) in state.shards.items():
+        sl = slice(s << k, (s + 1) << k)
+        for a, b in ((re, ref_re[sl]), (im, ref_im[sl])):
+            for lo in range(0, a.numel(), SPILL_CHUNK):
+                d = a[lo:lo + SPILL_CHUNK].double() - b[lo:lo + SPILL_CHUNK].double()
+                acc += float((d * d).sum())
+    return math.sqrt(acc)
+
+
+def permuted_distance(state, ref_re, ref_im, log2phys) -> float:
+    """||permute(psi_sharded) - psi_ref||_2 for a staged run, chunk by
+    chunk on the device: logical index L reads physical index P, where
+    bit log2phys[q] of P is bit q of L (``staging.permute_state``)."""
+    import torch
+
+    dev = ref_re.device
+    full = [torch.cat([state.shards[s][p] for s in range(state.mesh.size)])
+            for p in (0, 1)]
+    acc = 0.0
+    for lo in range(0, ref_re.numel(), SPILL_CHUNK):
+        hi = min(lo + SPILL_CHUNK, ref_re.numel())
+        L = torch.arange(lo, hi, device=dev, dtype=torch.int64)
+        P = torch.zeros_like(L)
+        for q, b in enumerate(log2phys):
+            P |= ((L >> q) & 1) << b
+        for f, ref in zip(full, (ref_re, ref_im)):
+            d = f[P].double() - ref[lo:hi].double()
+            acc += float((d * d).sum())
+    del full
+    return math.sqrt(acc)
+
+
+def _mesh_on(dev, positions: int):
+    from quantum_simulations_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[dev] * positions)
+
+
+def _timed(run, dev) -> float:
+    """Seconds of one warm call (its schedule compiled and cached)."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    out = run()
+    _sync(dev)
+    del out
+    return time.perf_counter() - t0
+
+
+def sharded_window(dev, rec: dict, counts: dict) -> None:
+    """nonstab30 over 8 positions in window mode, then the readout on it
+    (Z strings, measurements) and ghz30's samples; random30 staged (its
+    boundary SWAPs as all_to_all reshards); qft28 in fused mode."""
+    import torch
+
+    from quantum_simulations_tpu_torch import library
+    from quantum_simulations_tpu_torch.circuit import staging
+    from quantum_simulations_tpu_torch.ops import sampling
+    from quantum_simulations_tpu_torch.parallel import executor as E
+    from quantum_simulations_tpu_torch.runtime import simulator
+
+    mesh = _mesh_on(dev, SH_POS)
+    n = NSH
+    label = f"nonstab{n} window"
+    cd = library.non_stabilizer(n, 4, SEED)
+    st, counts[label], wall, moved = sharded_request(
+        label, lambda: E.simulate_sharded(mesh, cd, mode="window"),
+        sharded_want(cd, SH_POS), dev)
+    warm_s = _timed(lambda: E.simulate_sharded(mesh, cd, mode="window"), dev)
+    ref = simulator.simulate(cd, mode="window", device=dev)
+    ref_re, ref_im = ref.real.contiguous(), ref.imag.contiguous()
+    del ref
+    one_s = _timed(lambda: simulator.simulate(cd, mode="window", device=dev), dev)
+    l2 = shard_distance(st, ref_re, ref_im)
+    r = dict(first_ms=wall * 1e3, ms=warm_s * 1e3, one_device_ms=one_s * 1e3,
+             bytes_moved=moved, l2_vs_one_device=l2)
+    log(f"sharded {label} ({SH_POS} positions of 2^{n - 3} on {dev}): "
+        f"{warm_s * 1e3:.3f} ms warm, one device {one_s * 1e3:.3f} ms warm; "
+        f"{moved} bytes handed between positions (references on one card); "
+        f"||psi - psi_one_device||_2="
+        f"{l2:.3e} {'ok' if l2 <= TOL_L2 else 'FAIL'}")
+    rec[label] = r
+    if l2 > TOL_L2:
+        raise AssertionError(f"{label} is off the one-device run: {r}")
+
+    # The readout, on the mesh: against the same sums over the gathered
+    # planes, and against the one-device planes'.
+    full = [torch.cat([st.shards[s][p] for s in range(SH_POS)]) for p in (0, 1)]
+    qs = [0, n - 1]
+    z = sampling.expectation_z_sharded(st, qs)
+    z_full = sampling.expectation_z_planar(*full, qs)
+    z_ref = sampling.expectation_z_planar(ref_re, ref_im, qs)
+    r = dict(z=z, z_gathered=z_full, z_one_device=z_ref)
+    ok = abs(z - z_full) <= TOL_READOUT and abs(z - z_ref) <= TOL_READOUT_ONE
+    for q in (3, n - 1):
+        gen = torch.Generator().manual_seed(q)
+        outcome, post = sampling.measure_qubit_sharded(st, q, gen)
+        p1 = sampling.qubit_probability_sharded(st, q)
+        p1_full = sampling.qubit_probability_planar(*full, q)
+        p1_ref = sampling.qubit_probability_planar(ref_re, ref_im, q)
+        pr, pi = full[0].clone(), full[1].clone()
+        sampling.collapse_planar_(pr, pi, q, outcome)
+        l2q = shard_distance(post, pr, pi)
+        pr.copy_(ref_re)
+        pi.copy_(ref_im)
+        sampling.collapse_planar_(pr, pi, q, outcome)
+        l2q_one = shard_distance(post, pr, pi)
+        del post, pr, pi
+        r[f"measure_q{q}"] = dict(outcome=outcome, p1=p1, p1_gathered=p1_full,
+                                  p1_one_device=p1_ref, l2_collapsed=l2q,
+                                  l2_collapsed_one_device=l2q_one)
+        ok = (ok and abs(p1 - p1_full) <= TOL_READOUT
+              and abs(p1 - p1_ref) <= TOL_READOUT_ONE and l2q <= 1e-6
+              and l2q_one <= TOL_L2)
+    log(f"sharded readout {label}: <Z0 Z{n - 1}>={z:.9f} (gathered "
+        f"{z_full:.9f}, one device {z_ref:.9f}); measure q3 / q{n - 1}: "
+        + "; ".join(
+            f"{k} outcome {v['outcome']} P(1)={v['p1']:.9f} (gathered "
+            f"{v['p1_gathered']:.9f}, one device {v['p1_one_device']:.9f}) "
+            f"||collapsed - gathered collapsed||_2={v['l2_collapsed']:.3e}, "
+            f"- one device's {v['l2_collapsed_one_device']:.3e}"
+            for k, v in r.items() if k.startswith("measure"))
+        + f" {'ok' if ok else 'FAIL'}")
+    rec[f"readout {label}"] = r
+    del st, ref_re, ref_im, full
+    _free(dev)
+    if not ok:
+        raise AssertionError(f"the sharded readout is off: {r}")
+    label = f"ghz{n} window"
+    ghz = library.ghz(n)
+    st, counts[label], wall, moved = sharded_request(
+        label, lambda: E.simulate_sharded(mesh, ghz, mode="window"),
+        sharded_want(ghz, SH_POS), dev)
+    t0 = time.perf_counter()
+    bits = sampling.sample_bits_sharded(st, SHOTS, seed=SEED)
+    sample_s = time.perf_counter() - t0
+    ones = bits.sum(dim=1).tolist()
+    ok = set(ones) == {0, n} and bits.shape == (SHOTS, n)
+    rec[label] = dict(first_ms=wall * 1e3, sample_ms=sample_s * 1e3,
+                      all_ones=ones.count(n), all_zeros=ones.count(0))
+    log(f"sharded readout {label}: {SHOTS} shots in {sample_s * 1e3:.3f} ms, "
+        f"{ones.count(0)} all-0 and {ones.count(n)} all-1, no other "
+        f"{'ok' if ok else 'FAIL'}")
+    del st
+    _free(dev)
+    if not ok:
+        raise AssertionError(f"{label} samples are not GHZ's")
+
+    # random30, staged: the boundary SWAPs reshard as all_to_all.
+    label = f"random{n} window staged"
+    cd = library.random_circuit(n, RANDOM_GATES, seed=9)
+    t0 = time.perf_counter()
+    staged, l2p, _ = staging.stage_circuit(cd, n - 3, method="heuristic")
+    plan_s = time.perf_counter() - t0
+    plan = sharded_want(staged, SH_POS)
+    st, counts[label], wall, moved = sharded_request(
+        label, lambda: E.simulate_sharded(mesh, staged, mode="window"), plan, dev)
+    from quantum_simulations_tpu_torch.parallel import comm
+
+    reshard_bytes = comm.TRAFFIC["all_to_all_bytes"]
+    _sync(dev)
+    t0 = time.perf_counter()
+    ref = simulator.simulate(cd, mode="window", device=dev)
+    _sync(dev)
+    one_s = time.perf_counter() - t0
+    ref_re, ref_im = ref.real.contiguous(), ref.imag.contiguous()
+    del ref
+    l2 = permuted_distance(st, ref_re, ref_im, l2p)
+    ok = l2 <= TOL_L2 and reshard_bytes > 0
+    rec[label] = dict(first_ms=wall * 1e3, one_device_ms=one_s * 1e3,
+                      staging_plan_s=plan_s, bytes_moved=moved,
+                      all_to_all_bytes=reshard_bytes, l2_vs_unstaged=l2)
+    log(f"sharded {label}: staging plan {plan_s:.3f} s; {wall * 1e3:.3f} ms "
+        f"(first call), one device unstaged {one_s * 1e3:.3f} ms (first call); "
+        f"all_to_all {reshard_bytes} of {moved} bytes; after the permutation "
+        f"||psi - psi_unstaged||_2={l2:.3e} {'ok' if ok else 'FAIL'}")
+    del st, ref_re, ref_im
+    _free(dev)
+    if not ok:
+        raise AssertionError(f"{label} is off: {rec[label]}")
+
+    # qft28 fused: cross-shard CRs at zero traffic, the terminal SWAPs
+    # exchanging.
+    label = f"qft{NQ} fused"
+    cd = library.qft(NQ)
+    st, counts[label], wall, moved = sharded_request(
+        label, lambda: E.simulate_sharded(mesh, cd, mode="fused"),
+        sharded_want(cd, SH_POS, "fused"), dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    ref = simulator.simulate(cd, mode="window", device=dev)
+    _sync(dev)
+    one_s = time.perf_counter() - t0
+    l2 = shard_distance(st, ref.real.contiguous(), ref.imag.contiguous())
+    rec[label] = dict(first_ms=wall * 1e3, one_device_window_ms=one_s * 1e3,
+                      bytes_moved=moved, l2_vs_window_one_device=l2)
+    log(f"sharded {label}: {wall * 1e3:.3f} ms, one device (window) "
+        f"{one_s * 1e3:.3f} ms, both first calls; {moved} bytes handed "
+        f"between positions; "
+        f"||psi - psi_window_one_device||_2={l2:.3e} "
+        f"{'ok' if l2 <= TOL_L2 else 'FAIL'}")
+    del st, ref
+    _free(dev)
+    if l2 > TOL_L2:
+        raise AssertionError(f"{label} is off the window run: {rec[label]}")
+
+
+def sharded_capacity(dev, rec: dict, counts: dict) -> None:
+    """qft31 over 2 positions of 2^30 in place: unstaged it raises the
+    capacity ValueError; staged, from a seeded random state, it reshards
+    in the shards' memory and matches the one-device capacity run after
+    the permutation."""
+    import torch
+
+    from quantum_simulations_tpu_torch import library
+    from quantum_simulations_tpu_torch.circuit import staging
+    from quantum_simulations_tpu_torch.parallel import executor as E
+    from quantum_simulations_tpu_torch.parallel.mesh import ShardedState
+    from quantum_simulations_tpu_torch.runtime.capacity import simulate_capacity
+
+    n, k = NSH_CAP, NSH_CAP - 1
+    mesh = _mesh_on(dev, CAP_POS)
+    cd = library.qft(n)
+    label = f"qft{n} capacity staged"
+    try:
+        E.build_circuit_fns(mesh, cd, mode="window", inplace=True)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"qft{n} unstaged in place did not raise")
+    log(f"sharded qft{n} capacity unstaged: ValueError {refused[:96]}... ok")
+    staged, l2p, _ = staging.stage_circuit(cd, k, method="heuristic")
+    plan = sharded_want(staged, CAP_POS, inplace=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    re = torch.randn(1 << n, generator=gen, device=dev)
+    im = torch.randn(1 << n, generator=gen, device=dev)
+    scale = 1.0 / math.sqrt(norm2(re, im))
+    re.mul_(scale)
+    im.mul_(scale)
+    st = ShardedState(mesh, n, {s: (re[s << k:(s + 1) << k].clone(),
+                                    im[s << k:(s + 1) << k].clone())
+                                for s in range(CAP_POS)})
+    steps, fn = E.build_circuit_fns(mesh, staged, mode="window", inplace=True)
+    held = _peak_reset(dev)
+    st, counts[label], wall, moved = sharded_request(
+        label, lambda: fn(st), plan, dev)
+    extra = _peak(dev) - held
+    t0 = time.perf_counter()
+    simulate_capacity(cd, device=dev, initial_planes=(re, im))
+    _sync(dev)
+    one_s = time.perf_counter() - t0
+    l2 = permuted_distance(st, re, im, l2p)
+    shard_plane = 4 << k
+    ok = l2 <= TOL_L2 and extra <= shard_plane
+    rec[label] = dict(first_ms=wall * 1e3, one_device_capacity_ms=one_s * 1e3,
+                      bytes_moved=moved, peak_extra_gib=extra / GIB,
+                      shard_plane_gib=shard_plane / GIB, l2_vs_one_device=l2,
+                      refused=refused)
+    log(f"sharded {label} ({CAP_POS} positions of 2^{k}, in place): "
+        f"{wall * 1e3:.3f} ms (first call), one device {one_s * 1e3:.3f} ms; "
+        f"{moved} bytes resharded; peak {extra / GIB:.3f} GiB above the "
+        f"state (a shard plane: {shard_plane / GIB:.0f} GiB); after the "
+        f"permutation ||psi - psi_one_device||_2={l2:.3e} "
+        f"{'ok' if ok else 'FAIL'}")
+    del st, re, im, fn
+    _free(dev)
+    if not ok:
+        raise AssertionError(f"{label} is off: {rec[label]}")
+
+
+def _runner_script(root: Path, cdfile: Path, wd: Path, dev, positions: int) -> str:
+    return (f"import json, sys; sys.path.insert(0, {str(root)!r}); "
+            f"from quantum_simulations_tpu_torch.parallel.mesh import make_mesh; "
+            f"from quantum_simulations_tpu_torch.runtime import runner; "
+            f"from quantum_simulations_tpu_torch.utils import timing; "
+            f"st = {{}}; runner.run(json.loads(open({str(cdfile)!r}).read()), "
+            f"{str(wd)!r}, mesh=make_mesh(devices=[{str(dev)!r}] * {positions}), "
+            f"mode='window', max_levels_per_step=1, "
+            f"checkpoint_every=int(sys.argv[1]), stats=st); "
+            f"print(json.dumps(dict(st, timers=timing.snapshot()['timers_s'])))")
+
+
+def _gbps(st: dict) -> float:
+    return st["checkpoint_bytes"] / st["checkpoint_s"] / 1e9 if st["checkpoint_s"] else 0.0
+
+
+def sharded_runner(dev, work: Path, rec: dict, counts: dict) -> None:
+    """nonstab28 through the runner on 4 positions, window mode, one level
+    a step: a process crashed by QST_CRASH_AFTER_STEP=1 (after step 0's
+    commit), a fresh process resumes; the committed state equal bit for
+    bit to an uninterrupted run in this process.  Then nonstab30 through
+    ``api.simulate(..., SimulatorConfig(mode="capacity"), work_dir=...)``
+    on one position, within 1e-6 of the capacity tier."""
+    import shutil
+
+    import numpy as np
+
+    from quantum_simulations_tpu_torch import SimulatorConfig, api, library
+    from quantum_simulations_tpu_torch.circuit.fusion import compile_steps
+    from quantum_simulations_tpu_torch.runtime import runner
+    from quantum_simulations_tpu_torch.runtime.capacity import simulate_capacity
+    from quantum_simulations_tpu_torch.utils import timing
+    from quantum_simulations_tpu_torch.utils.transfer import release_pinned_cache
+
+    root = Path(__file__).resolve().parent
+    n = NRUN
+    cd = library.non_stabilizer(n, 4, SEED)
+    total = len(compile_steps(cd, k=n - 2, max_levels_per_step=1))
+    cdfile = work / f"nonstab{n}.json"
+    cdfile.write_text(json.dumps(cd))
+    wd = work / f"nonstab{n}_runner"
+    script = _runner_script(root, cdfile, wd, dev, RUN_POS)
+    env = dict(os.environ, **{runner.CRASH_ENV: "1"})
+    t0 = time.perf_counter()
+    crash = subprocess.Popen([sys.executable, "-c", script, "1"], env=env,
+                             cwd=root, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    # The uninterrupted run goes while the crashing process starts up
+    # (imports, card context): its checkpoint is written before the other
+    # process reaches its first.
+    label = f"nonstab{n} runner window"
+    st: dict = {}
+    mesh = _mesh_on(dev, RUN_POS)
+    try:
+        _, counts[label], wall, moved = sharded_request(
+            label, lambda: runner.run(cd, work / "uninterrupted", mesh=mesh,
+                                      mode="window", max_levels_per_step=1,
+                                      use_wal=False, stats=st),
+            sharded_want(cd, RUN_POS, max_levels=1), dev)
+        crash_err = crash.communicate(timeout=600)[1]
+    finally:
+        if crash.poll() is None:
+            crash.kill()
+            crash.wait()
+    crash_s = time.perf_counter() - t0
+    done = json.loads((wd / "wal.json").read_text())["done_steps"]
+    env.pop(runner.CRASH_ENV)
+    t0 = time.perf_counter()
+    resume = subprocess.run([sys.executable, "-c", script, str(total)], env=env,
+                            cwd=root, capture_output=True, text=True, timeout=600)
+    resume_s = time.perf_counter() - t0
+    if crash.returncode != 1 or resume.returncode != 0:
+        raise AssertionError(f"runner crash {crash.returncode} / resume "
+                             f"{resume.returncode}:\n{crash_err}\n{resume.stderr}")
+    resumed = json.loads(resume.stdout.strip().splitlines()[-1])
+    a = runner.collect_state(wd)
+    b = runner.collect_state(work / "uninterrupted")
+    equal = bool(np.array_equal(a, b))
+    del a, b
+    r = dict(steps=total, done_steps_at_crash=done, crash_run_s=crash_s,
+             resume_run_s=resume_s, resume_stats=resumed, uninterrupted_s=wall,
+             uninterrupted_stats=st, bit_equal=equal,
+             checkpoint_gbps=_gbps(st), resume_checkpoint_gbps=_gbps(resumed))
+    ok = equal and done == 1
+    log(f"sharded {label} ({RUN_POS} positions, {total} steps of one level): "
+        f"crashed after step 1's buffer in {crash_s:.3f} s (WAL done_steps="
+        f"{done}; the uninterrupted run beside its start-up), resumed in a "
+        f"fresh process in {resume_s:.3f} s (its buffer read, checked and "
+        f"uploaded in {resumed['resume_s']:.3f} s, compile "
+        f"{resumed['timers'].get('runner.compile', 0.0):.3f} s, "
+        f"{resumed['checkpoints']} checkpoint, {resumed['checkpoint_s']:.3f} s, "
+        f"{_gbps(resumed):.3f} GB/s); uninterrupted {wall:.3f} s with "
+        f"{st['checkpoints']} checkpoint of {st['checkpoint_bytes'] / GIB:.3f} "
+        f"GiB in {st['checkpoint_s']:.3f} s ({_gbps(st):.3f} GB/s: copy to the "
+        f"host, sha256, write, fsync); collect_state bit-equal {equal} "
+        f"{'ok' if ok else 'FAIL'}")
+    rec[label] = r
+    shutil.rmtree(wd, ignore_errors=True)
+    shutil.rmtree(work / "uninterrupted", ignore_errors=True)
+    if not ok:
+        raise AssertionError(f"{label} crash / resume is off: {r}")
+
+    n = NRUN_CAP
+    cd = library.non_stabilizer(n, 4, SEED)
+    label = f"nonstab{n} runner capacity"
+    wd = work / f"nonstab{n}_capacity"
+    timing.reset()
+    psi, counts[label], wall, _ = sharded_request(
+        label, lambda: api.simulate(cd, SimulatorConfig(mode="capacity"),
+                                    work_dir=wd, device=dev),
+        sharded_want(cd, 1, inplace=True), dev)
+    ck_s = timing.snapshot()["timers_s"].get("runner.checkpoint", 0.0)
+    ck_bytes = sum(p.stat().st_size for p in wd.glob("state_*.npy"))
+    cap = simulate_capacity(cd, device=dev)
+    l2 = host_distance(psi, dev, lambda lo, hi: (cap.re[lo:hi], cap.im[lo:hi]))
+    del psi, cap
+    shutil.rmtree(wd, ignore_errors=True)
+    _free(dev)
+    release_pinned_cache()
+    ok = l2 <= TOL_CAPACITY
+    rec[label] = dict(wall_s=wall, checkpoint_s=ck_s, checkpoint_bytes=ck_bytes,
+                      checkpoint_gbps=ck_bytes / ck_s / 1e9 if ck_s else 0.0,
+                      l2_vs_capacity=l2)
+    log(f"sharded {label}: {wall:.3f} s through api.simulate(work_dir=...) "
+        f"with its checkpoint of {ck_bytes / GIB:.3f} GiB in {ck_s:.3f} s "
+        f"({rec[label]['checkpoint_gbps']:.3f} GB/s) and the read-back; "
+        f"||psi - psi_capacity||_2={l2:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} is off the capacity tier: {rec[label]}")
+
+
+def sharded_pod(dev, work: Path, rec: dict, counts: dict) -> None:
+    """nonstab28 in window mode on a pod of 2 processes x 2 positions, over
+    gloo with each card piece staged through host memory, both processes
+    on this card (``parallel.pod_worker``): every shard's sha256 equal to
+    the in-process 4-position run's (made while the pod's processes
+    start), the launches summed over the processes the plan's, and the
+    host-staged exchange's bytes and seconds."""
+    from quantum_simulations_tpu_torch import library
+    from quantum_simulations_tpu_torch.parallel import executor as E
+    from quantum_simulations_tpu_torch.parallel.pod_worker import shard_digests
+
+    root = Path(__file__).resolve().parent
+    n, positions = NRUN, POD_PROCS * POD_POS
+    cd = library.non_stabilizer(n, 4, SEED)
+    cdfile = work / f"nonstab{n}.json"
+    cdfile.write_text(json.dumps(cd))
+    plan = sharded_want(cd, positions)
+    store = work / "pod_store"
+    procs = []
+    t0 = time.perf_counter()
+    for i in range(POD_PROCS):
+        env = dict(os.environ, QST_COORDINATOR=f"file://{store}",
+                   QST_NUM_PROCESSES=str(POD_PROCS), QST_PROCESS_ID=str(i),
+                   QST_DIST_BACKEND="gloo", QST_DIST_TIMEOUT="300")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "quantum_simulations_tpu_torch.parallel.pod_worker",
+             str(cdfile), "--devices", str(positions), "--mode", "window",
+             "--device", str(dev)], env=env, cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        # The in-process reference runs while the pod's processes start.
+        label = f"nonstab{n} window {positions} positions"
+        st, counts[label], wall, moved = sharded_request(
+            label, lambda: E.simulate_sharded(_mesh_on(dev, positions), cd,
+                                              mode="window"), plan, dev)
+        want = {str(s): h for s, h in shard_digests(st).items()}
+        del st
+        _free(dev)
+        for p in procs:
+            outs.append(p.communicate(timeout=600))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    pod_s = time.perf_counter() - t0
+    if any(p.returncode for p in procs):
+        raise AssertionError("the pod failed:\n" + "\n".join(e for _, e in outs))
+    got = json.loads(outs[0][0])
+    ex = got["exchange"]
+    run_s = max(got["run_s_by_process"])
+    remote_gbps = ex["remote_bytes"] / ex["remote_s"] / 1e9 if ex["remote_s"] else 0.0
+    equal = got["shards_sha256"] == want
+    ok = equal and got["launches"] == plan[0] and got["processes"] == POD_PROCS
+    rec[f"pod {label}"] = dict(
+        wall_s=pod_s, run_s=run_s, in_process_first_ms=wall * 1e3,
+        bit_equal=equal,
+        launches=got["launches"], exchange=got["exchange_by_process"],
+        remote_gbps=remote_gbps)
+    log(f"sharded pod {POD_PROCS} processes x {POD_POS} positions of "
+        f"nonstab{n} window (gloo, host-staged, one card): {pod_s:.3f} s for "
+        f"both processes, {run_s:.3f} s of it from the mesh to the result "
+        f"(the in-process run: {wall:.3f} s); launches {got['launches']}; "
+        f"process 0 moved {ex['remote_bytes']} bytes across processes in "
+        f"{ex['remote_s']:.3f} s ({remote_gbps:.3f} GB/s); every shard's "
+        f"sha256 equal to the in-process run's: {equal} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the pod run is off: {rec[f'pod {label}']}")
+
+
+def sharded_cli(dev, work: Path, rec: dict) -> None:
+    """The CLI in this process: ``run ghz28.json --work-dir wd`` twice (the
+    second resumes a finished run: the same output, the WAL as it was),
+    ``placement --devices 1 --qubits 28`` (exit 0) and ``run ghz28.json
+    --devices 2`` (exit 1, naming the one card found)."""
+    import contextlib
+    import io
+
+    from quantum_simulations_tpu_torch import library
+    from quantum_simulations_tpu_torch.__main__ import main as cli_main
+
+    path = work / f"ghz{NRUN}.json"
+    path.write_text(json.dumps(library.ghz(NRUN)))
+    wd = work / "cli_wd"
+
+    def cli(argv):
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            code = cli_main(argv + ["--device", dev.type])
+        return code, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+    runs = []
+    for _ in range(2):
+        runs.append(cli(["run", str(path), "--work-dir", str(wd), "--top", "2"]))
+        runs[-1] += (json.loads((wd / "wal.json").read_text()),)
+    top = json.loads(runs[0][1])["top"]
+    code_p, out_p, _, place_s = cli(["placement", "--devices", "1", "--qubits",
+                                     str(NRUN)])
+    place = json.loads(out_p)
+    code_d, _, err_d, _ = cli(["run", str(path), "--devices", "2"])
+    name = __import__("torch").cuda.get_device_name(0) if dev.type == "cuda" else ""
+    ok = (runs[0][0] == runs[1][0] == 0 and runs[0][1] == runs[1][1]
+          and runs[0][4] == runs[1][4]
+          and [i for i, _ in top] == ["0x0", hex((1 << NRUN) - 1)]
+          and all(abs(p - 0.5) <= 1e-6 for _, p in top)
+          and code_p == 0 and place["invariants"]["ok"]
+          and place["sharded_array_check"]["ok"]
+          and code_d == 1 and "need 2 devices, have" in err_d and name in err_d)
+    rec[f"cli ghz{NRUN}"] = dict(run_s=runs[0][3], resume_s=runs[1][3], top=top,
+                                 placement_s=place_s, placement_exit=code_p,
+                                 devices2_exit=code_d,
+                                 devices2_error=err_d.strip())
+    log(f"sharded cli run ghz{NRUN}.json --work-dir: {runs[0][3]:.3f} s, top "
+        f"{top}; again (a finished run: no step) {runs[1][3]:.3f} s, the same "
+        f"output and WAL {runs[0][4]}; placement --devices 1 --qubits {NRUN}: "
+        f"exit {code_p} in {place_s:.3f} s; run --devices 2: exit {code_d}, "
+        f"{err_d.strip()!r} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the CLI's sharded / runner flags are off: "
+                             f"{rec[f'cli ghz{NRUN}']}")
+
+
+def sharded_tier(dev) -> dict:
+    """Phase 8: the sharded tier's and the runner's requests; returns their
+    launch counts."""
+    import shutil
+
+    _free(dev)
+    t0 = time.perf_counter()
+    work = Path(__file__).resolve().parent / "build" / "chip_smoke_sharded"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rec: dict = {}
+    counts: dict = {}
+    log(f"sharded phase 8: host MemAvailable "
+        f"{meminfo()['MemAvailable'] / GIB:.1f} GiB")
+    parts = {"window": lambda: sharded_window(dev, rec, counts),
+             "capacity": lambda: sharded_capacity(dev, rec, counts),
+             "runner": lambda: sharded_runner(dev, work, rec, counts),
+             "pod": lambda: sharded_pod(dev, work, rec, counts),
+             "cli": lambda: sharded_cli(dev, work, rec)}
+    try:
+        for name, part in parts.items():
+            part()
+            rec[f"{name}_done_s"] = time.perf_counter() - t0
+            log(f"sharded phase 8: {name} done at {rec[name + '_done_s']:.3f} s")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t0
+    log(f"sharded phase 8: {rec['phase_s']:.3f} s; card {card_line() if dev.type == 'cuda' else dev}")
+    RECORD["sharded"] = dict(launches=counts, **rec)
+    return counts
+
+
 def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
     """One record per kernel: its launches in the request that runs it
     (a panel's "+diag" and "+rotate" launches included; the requests
@@ -2922,6 +3713,7 @@ def main() -> int:
     counts.update(capacity33(dev))
     counts.update(tiers(dev))
     counts.update(spill_tier(dev))
+    counts.update(sharded_tier(dev))
     kernels = kernels_line(counts, rows, worst)
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -14,10 +14,13 @@ place, their readout, the out-of-core spill tier (the state in host DRAM
 or disk chunks, streamed through the card in stripes; WAL and crash
 recovery on disk; Atlas staging), the sparse tier (COO on the card;
 bigint indices on the host), the adaptive sparse -> dense tier, the
-trajectory tier (RESET / mid-circuit MEASURE / ``if``), the numpy and
-native C++ oracles (``oracle``), and the CLI (``python -m
-quantum_simulations_tpu_torch`` ``run`` / ``sample`` / ``stats`` /
-``export``); see ROADMAP.md for what follows.
+trajectory tier (RESET / mid-circuit MEASURE / ``if``), the sharded tier
+(a mesh of positions over cards, processes or one card; ``parallel/``),
+the WAL runner with checkpoints and crash recovery
+(``runtime/runner.py``), the numpy and native C++ oracles (``oracle``),
+and the CLI (``python -m quantum_simulations_tpu_torch`` ``run`` /
+``sample`` / ``stats`` / ``export`` / ``placement``); see ROADMAP.md for
+what follows.
 """
 from .circuit.contract import (
     ENDIANNESS,

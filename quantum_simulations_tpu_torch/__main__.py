@@ -10,14 +10,21 @@ output).
     python -m quantum_simulations_tpu_torch sample circuit.qasm --shots 100
     python -m quantum_simulations_tpu_torch stats circuit.json
     python -m quantum_simulations_tpu_torch export circuit.json --format qasm|dot|json
+    python -m quantum_simulations_tpu_torch run circuit.json --devices 8 [--mode window]
+    python -m quantum_simulations_tpu_torch run circuit.json --work-dir wd \
+        [--checkpoint-every 2] [--step-levels 1]
+    python -m quantum_simulations_tpu_torch placement [--devices 8] [--qubits 30]
 
 Circuit files are contract JSON dicts or OpenQASM 2.0 (.qasm).  Runs on
 the card; ``--device cpu`` runs the kernels' plain torch twins on the
 CPU.  ``--stripe-qubits`` runs the out-of-core spill tier (host DRAM, or
 with ``--spill-backend disk`` chunk files under ``--work-dir``, which it
-then needs, as in the reference).  Flags of the tiers the port does not
-run yet (``--devices`` > 1, ``--work-dir`` without disk spill) exit with
-status 1 and the API's ``NotImplementedError`` text.
+then needs, as in the reference).  ``--devices`` > 1 runs the sharded
+tier over that many cards (positions on the CPU with ``--device cpu``;
+fewer cards than asked: exit status 1, naming the cards found);
+``--work-dir`` alone runs the WAL runner (a rerun resumes).
+``placement`` prints the mesh's placement report and exits 0 when its
+invariants and the check of a state placed on it hold, else 1.
 """
 from __future__ import annotations
 
@@ -95,6 +102,16 @@ def _parser() -> argparse.ArgumentParser:
                           choices=["qasm", "dot", "json"])
     p_export.add_argument("--partitions", type=int, default=None,
                           help="dot only: cluster by partition()")
+
+    p_place = sub.add_parser(
+        "placement",
+        help="shard-placement report + invariant checks over the device "
+             "mesh (distribution verifier)")
+    p_place.add_argument("--devices", type=int, default=None)
+    p_place.add_argument("--qubits", type=int, default=None)
+    p_place.add_argument("--device", default="cuda",
+                         help="'cuda' (the cards) or 'cpu' (positions on "
+                              "the CPU)")
     return ap
 
 
@@ -157,6 +174,21 @@ def _sparse_summary(st, top: int) -> dict:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
+    from .parallel.mesh import MeshError
+
+    if args.cmd == "placement":
+        from .parallel.placement import main as placement_main
+
+        try:
+            rep = placement_main(n_devices=args.devices, n=args.qubits,
+                                 device=args.device)
+        except MeshError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        print(json.dumps(rep, indent=1))
+        return 0 if (rep["invariants"]["ok"]
+                     and rep["sharded_array_check"]["ok"]) else 1
+
     cd = _load_circuit(args.circuit, trajectory=args.trajectory)
     if args.cmd == "export":
         _export(cd, args.format, args.partitions)
@@ -185,20 +217,33 @@ def main(argv=None) -> int:
                 print("".join(str(int(b)) for b in row[::-1]))  # q_{n-1}...q_0
             return 0
         result = api.run(cd, cfg, work_dir=args.work_dir, device=args.device)
-    except NotImplementedError as e:
+    except MeshError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
     if hasattr(result, "summary"):  # capacity tier: planar readout
         print(json.dumps(result.summary(args.top), indent=1))
     elif hasattr(result, "top_amplitudes"):  # stayed sparse (incl. auto)
         print(json.dumps(_sparse_summary(result, args.top), indent=1))
-    else:  # a dense state: a tensor, or the spill tier's host array
-        import torch
-
-        if not isinstance(result, torch.Tensor):
-            result = torch.from_numpy(result)
-        print(json.dumps(_dense_summary(result, args.top), indent=1))
+    else:  # a dense state: a tensor, or a host array (spill, sharded, runner)
+        print(json.dumps(_dense_summary(_summary_tensor(result, args.device),
+                                        args.top), indent=1))
     return 0
+
+
+def _summary_tensor(result, device):
+    """The state to summarise: a tensor as it is; a host array moved to
+    the card when the card has room for it and its probabilities (the
+    summary of 2^28 amplitudes takes seconds on the host's cores), else
+    left on the host."""
+    import torch
+
+    if isinstance(result, torch.Tensor):
+        return result
+    psi = torch.from_numpy(result)
+    dev = torch.device(device)
+    if dev.type == "cuda" and 2 * psi.nbytes < torch.cuda.mem_get_info(dev)[0]:
+        return psi.to(dev)
+    return psi
 
 
 if __name__ == "__main__":

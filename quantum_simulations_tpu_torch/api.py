@@ -1,15 +1,17 @@
-"""High-level user API of the port: the dense single-device tier (modes
-fused, panel, window and auto), the capacity tier, the out-of-core spill
-tier, the sparse and adaptive sparse tiers, and the trajectory tier.
+"""High-level user API of the port: one facade over every tier.
 
-Routes like ``quantum_simulations_tpu/api.py`` (:39-99): a circuit with
-RESET / mid-circuit MEASURE / ``if`` goes to the trajectory tier
-(seeded by ``trajectory_seed``), ``sparse="auto"`` to the adaptive
-tier, ``sparse=True`` to the sparse tier, then the capacity tier, the
-spill tier (``stripe_qubits`` set: the state in host DRAM or disk
-chunks, streamed through the card) and the dense tier.  The tiers the
-port has not reached yet (the WAL runner, sharded runs) raise
-``NotImplementedError`` naming the tier.
+Routes like ``quantum_simulations_tpu/api.py``: a circuit with RESET /
+mid-circuit MEASURE / ``if`` goes to the trajectory tier (seeded by
+``trajectory_seed``), ``sparse="auto"`` to the adaptive tier,
+``sparse=True`` to the sparse tier, then the single-device capacity tier,
+the spill tier (``stripe_qubits`` set: the state in host DRAM or disk
+chunks, streamed through the card), the sharded tier (``n_devices`` > 1:
+a mesh of that many cards, or positions on the CPU with
+``device="cpu"``) and the WAL runner (``work_dir``: checkpoints, crash
+recovery; capacity with a ``work_dir`` is the runner in place), and last
+the dense single-device tier (modes fused, panel, window and auto).
+Sharded ``sample`` and ``expectation_z`` read out on the mesh, with no
+gather of the 2^n vector.
 
 .. code-block:: python
 
@@ -26,6 +28,9 @@ port has not reached yet (the WAL runner, sharded runs) raise
         stripe_qubits=28))             # 64 GiB in host DRAM, 2 GiB stripes
     psi = api.simulate(library.qft(20), SimulatorConfig(
         stripe_qubits=16, spill_backend="disk"), work_dir="wd")
+    psi = api.simulate(library.qft(20), SimulatorConfig(
+        n_devices=8, mode="window"), device="cpu")   # 8 positions
+    psi = api.simulate(library.qft(20), work_dir="wd")  # WAL + checkpoints
 """
 from __future__ import annotations
 
@@ -36,33 +41,36 @@ from .circuit.contract import has_nonunitary, validate_circuit_dict
 from .utils.config import SimulatorConfig
 
 
-def _tier(name: str, cfg: SimulatorConfig) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {name} tier is not ported yet (mode={cfg.mode!r}): the port "
-        f"runs the dense-tier modes (fused, panel, window, auto) on one "
-        f"device, the capacity tier, the out-of-core spill tier, the sparse "
-        f"and adaptive sparse tiers and the trajectory tier")
+def _wants_capacity(cfg: SimulatorConfig, n: int) -> bool:
+    return cfg.mode == "capacity" or (cfg.mode == "auto" and n >= 29)
 
 
 def _is_capacity(cfg: SimulatorConfig, n: int, work_dir=None) -> bool:
     """The reference's single-chip capacity route (api.py:76-85)."""
-    capacity = cfg.mode == "capacity" or (cfg.mode == "auto" and n >= 29)
-    return (capacity and not cfg.sparse and cfg.stripe_qubits is None
-            and (cfg.n_devices or 1) == 1 and work_dir is None)
+    return (_wants_capacity(cfg, n) and not cfg.sparse
+            and cfg.stripe_qubits is None and (cfg.n_devices or 1) == 1
+            and work_dir is None)
 
 
-def _unported(circuit_dict: dict, cfg: SimulatorConfig, work_dir=None):
-    """The error of a tier the port does not run yet, or None."""
-    if has_nonunitary(circuit_dict) or cfg.sparse:
-        return None
-    n = validate_circuit_dict(circuit_dict)["number_of_qubits"]
-    if _is_capacity(cfg, n, work_dir) or cfg.stripe_qubits is not None:
-        return None
-    if work_dir is not None:
-        return _tier("runner (WAL)", cfg)
-    if (cfg.n_devices or 1) > 1:
-        return _tier("sharded", cfg)
-    return None
+def _sharded_mode(cfg: SimulatorConfig) -> str:
+    """The sharded tier's mode: window, else fused (the reference's)."""
+    return "window" if cfg.mode == "window" else "fused"
+
+
+def _on_mesh(cfg: SimulatorConfig) -> bool:
+    """Whether a readout stays on the mesh (the reference's rule)."""
+    return ((cfg.n_devices or 1) > 1 and not cfg.sparse
+            and cfg.stripe_qubits is None)
+
+
+def _simulate_sharded(cd: dict, cfg: SimulatorConfig, device):
+    from .parallel import executor as E
+    from .parallel import mesh as M
+
+    mesh = M.make_mesh(cfg.n_devices, device=device)
+    return E.simulate_sharded(
+        mesh, cd, dtype=cfg.dtype, use_fusion=cfg.use_fusion,
+        panel_width=cfg.panel_width, mode=_sharded_mode(cfg))
 
 
 def run(circuit_dict: dict, cfg: SimulatorConfig, *, work_dir=None,
@@ -71,11 +79,10 @@ def run(circuit_dict: dict, cfg: SimulatorConfig, *, work_dir=None,
     trajectory, dense and switched adaptive tiers' final state as a
     complex tensor on ``device``, the capacity tier's ``CapacityResult``,
     the spill tier's host numpy state (read back from the disk chunks
-    for ``spill_backend="disk"``, which needs ``work_dir``), or the
-    sparse tiers' ``SparseState`` (host dict)."""
-    err = _unported(circuit_dict, cfg, work_dir)
-    if err is not None:
-        raise err
+    for ``spill_backend="disk"``, which needs ``work_dir``), the sharded
+    tier's and the runner's host numpy state (gathered, or read from the
+    committed checkpoint), or the sparse tiers' ``SparseState`` (host
+    dict)."""
     if has_nonunitary(circuit_dict):
         from .runtime.trajectory import simulate_trajectory
 
@@ -123,6 +130,27 @@ def run(circuit_dict: dict, cfg: SimulatorConfig, *, work_dir=None,
         if cfg.spill_backend == "disk":
             return spill.collect_state(out)
         return out
+
+    n = cd["number_of_qubits"]
+    if (cfg.n_devices or 1) > 1 or work_dir is not None:
+        from .parallel import executor as E
+        from .parallel import mesh as M
+        from .runtime import runner
+
+        if work_dir is None:
+            return E.collect_state(_simulate_sharded(cd, cfg, device))
+        runner.run(
+            cd, work_dir, mesh=M.make_mesh(cfg.n_devices or 1, device=device),
+            dtype=cfg.dtype,
+            mode=("capacity" if _wants_capacity(cfg, n)
+                  else _sharded_mode(cfg)),
+            use_wal=cfg.use_wal, use_fencing=cfg.use_fencing,
+            use_fusion=cfg.use_fusion, panel_width=cfg.panel_width,
+            use_staging=cfg.use_staging, staging_method=cfg.staging_method,
+            checkpoint_every=cfg.checkpoint_every,
+            max_levels_per_step=cfg.max_levels_per_step,
+            event_log=cfg.event_log)
+        return runner.collect_state(work_dir)
 
     from .runtime import simulator
 
@@ -174,14 +202,19 @@ def sample(circuit_dict: dict, shots: int, *, seed: int = 0,
     ``torch.Generator`` seeded by ``seed``, and so is the spill tier's
     host state once moved to ``device`` (the reference's readout); a
     ``SparseState`` samples over its nonzeros (numpy, the reference's
-    bits), the capacity tier from its planes."""
+    bits), the capacity tier from its planes, the sharded tier on the
+    mesh (``sampling.sample_bits_sharded``)."""
     from .ops import sampling
 
+    cfg = config or SimulatorConfig()
     n = validate_circuit_dict(
         circuit_dict, allow_nonunitary=has_nonunitary(circuit_dict),
     )["number_of_qubits"]
-    res = _on_device(run(circuit_dict, config or SimulatorConfig(),
-                         device=device), device)
+    if _on_mesh(cfg) and not has_nonunitary(circuit_dict):
+        return sampling.sample_bits_sharded(
+            _simulate_sharded(circuit_dict, cfg, device), shots,
+            seed).numpy()
+    res = _on_device(run(circuit_dict, cfg, device=device), device)
     if isinstance(res, torch.Tensor):
         gen = torch.Generator(device=res.device).manual_seed(seed)
         return sampling.sample_bits(res, gen, shots, n).cpu().numpy()
@@ -194,8 +227,11 @@ def expectation_z(circuit_dict: dict, qubits: list[int],
     """<Z_q1 Z_q2 ...> of the circuit's final state."""
     from .ops import sampling
 
-    res = _on_device(run(circuit_dict, config or SimulatorConfig(),
-                         device=device), device)
+    cfg = config or SimulatorConfig()
+    if _on_mesh(cfg):
+        return sampling.expectation_z_sharded(
+            _simulate_sharded(circuit_dict, cfg, device), qubits)
+    res = _on_device(run(circuit_dict, cfg, device=device), device)
     if isinstance(res, torch.Tensor):
         return sampling.expectation_z(res, qubits)
     return res.expectation_z(qubits)

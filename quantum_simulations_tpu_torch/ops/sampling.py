@@ -310,3 +310,117 @@ def fidelity(a: torch.Tensor, b: torch.Tensor) -> float:
     """|<a|b>| — phase-invariant overlap."""
     return float(torch.vdot(a.reshape(-1), b.reshape(-1)).abs())
 
+
+
+# ---------------------------------------------------------------------------
+# The sharded readout: a ``parallel.mesh.ShardedState``, never gathered
+# ---------------------------------------------------------------------------
+
+def expectation_z_sharded(state, qubits) -> float:
+    """<Z...Z> on a sharded state: per-shard partial sums over the local
+    bits' parities, each signed by the parity of its position's mesh
+    bits, summed over the mesh (``comm.psum``).  No gather of the 2^n
+    vector."""
+    from ..parallel import comm
+
+    k = state.k
+    lo = [q for q in qubits if q < k]
+    hi_mask = sum(1 << (q - k) for q in qubits if q >= k)
+    parts = {s: expectation_z_planar(re, im, lo)
+             * (-1.0 if bin(s & hi_mask).count("1") & 1 else 1.0)
+             for s, (re, im) in state.shards.items()}
+    return comm.psum(state.mesh, parts)
+
+
+def qubit_probability_sharded(state, q: int) -> float:
+    """P(qubit q = 1) on a sharded state: a local qubit sums its half of
+    each shard, a mesh qubit the shards whose bit is 1."""
+    from ..parallel import comm
+
+    k = state.k
+    parts = {s: (qubit_probability_planar(re, im, q) if q < k
+                 else norm2_planar(re, im) * ((s >> (q - k)) & 1))
+             for s, (re, im) in state.shards.items()}
+    return comm.psum(state.mesh, parts)
+
+
+def project_sharded(state, q: int, value: int, *, renormalize: bool = True):
+    """Collapse qubit q onto |value> (a new sharded state): a local qubit
+    zeroes the other half of each shard, a mesh qubit whole shards."""
+    from ..parallel import comm
+    from ..parallel.mesh import ShardedState
+
+    k = state.k
+    out = {}
+    for s, (re, im) in state.shards.items():
+        if q < k:
+            planes = []
+            for pl in (re, im):
+                x = torch.zeros_like(pl)
+                x.view(-1, 2, 1 << q)[:, value] = pl.view(-1, 2, 1 << q)[:, value]
+                planes.append(x)
+            out[s] = tuple(planes)
+        elif ((s >> (q - k)) & 1) == value:
+            out[s] = (re.clone(), im.clone())
+        else:
+            out[s] = (torch.zeros_like(re), torch.zeros_like(im))
+    if renormalize:
+        n2 = comm.psum(state.mesh, {s: norm2_planar(*pl)
+                                    for s, pl in out.items()})
+        for re, im in out.values():
+            re.div_(n2 ** 0.5)
+            im.div_(n2 ** 0.5)
+    return ShardedState(state.mesh, state.n, out)
+
+
+def measure_qubit_sharded(state, q: int, generator: torch.Generator):
+    """Projective measurement on the mesh; (outcome, collapsed state).
+    ``generator`` is seeded alike on every rank, so the outcome is the
+    same everywhere without a broadcast (``u < P(1)``, u a float64
+    uniform)."""
+    p1 = qubit_probability_sharded(state, q)
+    u = float(torch.rand((), generator=generator, dtype=torch.float64,
+                         device=generator.device))
+    outcome = int(u < p1)
+    return outcome, project_sharded(state, q, outcome)
+
+
+def _fold_in(seed: int, position: int) -> int:
+    """A seed for position ``position``'s draws (the reference's
+    ``fold_in`` of its key)."""
+    import numpy as np
+
+    return int(np.random.SeedSequence([seed, position]).generate_state(
+        1, np.uint64)[0] >> 1)
+
+
+def sample_bits_sharded(state, shots: int, seed: int = 0) -> torch.Tensor:
+    """Bitstring samples from a sharded state; (shots, n) int8 on the
+    host, column q = qubit q.
+
+    Hierarchical, as the reference: each position's total probability
+    (``comm.all_gather`` of D scalars) picks the owning shard of each
+    shot, from one host generator seeded by ``seed`` on every rank (so
+    every rank makes the same picks); then each position draws its shots
+    from its own 2^k amplitudes by the hierarchical inverse CDF
+    (``_sample_planar``), from a generator seeded by (seed, position).
+    The ranks' rows are summed (each row is filled by one rank).  No
+    position sees more than its own shard."""
+    from ..parallel import comm
+
+    mesh, k = state.mesh, state.k
+    totals = comm.all_gather(mesh, {s: norm2_planar(*pl)
+                                    for s, pl in state.shards.items()})
+    pick = torch.Generator().manual_seed(seed)
+    choice = torch.multinomial(torch.tensor(totals, dtype=torch.float64),
+                               shots, replacement=True, generator=pick)
+    idx = torch.zeros(shots, dtype=torch.int64)
+    for s, (re, im) in state.shards.items():
+        rows = (choice == s).nonzero().flatten()
+        if rows.numel():
+            gen = torch.Generator(device=re.device).manual_seed(
+                _fold_in(seed, s))
+            local = _sample_planar(re, im, gen, rows.numel(), k)
+            idx[rows] = local.cpu() | (s << k)
+    comm.all_sum_(mesh, idx)
+    return index_bits(idx, state.n)

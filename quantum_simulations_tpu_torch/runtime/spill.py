@@ -26,6 +26,14 @@ before group k's download is waited for, so PCIe both ways and the
 card's compute overlap; ``pipeline=False`` uploads, computes and waits
 for each group before the next, with the same result bit for bit.
 
+``mesh`` (the reference's distributed out-of-core composition) shards
+every stripe group over the positions of a mesh in this process: each
+position holds, for every member stripe, its 2^(m-d) sub-block, so stripe
+bits [0, m-d) stay shard-local, bits [m-d, m) are mesh bits (the
+XOR-offset exchange of ``ops/exchange.apply_nonlocal``) and stripe-index
+bits are stacked as above (:func:`_remap_ops_mesh`).  Each group goes up,
+runs and comes down before the next.
+
 Durability (disk backend): the same step-WAL + a/b double buffer as the
 reference; ``QST_CRASH_AFTER_STRIPE`` hard-kills after N+1 stripe writes
 (a stripe counts as written once its bytes are on the host and, on disk,
@@ -68,6 +76,72 @@ def _remap_ops(step: Step, m: int, bits: list[int]) -> list:
         qs = tuple(q if q < m else pos[q - m] for q in op.qubits)
         out.append(GateOp(qubits=qs, U=op.U, name=op.name))
     return out
+
+
+def _remap_ops_mesh(step: Step, m: int, bits: list[int], d: int) -> list:
+    """Step ops in the SHARDED stacked frame (distributed out-of-core).
+
+    The stacked group of 2^r stripes is held as 2^d shards, each holding
+    every member's contiguous 2^(m-d) sub-block, so the per-shard bit
+    layout is
+
+        [0, m-d)            stripe-local bits   (global qubits 0..m-d)
+        [m-d, m-d+r)        host group bits     (global qubits m+bits[t])
+        >= k_eff = m-d+r    mesh bits           (global qubits m-d..m)
+
+    Host-group gates become plain local gates; mesh-bit gates keep qubits
+    >= k_eff, so ``exchange.apply_nonlocal`` sees mesh bit ``q - k_eff``.
+    """
+    lo = m - d
+    k_eff = lo + len(bits)
+    pos = {b: lo + t for t, b in enumerate(bits)}
+
+    def remap(q: int) -> int:
+        if q < lo:
+            return q
+        if q >= m:
+            return pos[q - m]
+        return k_eff + (q - lo)  # mesh bit
+
+    out = []
+    for op in list(step.local_ops) + list(step.nonlocal_ops):
+        if isinstance(op, GateOp):
+            out.append(GateOp(qubits=tuple(remap(q) for q in op.qubits),
+                              U=op.U, name=op.name))
+        else:  # LowPanelOp: qubits all < panel width <= m-d
+            out.append(op)
+    return out
+
+
+def _run_group_mesh(mesh, members: list, src, m: int, k_eff: int, ops: list,
+                    fdtype, plain: bool) -> list:
+    """One stripe group through the mesh: each position's shard (its
+    sub-block of every member, in member order) goes up as planes, the
+    ops run (mesh-bit gates by the XOR-offset exchange, the rest on each
+    shard as fused mode's passes), and each member stripe comes back
+    assembled from the positions' sub-blocks (host arrays, in order)."""
+    from ..ops import exchange
+
+    sub = 1 << (m - (mesh.size.bit_length() - 1))
+    shards = {}
+    for s in mesh.local:
+        host = np.concatenate([src.read(t)[s * sub:(s + 1) * sub]
+                               for t in members])
+        x = torch.from_numpy(host).to(mesh.device(s))
+        shards[s] = (x.real.to(fdtype).contiguous(),
+                     x.imag.to(fdtype).contiguous())
+    for op, prepared in ops:
+        if isinstance(op, GateOp) and max(op.qubits) >= k_eff:
+            shards = exchange.apply_nonlocal(mesh, shards, k_eff, op.qubits,
+                                             op.U)
+        else:
+            for s in mesh.local:
+                shards[s] = simulator.apply_panel_op(
+                    *shards[s], prepared[mesh.device(s)], plain=plain)
+    parts = {s: torch.complex(*shards[s]).cpu().numpy().reshape(len(members), sub)
+             for s in mesh.local}
+    return [np.concatenate([parts[s][j] for s in mesh.local])
+            for j in range(len(members))]
 
 
 def _groups(stripe_bits: int, bits: list[int]):
@@ -139,8 +213,10 @@ def run_out_of_core(
     (the reference's interface for backends without complex transfers):
     the same bytes, so the same result; complex64 only.
 
-    ``mesh`` (the reference's sharded out-of-core composition) raises
-    ``NotImplementedError``: the sharded tier is not ported yet.
+    ``mesh`` (a ``parallel.mesh.Mesh`` whose positions this process owns
+    all of) shards every stripe group over its positions: the reference's
+    composition of the sharded and out-of-core tiers.  It needs
+    ``stripe_qubits`` above the mesh's bits and the native transfer.
 
     ``stats``, when given, is filled with ``steps`` (run here),
     ``groups``, ``bytes_up``, ``bytes_down``, ``pinned`` (the host
@@ -149,13 +225,27 @@ def run_out_of_core(
     downloads).
     """
     cd = validate_circuit_dict(circuit_dict)
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the sharded out-of-core tier needs the sharded tier, "
-            "which is not ported yet")
     dev = resolve_device(device)
     n = cd["number_of_qubits"]
     m = min(stripe_qubits, n)
+
+    d = 0
+    if mesh is not None:
+        d = int(np.log2(mesh.size))
+        if (1 << d) != mesh.size:
+            raise ValueError("mesh size must be a power of two")
+        if m - d < 1:
+            raise ValueError(
+                f"stripe_qubits={m} leaves no shard-local bits on a "
+                f"{mesh.size}-device mesh")
+        if transfer == "f32":
+            raise ValueError("transfer='f32' is single-device only")
+        if mesh.world > 1:
+            raise ValueError("the out-of-core tier runs a mesh of one "
+                             "process's positions")
+        if panel_width is not None:
+            # low panels must stay within the shard-local bits
+            panel_width = max(1, min(panel_width, m - d))
 
     log2phys = None
     if use_staging and m < n:
@@ -242,7 +332,8 @@ def run_out_of_core(
     L = src.stripe_len
     todo = steps[start:]
     slot_len = max((L << len(_group_bits(s, m)) for s in todo), default=L)
-    io = StripeIO(dev, cdtype, slot_len, f32=f32_io)
+    io = None if mesh is not None else StripeIO(dev, cdtype, slot_len,
+                                                f32=f32_io)
     n_groups = 0
     wait_s = 0.0
 
@@ -267,6 +358,23 @@ def run_out_of_core(
     for step_idx in range(start, len(steps)):
         step = steps[step_idx]
         bits = _group_bits(step, m)
+        if mesh is not None:
+            ops = [(op, {dv: simulator.prepare_passes([(op, False)], dv,
+                                                      fdtype)[0][0]
+                         for dv in set(mesh.devices)})
+                   for op in _remap_ops_mesh(step, m, bits, d)]
+            for members in _groups(n - m, bits):
+                outs = _run_group_mesh(mesh, members, src, m,
+                                       m - d + len(bits), ops, fdtype, plain)
+                n_groups += 1
+                for t, a in zip(members, outs):
+                    dst.write(t, a)
+                    _written()
+            if wal:
+                dst.write_manifest()
+                wal.commit_step(step_idx, "a" if dst is bufs["a"] else "b")
+            src, dst = dst, src
+            continue
         body = simulator.run_passes(simulator.prepare_passes(
             [(op, False) for op in _remap_ops(step, m, bits)], dev, fdtype),
             plain)
@@ -304,8 +412,9 @@ def run_out_of_core(
         src, dst = dst, src
 
     if stats is not None:
-        stats.update(steps=len(todo), groups=n_groups, bytes_up=io.bytes_up,
-                     bytes_down=io.bytes_down,
+        stats.update(steps=len(todo), groups=n_groups,
+                     bytes_up=io.bytes_up if io else None,
+                     bytes_down=io.bytes_down if io else None,
                      pinned=backend == "host" and src.pinned,
                      alloc_s=alloc_s, wait_s=wait_s)
     del io

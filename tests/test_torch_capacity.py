@@ -558,31 +558,26 @@ def test_api_sample_and_expectation_route_capacity():
 
 @pytest.mark.parametrize("cfg,err", [
     # The dense tier reads out (tests/test_torch_panel_mode.py); beside a
-    # spill stripe it is the spill tier, which runs now
-    # (tests/test_torch_spill.py) and reads out the reference's state
-    # (err None).
+    # spill stripe it is the spill tier (tests/test_torch_spill.py), and
+    # across a mesh the sharded tier (tests/test_torch_sharded.py), which
+    # reads out on the mesh: each the reference's readout (err None).
     (SimulatorConfig(mode="window", stripe_qubits=8, dtype="complex128"),
      None),
-    (SimulatorConfig(mode="capacity", n_devices=2), "sharded"),
-    # sparse=True runs and samples (tests/test_torch_sparse.py); the
-    # sharded tier's error names it among the tiers that run.
-    (SimulatorConfig(mode="window", n_devices=2), "sparse"),
+    (SimulatorConfig(mode="capacity", n_devices=2), None),
+    (SimulatorConfig(mode="window", n_devices=2), None),
 ])
 def test_api_readout_of_unported_tiers_raises(cfg, err):
-    if err is None:
-        from quantum_simulations_tpu.api import expectation_z as rexp
+    from quantum_simulations_tpu.api import expectation_z as rexp
 
-        bits = api.sample(rlib.ghz(10), 10, config=cfg, device=CPU)
-        assert bits.shape == (10, 10)
-        assert set(bits.sum(axis=1).tolist()) <= {0, 10}
-        cd = rlib.qft(10)
-        _close(api.expectation_z(cd, [0, 9], config=cfg, device=CPU),
-               rexp(cd, [0, 9], cfg))
-        return
-    with pytest.raises(NotImplementedError, match=err):
-        api.sample(rlib.ghz(10), 10, config=cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match=err):
-        api.expectation_z(rlib.ghz(10), [0], config=cfg, device=CPU)
+    bits = api.sample(rlib.ghz(10), 10, config=cfg, device=CPU)
+    assert bits.shape == (10, 10) and bits.dtype == np.int8
+    assert set(bits.sum(axis=1).tolist()) <= {0, 10}
+    cd = rlib.qft(10)
+    tol = 1e-10 if cfg.dtype == "complex128" else 1e-6
+    for qubits in ([0, 9], [3], [1, 8, 9]):
+        np.testing.assert_allclose(
+            api.expectation_z(cd, qubits, config=cfg, device=CPU),
+            rexp(cd, qubits, cfg), atol=tol)
 
 
 def test_auto_mode_routes_to_capacity_from_29():

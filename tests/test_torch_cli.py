@@ -159,41 +159,46 @@ def test_sample_draws_from_the_state(capsys, files):
     assert len(rows) == 30 and all(len(r) == 9 for r in rows)
 
 
-# The sparse, adaptive and trajectory flags run now
-# (tests/test_torch_sparse.py, test_torch_trajectory.py); their cases
-# hold an unported tier's error to naming those tiers among what runs
-# (``--trajectory`` on a unitary circuit with ``--work-dir`` is the runner).
-# ``--stripe-qubits`` runs the spill tier now (tests/test_torch_spill.py):
-# its case prints the reference's output (names None), and disk spill
-# without ``--work-dir`` raises the reference's own ValueError.
+# Every tier's flags run now: ``--devices`` the sharded tier
+# (tests/test_torch_sharded.py; fused for any mode but window, as the
+# reference), ``--work-dir`` alone the WAL runner (tests/test_torch_runner.py;
+# ``--trajectory`` on a unitary JSON circuit is the runner too),
+# ``--stripe-qubits`` the spill tier (tests/test_torch_spill.py).  Each
+# prints the reference's output (the runner in its own work dir for each
+# package); disk spill without ``--work-dir`` raises the reference's own
+# ValueError.
 @pytest.mark.parametrize("flags,names", [
-    (["--devices", "2"], ""), (["--stripe-qubits", "4"], None),
-    (["--devices", "2", "--mode", "window"], "sparse"),
+    (["--devices", "2"], None), (["--stripe-qubits", "4"], None),
+    (["--devices", "2", "--mode", "window"], None),
     (["--stripe-qubits", "4", "--spill-backend", "disk"], ValueError),
-    (["--work-dir", "wd"], ""), (["--trajectory", "--work-dir", "wd"],
-                                 "trajectory")],
+    (["--work-dir", "wd"], None), (["--trajectory", "--work-dir", "wd"],
+                                   None)],
     ids=["devices", "stripe", "sparse", "sparse-auto", "work-dir",
          "trajectory"])
 def test_unported_tier_flags_exit_1(capsys, files, flags, names, tmp_path):
-    flags = [str(tmp_path / f) if f == "wd" else f for f in flags]
     argv = ["run", str(files["ghz"]), *flags]
-    if names is None:
-        got, want = _both(capsys, argv + ["--top", "2"])
-        assert got["n_amplitudes"] == want["n_amplitudes"] == 1 << 10
-        assert abs(got["norm2"] - want["norm2"]) <= TOL
-        assert [i for i, _ in got["top"]] == ["0x0", "0x3ff"]
-        _same_top(sorted(got["top"]), sorted(want["top"]))
-        return
     if names is ValueError:
         with pytest.raises(ValueError, match="disk backend requires work_dir"):
             rmain(argv)
         with pytest.raises(ValueError, match="disk backend requires work_dir"):
             main(argv + ["--device", "cpu"])
         return
-    assert main(["run", str(files["ghz"]), "--device", "cpu", *flags]) == 1
-    err = capsys.readouterr().err
-    assert "not ported yet" in err and "NotImplementedError" not in err
-    assert names in err.split("runs", 1)[1]
+    out = {}
+    for who, run in (("ref", rmain), ("port", main)):
+        cmd = [str(tmp_path / who) if f == "wd" else f for f in argv]
+        cmd += ["--top", "2"] + (["--device", "cpu"] if who == "port" else [])
+        assert run(cmd) == 0
+        out[who] = json.loads(capsys.readouterr().out)
+    got, want = out["port"], out["ref"]
+    assert got["n_amplitudes"] == want["n_amplitudes"] == 1 << 10
+    assert abs(got["norm2"] - want["norm2"]) <= TOL
+    assert [i for i, _ in got["top"]] == ["0x0", "0x3ff"]
+    _same_top(sorted(got["top"]), sorted(want["top"]))
+    if "--work-dir" in flags:
+        assert (json.loads((tmp_path / "port" / "wal.json").read_text())
+                == json.loads((tmp_path / "ref" / "wal.json").read_text()))
+        assert main(cmd) == 0  # a rerun resumes: nothing left to run
+        assert json.loads(capsys.readouterr().out) == got
 
 
 def test_default_device_is_the_card(files):

@@ -851,3 +851,81 @@ def test_spill_pinned_route(dev):
     bits = api.sample(cd, 8, config=SimulatorConfig(stripe_qubits=12),
                       device=dev)
     assert bits.shape == (8, 16) and set(bits.sum(axis=1).tolist()) <= {0, 16}
+
+
+# ---------------------------------------------------------------------------
+# The sharded tier and the runner on the card (positions sharing cuda:0)
+# ---------------------------------------------------------------------------
+
+def _mesh_on(dev, positions):
+    from quantum_simulations_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(devices=[dev] * positions)
+
+
+def _sharded_l2(st, re, im):
+    k = st.k
+    return float(sum(
+        ((a.double() - re[s << k:(s + 1) << k].double()) ** 2).sum()
+        + ((b.double() - im[s << k:(s + 1) << k].double()) ** 2).sum()
+        for s, (a, b) in st.shards.items())) ** 0.5
+
+
+@pytest.mark.parametrize("mode", ["fused", "window"])
+@pytest.mark.parametrize("positions", [2, 8])
+def test_sharded_on_card_matches_one_device(dev, mode, positions):
+    """non_stabilizer(18) over positions on the card: each shard's kernels
+    launched, within 1e-5 of the one-device run of the same mode."""
+    from quantum_simulations_tpu_torch.ops import pair_kernels
+    from quantum_simulations_tpu_torch.parallel import executor as E
+    from quantum_simulations_tpu_torch.runtime import simulator
+
+    cd = library.non_stabilizer(18, 4, 7)
+    for m in (pk, dk, bk, pair_kernels):
+        m.reset_counts()
+    st = E.simulate_sharded(_mesh_on(dev, positions), cd, mode=mode)
+    torch.cuda.synchronize()
+    assert sum(pk.LAUNCHES.values()) > 0
+    assert not any(m.PLAIN_CALLS[k] for m in (pk, dk, bk, pair_kernels)
+                   for k in m.PLAIN_CALLS)
+    ref = simulator.simulate(cd, mode=mode, device=dev)
+    assert _sharded_l2(st, ref.real, ref.imag) < TOL_L2
+
+
+def test_sharded_capacity_on_card(dev):
+    from quantum_simulations_tpu_torch.parallel import executor as E
+    from quantum_simulations_tpu_torch.parallel import mesh as M
+    from quantum_simulations_tpu_torch.runtime.capacity import simulate_capacity
+
+    cd = library.qft(16)
+    mesh = _mesh_on(dev, 4)
+    _, fn = E.build_circuit_fns(mesh, cd, mode="window", inplace=True)
+    st = fn(M.zero_state_planar_sharded(mesh, 16))
+    ref = simulate_capacity(cd, device=dev)
+    assert _sharded_l2(st, ref.re, ref.im) < TOL_L2
+
+
+def test_runner_on_card_crash_free_resume(dev, tmp_path):
+    """The runner on 2 positions of the card, then a no-op rerun; the
+    committed state is the one-device window state."""
+    from quantum_simulations_tpu_torch.runtime import runner, simulator
+
+    cd = library.non_stabilizer(16, 4, 7)
+    st = {}
+    runner.run(cd, tmp_path, mesh=_mesh_on(dev, 2), mode="window",
+               max_levels_per_step=2, stats=st)
+    assert st["checkpoints"] == st["steps"] > 1
+    got = runner.collect_state(tmp_path)
+    ref = simulator.simulate(cd, mode="window", device=dev).cpu().numpy()
+    assert np.linalg.norm(got - ref) < TOL_L2
+    runner.run(cd, tmp_path, mesh=_mesh_on(dev, 2), mode="window",
+               max_levels_per_step=2, stats=st)
+    assert st["checkpoints"] == 0
+
+
+def test_make_mesh_refuses_more_cards_than_present(dev):
+    from quantum_simulations_tpu_torch.parallel.mesh import MeshError, make_mesh
+
+    count = torch.cuda.device_count()
+    with pytest.raises(MeshError, match=f"need {2 * count} devices, have {count}"):
+        make_mesh(2 * count)

@@ -29,13 +29,23 @@ MODULES = [
     "quantum_simulations_tpu_torch.ops.panel_kernels",
     "quantum_simulations_tpu_torch.ops.sampling",
     "quantum_simulations_tpu_torch.oracle",
+    "quantum_simulations_tpu_torch.parallel.comm",
+    "quantum_simulations_tpu_torch.parallel.distributed",
+    "quantum_simulations_tpu_torch.parallel.executor",
+    "quantum_simulations_tpu_torch.parallel.mesh",
+    "quantum_simulations_tpu_torch.parallel.placement",
+    "quantum_simulations_tpu_torch.parallel.pod_worker",
+    "quantum_simulations_tpu_torch.parallel.reshard",
     "quantum_simulations_tpu_torch.runtime.capacity",
+    "quantum_simulations_tpu_torch.runtime.metadata",
+    "quantum_simulations_tpu_torch.runtime.runner",
     "quantum_simulations_tpu_torch.runtime.simulator",
     "quantum_simulations_tpu_torch.runtime.trajectory",
     "quantum_simulations_tpu_torch.sparse.adaptive",
     "quantum_simulations_tpu_torch.sparse.engine",
     "quantum_simulations_tpu_torch.sparse.merge",
     "quantum_simulations_tpu_torch.utils.logging",
+    "quantum_simulations_tpu_torch.utils.timing",
 ]
 
 

@@ -274,9 +274,15 @@ def test_f32_rejects_complex128_and_mesh_is_unported():
                 single_copy=True, **kw)
         with pytest.raises(ValueError, match="unknown backend"):
             run(rlib.ghz(4), stripe_qubits=2, backend="tape", **kw)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        spill.run_out_of_core(rlib.ghz(4), stripe_qubits=2, mesh=object(),
-                              device=CPU)
+    # A mesh runs (tests/test_torch_spill_mesh.py): the reference's state.
+    from quantum_simulations_tpu.parallel.mesh import make_mesh as rmake_mesh
+    from quantum_simulations_tpu_torch.parallel.mesh import make_mesh
+
+    cd = rlib.qft(6)
+    _close(spill.run_out_of_core(cd, stripe_qubits=4, dtype=C128, device=CPU,
+                                 mesh=make_mesh(2, device=CPU)),
+           rspill.run_out_of_core(cd, stripe_qubits=4, dtype=C128,
+                                  mesh=rmake_mesh(2)))
 
 
 def test_default_device_is_the_card():
