@@ -225,9 +225,13 @@ Phases (any failure exits non-zero):
    "capacity"), work_dir=...)`` within 1e-6 of the capacity tier.  A pod
    of 2 processes x 2 positions over gloo, card pieces staged through
    host memory, both on this card (``parallel.pod_worker``): every
-   shard's sha256 equal to the in-process 4-position run's, launches
-   summed over the processes equal to the plan, the host-staged bytes and
-   GB/s.  The CLI in this process: ``run ghz28.json --work-dir`` twice
+   shard's sha256 equal to the in-process 4-position run's, launches,
+   plain torch gate calls and bytes handed between positions, each
+   summed over the processes, equal to the plan, the host-staged bytes
+   and GB/s.  The spill tier across a mesh: nonstab28 in host stripes of
+   2^26, each group sharded over 4 positions (``spill_mesh_want``),
+   through each position's pinned ``StripeIO``, within 1e-5 of the
+   one-device window run.  The CLI in this process: ``run ghz28.json --work-dir`` twice
    (the second finds the run done: the same output and WAL),
    ``placement --devices 1 --qubits 28`` (exit 0), ``run --devices 2``
    (exit 1, naming the one card).  Phase 8's seconds and the card line
@@ -2871,6 +2875,7 @@ NSH_CAP, CAP_POS = 31, 2       # 2 shards of 2^30 (the capacity guard: 2^27)
 NRUN, RUN_POS = 28, 4          # the runner's crash / resume request
 POD_PROCS, POD_POS = 2, 2      # the gloo pod: processes x positions each
 NRUN_CAP = 30                  # the runner in place on one position
+NSPM, SPM_M, SPM_POS = 28, 26, 4  # spill across a mesh: stripes of 2^26 on 4
 RANDOM_GATES = 600
 SHOTS = 1000
 # A readout scalar of the sharded state against the same sum over its
@@ -2980,11 +2985,64 @@ def sharded_want(cd: dict, positions: int, mode: str = "window",
                             _add(want, got)
                             dense_calls += calls
                     continue
-                nbytes += positions * exchange.exchange_bytes(U, qs, k)
-                if any(q < k for q in qs):
-                    per = (0 in exchange.nonzero_offsets(U, qs, k)) + sum(
-                        frac == 1.0 for _, frac in traffic)
-                    dense_calls += positions * per
+                calls, moved = _exchange_want(U, qs, k, positions)
+                dense_calls += calls
+                nbytes += moved
+    reset_counts()
+    return want, dense_calls, nbytes
+
+
+def _exchange_want(U, qs: tuple, k: int, positions: int) -> tuple:
+    """(plain torch gate calls, bytes handed between positions) of one
+    gate through the XOR-offset exchange on shards of 2^k: it ships
+    ``exchange_bytes`` a position and makes one plain gate call a
+    position for offset 0 and for each offset that ships the whole shard
+    (``offset_traffic`` 1.0) when it has a local qubit."""
+    from quantum_simulations_tpu_torch.ops import exchange
+
+    calls = 0
+    if any(q < k for q in qs):
+        calls = positions * ((0 in exchange.nonzero_offsets(U, qs, k)) + sum(
+            frac == 1.0 for _, frac in exchange.offset_traffic(U, qs, k)))
+    return calls, positions * exchange.exchange_bytes(U, qs, k)
+
+
+def spill_mesh_want(cd: dict, m: int, positions: int) -> tuple:
+    """The plan of a spill run across a mesh (``run_out_of_core(...,
+    mesh=)``), as :func:`sharded_want`'s: each step's ops as
+    ``spill._remap_ops_mesh`` gives them, once per group (2^(n - m - r)
+    groups of shards of 2^(m - d + r)); a gate on a mesh bit by the
+    exchange model, every other op dispatched dry on meta planes, once
+    a position."""
+    import numpy as np
+    import torch
+
+    from quantum_simulations_tpu_torch.circuit.fusion import GateOp
+    from quantum_simulations_tpu_torch.runtime import simulator, spill
+
+    n = cd["number_of_qubits"]
+    d = positions.bit_length() - 1
+    meta, f32 = torch.device("meta"), torch.float32
+    want: dict = {}
+    dense_calls = nbytes = 0
+    with dry_run():
+        for step in spill.compile_steps(cd, k=m, panel_width=min(7, m - d)):
+            bits = spill._group_bits(step, m)
+            groups = 1 << (n - m - len(bits))
+            k = m - d + len(bits)
+            for op in spill._remap_ops_mesh(step, m, bits, d):
+                if isinstance(op, GateOp) and max(op.qubits) >= k:
+                    calls, moved = _exchange_want(np.asarray(op.U),
+                                                  tuple(op.qubits), k, positions)
+                    dense_calls += groups * calls
+                    nbytes += groups * moved
+                    continue
+                prepared = simulator.prepare_passes([(op, False)], meta, f32)[0][0]
+                got, calls = _counted(lambda: simulator.apply_panel_op(
+                    torch.empty(1 << k, device=meta),
+                    torch.empty(1 << k, device=meta), prepared))
+                _add(want, got, groups * positions)
+                dense_calls += groups * positions * calls
     reset_counts()
     return want, dense_calls, nbytes
 
@@ -3327,6 +3385,30 @@ def sharded_capacity(dev, rec: dict, counts: dict) -> None:
         raise AssertionError(f"{label} is off: {rec[label]}")
 
 
+# A subprocess's start-up (python, torch, the port, the card's context:
+# 8-10 s) goes beside other work; it waits for its go file, whose path
+# is its first argument, then runs the code that follows.
+_GATE = ("import os, sys, time, torch, quantum_simulations_tpu_torch\n"
+         "if torch.cuda.is_available(): torch.cuda.init()\n"
+         "go = sys.argv.pop(1)\n"
+         "while not os.path.exists(go): time.sleep(0.02)\n")
+
+
+def _gated(code: str, args: list, go: Path, env: dict, root: Path):
+    """Start ``code`` (after :data:`_GATE`) with ``args`` in a process
+    that waits for ``go`` to exist before it runs."""
+    return subprocess.Popen([sys.executable, "-c", _GATE + code, str(go), *args],
+                            env=env, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
 def _runner_script(root: Path, cdfile: Path, wd: Path, dev, positions: int) -> str:
     return (f"import json, sys; sys.path.insert(0, {str(root)!r}); "
             f"from quantum_simulations_tpu_torch.parallel.mesh import make_mesh; "
@@ -3370,6 +3452,10 @@ def sharded_runner(dev, work: Path, rec: dict, counts: dict) -> None:
     wd = work / f"nonstab{n}_runner"
     script = _runner_script(root, cdfile, wd, dev, RUN_POS)
     env = dict(os.environ, **{runner.CRASH_ENV: "1"})
+    # The resuming process starts now too and waits for the crash.
+    go = work / "resume.go"
+    resume = _gated(script, [str(total)], go,
+                    {k: v for k, v in env.items() if k != runner.CRASH_ENV}, root)
     t0 = time.perf_counter()
     crash = subprocess.Popen([sys.executable, "-c", script, "1"], env=env,
                              cwd=root, stdout=subprocess.PIPE,
@@ -3387,21 +3473,18 @@ def sharded_runner(dev, work: Path, rec: dict, counts: dict) -> None:
                                       use_wal=False, stats=st),
             sharded_want(cd, RUN_POS, max_levels=1), dev)
         crash_err = crash.communicate(timeout=600)[1]
+        crash_s = time.perf_counter() - t0
+        done = json.loads((wd / "wal.json").read_text())["done_steps"]
+        t0 = time.perf_counter()
+        go.touch()
+        resume_out, resume_err = resume.communicate(timeout=600)
+        resume_s = time.perf_counter() - t0
     finally:
-        if crash.poll() is None:
-            crash.kill()
-            crash.wait()
-    crash_s = time.perf_counter() - t0
-    done = json.loads((wd / "wal.json").read_text())["done_steps"]
-    env.pop(runner.CRASH_ENV)
-    t0 = time.perf_counter()
-    resume = subprocess.run([sys.executable, "-c", script, str(total)], env=env,
-                            cwd=root, capture_output=True, text=True, timeout=600)
-    resume_s = time.perf_counter() - t0
+        _stop([crash, resume])
     if crash.returncode != 1 or resume.returncode != 0:
         raise AssertionError(f"runner crash {crash.returncode} / resume "
-                             f"{resume.returncode}:\n{crash_err}\n{resume.stderr}")
-    resumed = json.loads(resume.stdout.strip().splitlines()[-1])
+                             f"{resume.returncode}:\n{crash_err}\n{resume_err}")
+    resumed = json.loads(resume_out.strip().splitlines()[-1])
     a = runner.collect_state(wd)
     b = runner.collect_state(work / "uninterrupted")
     equal = bool(np.array_equal(a, b))
@@ -3414,7 +3497,8 @@ def sharded_runner(dev, work: Path, rec: dict, counts: dict) -> None:
     log(f"sharded {label} ({RUN_POS} positions, {total} steps of one level): "
         f"crashed after step 1's buffer in {crash_s:.3f} s (WAL done_steps="
         f"{done}; the uninterrupted run beside its start-up), resumed in a "
-        f"fresh process in {resume_s:.3f} s (its buffer read, checked and "
+        f"fresh process (started beside the crash, waiting for it) in "
+        f"{resume_s:.3f} s (its buffer read, checked and "
         f"uploaded in {resumed['resume_s']:.3f} s, compile "
         f"{resumed['timers'].get('runner.compile', 0.0):.3f} s, "
         f"{resumed['checkpoints']} checkpoint, {resumed['checkpoint_s']:.3f} s, "
@@ -3458,38 +3542,48 @@ def sharded_runner(dev, work: Path, rec: dict, counts: dict) -> None:
         raise AssertionError(f"{label} is off the capacity tier: {rec[label]}")
 
 
-def sharded_pod(dev, work: Path, rec: dict, counts: dict) -> None:
+_POD_RUN = ("import runpy\nsys.argv.pop(0)\n"
+            "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
+
+
+def pod_start(dev, work: Path) -> list:
+    """The pod's processes (``parallel.pod_worker`` on nonstab28, window
+    mode), started at the start of phase 8 and waiting for
+    ``work/pod.go`` (:func:`_gated`)."""
+    from quantum_simulations_tpu_torch import library
+
+    root = Path(__file__).resolve().parent
+    cdfile = work / f"pod_nonstab{NRUN}.json"
+    cdfile.write_text(json.dumps(library.non_stabilizer(NRUN, 4, SEED)))
+    procs = []
+    for i in range(POD_PROCS):
+        env = dict(os.environ, QST_COORDINATOR=f"file://{work / 'pod_store'}",
+                   QST_NUM_PROCESSES=str(POD_PROCS), QST_PROCESS_ID=str(i),
+                   QST_DIST_BACKEND="gloo", QST_DIST_TIMEOUT="300")
+        procs.append(_gated(_POD_RUN, [
+            "quantum_simulations_tpu_torch.parallel.pod_worker", str(cdfile),
+            "--devices", str(POD_PROCS * POD_POS), "--mode", "window",
+            "--device", str(dev)], work / "pod.go", env, root))
+    return procs
+
+
+def sharded_pod(dev, work: Path, rec: dict, counts: dict, procs: list) -> None:
     """nonstab28 in window mode on a pod of 2 processes x 2 positions, over
     gloo with each card piece staged through host memory, both processes
-    on this card (``parallel.pod_worker``): every shard's sha256 equal to
-    the in-process 4-position run's (made while the pod's processes
-    start), the launches summed over the processes the plan's, and the
-    host-staged exchange's bytes and seconds."""
+    on this card (``procs``, from :func:`pod_start`): every shard's sha256
+    equal to the in-process 4-position run's (made first), the launches,
+    plain torch gate calls and bytes handed between positions, each
+    summed over the processes, the plan's, and the host-staged
+    exchange's bytes and seconds."""
     from quantum_simulations_tpu_torch import library
     from quantum_simulations_tpu_torch.parallel import executor as E
     from quantum_simulations_tpu_torch.parallel.pod_worker import shard_digests
 
-    root = Path(__file__).resolve().parent
     n, positions = NRUN, POD_PROCS * POD_POS
     cd = library.non_stabilizer(n, 4, SEED)
-    cdfile = work / f"nonstab{n}.json"
-    cdfile.write_text(json.dumps(cd))
     plan = sharded_want(cd, positions)
-    store = work / "pod_store"
-    procs = []
-    t0 = time.perf_counter()
-    for i in range(POD_PROCS):
-        env = dict(os.environ, QST_COORDINATOR=f"file://{store}",
-                   QST_NUM_PROCESSES=str(POD_PROCS), QST_PROCESS_ID=str(i),
-                   QST_DIST_BACKEND="gloo", QST_DIST_TIMEOUT="300")
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "quantum_simulations_tpu_torch.parallel.pod_worker",
-             str(cdfile), "--devices", str(positions), "--mode", "window",
-             "--device", str(dev)], env=env, cwd=root, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
     outs = []
     try:
-        # The in-process reference runs while the pod's processes start.
         label = f"nonstab{n} window {positions} positions"
         st, counts[label], wall, moved = sharded_request(
             label, lambda: E.simulate_sharded(_mesh_on(dev, positions), cd,
@@ -3497,36 +3591,84 @@ def sharded_pod(dev, work: Path, rec: dict, counts: dict) -> None:
         want = {str(s): h for s, h in shard_digests(st).items()}
         del st
         _free(dev)
+        t0 = time.perf_counter()
+        (work / "pod.go").touch()
         for p in procs:
             outs.append(p.communicate(timeout=600))
+        pod_s = time.perf_counter() - t0
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    pod_s = time.perf_counter() - t0
+        _stop(procs)
     if any(p.returncode for p in procs):
         raise AssertionError("the pod failed:\n" + "\n".join(e for _, e in outs))
     got = json.loads(outs[0][0])
     ex = got["exchange"]
     run_s = max(got["run_s_by_process"])
     remote_gbps = ex["remote_bytes"] / ex["remote_s"] / 1e9 if ex["remote_s"] else 0.0
+    pod_bytes = sum(p["ppermute_bytes"] + p["all_to_all_bytes"]
+                    for p in got["exchange_by_process"])
     equal = got["shards_sha256"] == want
-    ok = equal and got["launches"] == plan[0] and got["processes"] == POD_PROCS
+    ok = (equal and got["launches"] == plan[0] and got["processes"] == POD_PROCS
+          and got["dense_gate_calls"] == plan[1] and pod_bytes == plan[2])
     rec[f"pod {label}"] = dict(
         wall_s=pod_s, run_s=run_s, in_process_first_ms=wall * 1e3,
-        bit_equal=equal,
-        launches=got["launches"], exchange=got["exchange_by_process"],
-        remote_gbps=remote_gbps)
+        bit_equal=equal, launches=got["launches"],
+        dense_gate_calls=got["dense_gate_calls"], bytes_moved=pod_bytes,
+        exchange=got["exchange_by_process"], remote_gbps=remote_gbps)
     log(f"sharded pod {POD_PROCS} processes x {POD_POS} positions of "
         f"nonstab{n} window (gloo, host-staged, one card): {pod_s:.3f} s for "
-        f"both processes, {run_s:.3f} s of it from the mesh to the result "
-        f"(the in-process run: {wall:.3f} s); launches {got['launches']}; "
+        f"both processes from their go (started with phase 8), {run_s:.3f} "
+        f"s of it from the mesh to the result (the in-process run: "
+        f"{wall:.3f} s); launches {got['launches']}, "
+        f"dense_gate_calls={got['dense_gate_calls']}, bytes_moved={pod_bytes} "
+        f"summed over the processes (the plan: {plan[1]}, {plan[2]}); "
         f"process 0 moved {ex['remote_bytes']} bytes across processes in "
         f"{ex['remote_s']:.3f} s ({remote_gbps:.3f} GB/s); every shard's "
         f"sha256 equal to the in-process run's: {equal} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"the pod run is off: {rec[f'pod {label}']}")
+
+
+def sharded_spill(dev, rec: dict, counts: dict) -> None:
+    """nonstab28 through the spill tier across a mesh: host stripes of
+    2^26, each stripe group sharded over 4 positions of the card (shard
+    bits 0-23, mesh bits 24-25, stripe bits 26-27), each position's
+    sub-blocks through its own pinned ``StripeIO``: launches, plain gate
+    calls and bytes handed between positions as ``spill_mesh_want``,
+    every stripe once up and once down a step, within 1e-5 of the
+    one-device window run."""
+    from quantum_simulations_tpu_torch import library
+    from quantum_simulations_tpu_torch.runtime import simulator, spill
+    from quantum_simulations_tpu_torch.utils.transfer import release_pinned_cache
+
+    n, m = NSPM, SPM_M
+    cd = library.non_stabilizer(n, 4, SEED)
+    label = f"nonstab{n} spill mesh"
+    mesh = _mesh_on(dev, SPM_POS)
+    st: dict = {}
+    psi, counts[label], wall, moved = sharded_request(
+        label, lambda: spill.run_out_of_core(cd, stripe_qubits=m, mesh=mesh,
+                                             device=dev, stats=st),
+        spill_mesh_want(cd, m, SPM_POS), dev)
+    ref = simulator.simulate(cd, mode="window", device=dev)
+    l2 = host_distance(psi, dev, lambda lo, hi: ref[lo:hi])
+    del psi, ref
+    _free(dev)
+    release_pinned_cache()
+    stream = wall - st["alloc_s"]
+    ok = (l2 <= TOL_L2 and st["pinned"] == (dev.type == "cuda")
+          and st["bytes_up"] == st["bytes_down"] == st["steps"] * (8 << n))
+    rec[label] = dict(wall_s=wall, stream_s=stream, l2_vs_window=l2,
+                      bytes_moved=moved, gbps_each_way=st["bytes_up"] / stream / 1e9,
+                      **st)
+    log(f"sharded {label} ({SPM_POS} positions, stripes of 2^{m}): {wall:.3f} s "
+        f"({st['alloc_s']:.3f} s of it pinning the host buffers), "
+        f"steps={st['steps']} groups={st['groups']}, "
+        f"{st['bytes_up'] / GIB:.1f} GiB each way "
+        f"({rec[label]['gbps_each_way']:.3f} GB/s over {stream:.3f} s, "
+        f"pinned {st['pinned']}), {moved} bytes between positions; "
+        f"||psi - psi_window||_2={l2:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} is off: {rec[label]}")
 
 
 def sharded_cli(dev, work: Path, rec: dict) -> None:
@@ -3596,10 +3738,12 @@ def sharded_tier(dev) -> dict:
     counts: dict = {}
     log(f"sharded phase 8: host MemAvailable "
         f"{meminfo()['MemAvailable'] / GIB:.1f} GiB")
+    pod = pod_start(dev, work)
     parts = {"window": lambda: sharded_window(dev, rec, counts),
              "capacity": lambda: sharded_capacity(dev, rec, counts),
              "runner": lambda: sharded_runner(dev, work, rec, counts),
-             "pod": lambda: sharded_pod(dev, work, rec, counts),
+             "pod": lambda: sharded_pod(dev, work, rec, counts, pod),
+             "spill": lambda: sharded_spill(dev, rec, counts),
              "cli": lambda: sharded_cli(dev, work, rec)}
     try:
         for name, part in parts.items():
@@ -3607,6 +3751,7 @@ def sharded_tier(dev) -> dict:
             rec[f"{name}_done_s"] = time.perf_counter() - t0
             log(f"sharded phase 8: {name} done at {rec[name + '_done_s']:.3f} s")
     finally:
+        _stop(pod)
         shutil.rmtree(work, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t0
     log(f"sharded phase 8: {rec['phase_s']:.3f} s; card {card_line() if dev.type == 'cuda' else dev}")

@@ -22,7 +22,8 @@ import os
 
 import torch
 
-from .mesh import Mesh, _normalise, _pow2
+from ..utils.device import resolve_device
+from .mesh import Mesh, _pow2
 
 # Relative per-byte costs of moving a shard across one mesh bit: between
 # positions of one process (a tensor move, a peer copy between cards)
@@ -106,15 +107,15 @@ def is_multihost() -> bool:
     return dist.is_initialized() and dist.get_world_size() > 1
 
 
-def make_pod_mesh(n_devices: int | None = None, *, device=None) -> Mesh:
+def make_pod_mesh(n_devices: int | None = None, *, device="cuda") -> Mesh:
     """A 1-D mesh over every process, positions contiguous per rank.
 
     Each rank brings ``n_devices / world`` positions (one by default) on
-    its device: ``device``, else the card ``LOCAL_RANK`` (torchrun's; 0
-    without it) when there is one, else the CPU.  Every rank learns the
-    others' devices, so the mesh is the same everywhere.  Call after
-    :func:`init_distributed`; without a process group it is this
-    process's mesh.
+    its device: ``device="cuda"`` is the card ``LOCAL_RANK`` (torchrun's;
+    0 without it) and raises without a card; ``"cpu"`` or an indexed
+    card as given.  Every rank learns the others' devices, so the mesh
+    is the same everywhere.  Call after :func:`init_distributed`;
+    without a process group it is this process's mesh.
     """
     import torch.distributed as dist
 
@@ -126,10 +127,9 @@ def make_pod_mesh(n_devices: int | None = None, *, device=None) -> Mesh:
     if n_devices % world:
         raise ValueError(f"{n_devices} positions do not split over "
                          f"{world} processes")
-    if device is None:
-        device = (torch.device("cuda", _local_rank())
-                  if torch.cuda.is_available() else torch.device("cpu"))
-    dev = _normalise(device)
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", _local_rank())
     per = n_devices // world
     names = [str(dev)] * world
     if world > 1:

@@ -209,20 +209,19 @@ def check_capacity(steps: list[Step], paired: list, mesh, k: int) -> None:
 
 
 def build_steps_fn(mesh, n: int, steps: list[Step], *, mode: str = "fused",
-                   inplace: bool = False, dtype="complex64",
-                   plain: bool = False):
+                   inplace: bool = False, dtype="complex64"):
     """``fn(state) -> state`` applying ``steps`` to a sharded state.
 
     ``mode='window'`` runs each shard's local ops through the window
     schedule's kernels, ``inplace`` every pass through their in-place
-    instances (window only); any other mode is fused.  ``plain=True``
-    (and complex128, ``simulator.plain_route``) runs the plain torch
-    twins.  A one-position mesh runs the body with no collective: its
-    steps have no non-local ops.
+    instances (window only); any other mode is fused.  complex128 runs
+    the plain torch twins (``simulator.plain_route``).  A one-position
+    mesh runs the body with no collective: its steps have no non-local
+    ops.
     """
     k = shard_width(mesh, n)
     fdtype = float_dtype(complex_dtype(dtype))
-    plain = simulator.plain_route(plain, fdtype)
+    plain = simulator.plain_route(False, fdtype)
     devices = {mesh.device(s) for s in mesh.local}
     if mode == "window":
         paired = window_ops(steps, k, inplace)
@@ -284,7 +283,6 @@ def build_circuit_fns(
     inplace: bool = False,
     dtype="complex64",
     max_levels_per_step: int | None = None,
-    plain: bool = False,
 ):
     """Compile a circuit for the mesh: ``(steps, fns)``, ``fns`` one
     function for the whole circuit (per_step=False) or one per step (the
@@ -301,14 +299,14 @@ def build_circuit_fns(
         panel_width = None
     key = (circuit_hash(cd), mesh.key(), mesh.rank, use_fusion, panel_width,
            per_step, mode, inplace, str(complex_dtype(dtype)),
-           max_levels_per_step, plain, simulator._switches())
+           max_levels_per_step, simulator._switches())
     hit = _CACHE.get(key)
     if hit is not None:
         return hit
     steps = compile_steps(cd, k=k, use_fusion=use_fusion,
                           panel_width=panel_width,
                           max_levels_per_step=max_levels_per_step)
-    kw = dict(mode=mode, inplace=inplace, dtype=dtype, plain=plain)
+    kw = dict(mode=mode, inplace=inplace, dtype=dtype)
     if per_step:
         fns = [build_steps_fn(mesh, n, [s], **kw) for s in steps]
     else:
@@ -326,7 +324,6 @@ def simulate_sharded(
     panel_width: int | None = 7,
     initial_state=None,
     mode: str = "fused",
-    plain: bool = False,
 ) -> ShardedState:
     """Run a circuit on the mesh from |0...0> (or the host vector
     ``initial_state``); returns the sharded state."""
@@ -334,7 +331,7 @@ def simulate_sharded(
     n = cd["number_of_qubits"]
     _, fn = build_circuit_fns(mesh, cd, use_fusion=use_fusion,
                               panel_width=panel_width, mode=mode,
-                              dtype=dtype, plain=plain)
+                              dtype=dtype)
     if initial_state is None:
         state = zero_state_sharded(mesh, n, dtype)
     else:

@@ -20,6 +20,8 @@ between processes.
 """
 from __future__ import annotations
 
+import torch
+
 from . import distributed
 from .mesh import AXIS, device_bits, shard_width
 
@@ -143,9 +145,10 @@ def main(n_devices: int | None = None, n: int | None = None, *,
     it."""
     from .mesh import make_mesh, zero_state_sharded
 
-    distributed.init_distributed()
+    on_cpu = torch.device(device).type == "cpu"
+    distributed.init_distributed(backend="gloo" if on_cpu else None)
     if distributed.is_multihost():
-        mesh = distributed.make_pod_mesh(n_devices)
+        mesh = distributed.make_pod_mesh(n_devices, device=device)
     else:
         mesh = make_mesh(n_devices, device=device)
     if n is None:

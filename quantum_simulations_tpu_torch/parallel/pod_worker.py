@@ -14,8 +14,9 @@ one card), with ``QST_COORDINATOR`` (``host:port`` or ``file:///path``),
 ``--work-dir`` runs the WAL runner on a directory every process sees.
 Process 0 prints one JSON object: the reference's keys, plus every
 shard's sha256 (``shards_sha256``, by position), the kernel launches
-summed over the processes (``launches``), the seconds from the mesh to
-the result (``run_s``; ``run_s_by_process``) and the bytes and seconds
+summed over the processes (``launches``), the plain torch gate calls
+summed over the processes (``dense_gate_calls``), the seconds from the
+mesh to the result (``run_s``; ``run_s_by_process``) and the bytes and seconds
 of the exchanges (``exchange``: process 0's; ``exchange_by_process``).
 """
 from __future__ import annotations
@@ -71,19 +72,20 @@ def main(argv=None) -> int:
                     help="shared dir for WAL + checkpoints (durability)")
     ap.add_argument("--shots", type=int, default=0,
                     help="sample bitstrings after the run (on the mesh)")
-    ap.add_argument("--device", default=None,
+    ap.add_argument("--device", default="cuda",
                     help="each process's device (default: the card "
-                         "LOCAL_RANK, else the CPU)")
+                         "LOCAL_RANK; 'cpu' for a gloo rehearsal)")
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
 
-    from ..ops import sampling
+    from ..ops import dense, sampling
     from . import comm
     from . import executor as E
     from .distributed import init_distributed, make_pod_mesh
 
-    multihost = init_distributed()
+    on_cpu = args.device == "cpu"
+    multihost = init_distributed(backend="gloo" if on_cpu else None)
     cd = _load_circuit(args.circuit)
     mesh = make_pod_mesh(args.devices, device=args.device)
     out = {
@@ -93,6 +95,7 @@ def main(argv=None) -> int:
         "mesh_devices": mesh.size,
     }
     comm.reset_counts()
+    dense.GATE_CALLS = 0
     t0 = time.perf_counter()
     if args.work_dir:
         from ..runtime.runner import run as run_wal
@@ -110,6 +113,7 @@ def main(argv=None) -> int:
         out["shards_sha256"] = shard_digests(state)
     out["run_s"] = time.perf_counter() - t0
     out["launches"] = kernel_launches()
+    out["dense_gate_calls"] = dense.GATE_CALLS
     out["exchange"] = dict(comm.TRAFFIC)
     if multihost:
         # Every rank's digests, launches and traffic, for process 0.
@@ -121,6 +125,7 @@ def main(argv=None) -> int:
         for r in recs:
             for key, v in r["launches"].items():
                 out["launches"][key] = out["launches"].get(key, 0) + v
+        out["dense_gate_calls"] = sum(r["dense_gate_calls"] for r in recs)
         out["exchange_by_process"] = [r["exchange"] for r in recs]
         out["run_s_by_process"] = [r["run_s"] for r in recs]
     if mesh.rank == 0:

@@ -31,8 +31,10 @@ every stripe group over the positions of a mesh in this process: each
 position holds, for every member stripe, its 2^(m-d) sub-block, so stripe
 bits [0, m-d) stay shard-local, bits [m-d, m) are mesh bits (the
 XOR-offset exchange of ``ops/exchange.apply_nonlocal``) and stripe-index
-bits are stacked as above (:func:`_remap_ops_mesh`).  Each group goes up,
-runs and comes down before the next.
+bits are stacked as above (:func:`_remap_ops_mesh`).  Each position's
+sub-blocks cross PCIe through its own ``StripeIO`` (pinned host buffers,
+copy streams, 256 MiB pieces) with one device slot: a group goes up,
+runs and comes down before the next, with no pipelining.
 
 Durability (disk backend): the same step-WAL + a/b double buffer as the
 reference; ``QST_CRASH_AFTER_STRIPE`` hard-kills after N+1 stripe writes
@@ -113,23 +115,24 @@ def _remap_ops_mesh(step: Step, m: int, bits: list[int], d: int) -> list:
     return out
 
 
-def _run_group_mesh(mesh, members: list, src, m: int, k_eff: int, ops: list,
-                    fdtype, plain: bool) -> list:
+def _run_group_mesh(mesh, ios: dict, stripes: list, outs: list, m: int,
+                    k_eff: int, ops: list, plain: bool) -> None:
     """One stripe group through the mesh: each position's shard (its
-    sub-block of every member, in member order) goes up as planes, the
-    ops run (mesh-bit gates by the XOR-offset exchange, the rest on each
-    shard as fused mode's passes), and each member stripe comes back
-    assembled from the positions' sub-blocks (host arrays, in order)."""
+    sub-block of every member stripe, in member order) goes up into its
+    ``StripeIO`` slot and is split into planes, the ops run (mesh-bit
+    gates by the XOR-offset exchange, the rest on each shard as fused
+    mode's passes), and each position's sub-blocks come down into
+    ``outs`` (the host stripes, in member order), waited for."""
     from ..ops import exchange
 
     sub = 1 << (m - (mesh.size.bit_length() - 1))
-    shards = {}
+
+    def blocks(arrays, s):
+        return [a[s * sub:(s + 1) * sub] for a in arrays]
+
     for s in mesh.local:
-        host = np.concatenate([src.read(t)[s * sub:(s + 1) * sub]
-                               for t in members])
-        x = torch.from_numpy(host).to(mesh.device(s))
-        shards[s] = (x.real.to(fdtype).contiguous(),
-                     x.imag.to(fdtype).contiguous())
+        ios[s].upload(0, blocks(stripes, s))
+    shards = {s: ios[s].planes(0, sub * len(stripes)) for s in mesh.local}
     for op, prepared in ops:
         if isinstance(op, GateOp) and max(op.qubits) >= k_eff:
             shards = exchange.apply_nonlocal(mesh, shards, k_eff, op.qubits,
@@ -138,10 +141,11 @@ def _run_group_mesh(mesh, members: list, src, m: int, k_eff: int, ops: list,
             for s in mesh.local:
                 shards[s] = simulator.apply_panel_op(
                     *shards[s], prepared[mesh.device(s)], plain=plain)
-    parts = {s: torch.complex(*shards[s]).cpu().numpy().reshape(len(members), sub)
-             for s in mesh.local}
-    return [np.concatenate([parts[s][j] for s in mesh.local])
-            for j in range(len(members))]
+    for s in mesh.local:
+        ios[s].store(0, *shards.pop(s))
+        ios[s].download(0, blocks(outs, s))
+    for s in mesh.local:
+        ios[s].wait(0)
 
 
 def _groups(stripe_bits: int, bits: list[int]):
@@ -332,8 +336,15 @@ def run_out_of_core(
     L = src.stripe_len
     todo = steps[start:]
     slot_len = max((L << len(_group_bits(s, m)) for s in todo), default=L)
-    io = None if mesh is not None else StripeIO(dev, cdtype, slot_len,
-                                                f32=f32_io)
+    if mesh is None:
+        io = StripeIO(dev, cdtype, slot_len, f32=f32_io)
+        ios = {}
+    else:
+        # One slot a position: a group goes up, runs and comes down
+        # before the next.
+        io = None
+        ios = {s: StripeIO(mesh.device(s), cdtype, slot_len >> d, slots=1)
+               for s in mesh.local}
     n_groups = 0
     wait_s = 0.0
 
@@ -364,11 +375,14 @@ def run_out_of_core(
                          for dv in set(mesh.devices)})
                    for op in _remap_ops_mesh(step, m, bits, d)]
             for members in _groups(n - m, bits):
-                outs = _run_group_mesh(mesh, members, src, m,
-                                       m - d + len(bits), ops, fdtype, plain)
+                outs = ([dst.read(t) for t in members] if backend == "host"
+                        else ios[mesh.local[0]].staging(len(members), L))
+                _run_group_mesh(mesh, ios, [src.read(t) for t in members],
+                                outs, m, m - d + len(bits), ops, plain)
                 n_groups += 1
                 for t, a in zip(members, outs):
-                    dst.write(t, a)
+                    if backend == "disk":
+                        dst.write(t, a.numpy())
                     _written()
             if wal:
                 dst.write_manifest()
@@ -412,12 +426,13 @@ def run_out_of_core(
         src, dst = dst, src
 
     if stats is not None:
+        every = [io] if io else list(ios.values())
         stats.update(steps=len(todo), groups=n_groups,
-                     bytes_up=io.bytes_up if io else None,
-                     bytes_down=io.bytes_down if io else None,
+                     bytes_up=sum(x.bytes_up for x in every),
+                     bytes_down=sum(x.bytes_down for x in every),
                      pinned=backend == "host" and src.pinned,
                      alloc_s=alloc_s, wait_s=wait_s)
-    del io
+    del io, ios
     if backend == "host":
         out = src.to_array()  # src/dst swapped after last step
         if log2phys is not None:

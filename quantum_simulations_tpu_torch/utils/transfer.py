@@ -59,8 +59,8 @@ def release_pinned_cache() -> None:
 
 
 class StripeIO:
-    """A ring of two device slots of ``slot_len`` complex amplitudes and
-    the streams that fill, compute and drain them.
+    """A ring of ``slots`` device slots (two by default) of ``slot_len``
+    complex amplitudes and the streams that fill, compute and drain them.
 
     ``f32=True`` moves every stripe as its interleaved float32 view (the
     reference's ``transfer='f32'``): the same bytes, so the same result.
@@ -68,21 +68,21 @@ class StripeIO:
     """
 
     def __init__(self, device: torch.device, cdtype: torch.dtype,
-                 slot_len: int, *, f32: bool = False):
+                 slot_len: int, *, f32: bool = False, slots: int = 2):
         self.dev = device
         self.cdtype = cdtype
         self.f32 = f32
         self.slots = [torch.empty(slot_len, dtype=cdtype, device=device)
-                      for _ in range(2)]
+                      for _ in range(slots)]
         self.cuda = device.type == "cuda"
         if self.cuda:
             self.compute = torch.cuda.current_stream(device)
             self.h2d = torch.cuda.Stream(device)
             self.d2h = torch.cuda.Stream(device)
             ev = torch.cuda.Event
-            self.uploaded = [ev(), ev()]
-            self.computed = [ev(), ev()]
-            self.drained = [ev(), ev()]
+            self.uploaded = [ev() for _ in range(slots)]
+            self.computed = [ev() for _ in range(slots)]
+            self.drained = [ev() for _ in range(slots)]
         self.bytes_up = 0
         self.bytes_down = 0
 
@@ -121,19 +121,28 @@ class StripeIO:
                 self._dev_view(d).copy_(self._host_view(a))
         self.bytes_up += sum(a.nbytes for a in arrays)
 
+    def planes(self, i: int, count: int) -> tuple:
+        """The first ``count`` amplitudes of slot ``i`` split into (re,
+        im) planes on the compute stream, once uploaded."""
+        if self.cuda:
+            self.compute.wait_event(self.uploaded[i])
+        x = torch.view_as_real(self.slots[i][:count])
+        return x[:, 0].contiguous(), x[:, 1].contiguous()
+
+    def store(self, i: int, re, im) -> None:
+        """Join the planes back into the head of slot ``i``, on the
+        compute stream, for its download."""
+        x = torch.view_as_real(self.slots[i][:re.numel()])
+        x[:, 0].copy_(re)
+        x[:, 1].copy_(im)
+        if self.cuda:
+            self.computed[i].record(self.compute)
+
     def compute_slot(self, i: int, count: int, body) -> None:
         """Run ``body([re, im]) -> (re, im)`` on the first ``count``
         amplitudes of slot ``i``: split into planes on the card, joined
         back into the slot, on the compute stream."""
-        if self.cuda:
-            self.compute.wait_event(self.uploaded[i])
-        x = torch.view_as_real(self.slots[i][:count])
-        re, im = body([x[:, 0].contiguous(), x[:, 1].contiguous()])
-        x[:, 0].copy_(re)
-        x[:, 1].copy_(im)
-        del re, im
-        if self.cuda:
-            self.computed[i].record(self.compute)
+        self.store(i, *body(list(self.planes(i, count))))
 
     def download(self, i: int, arrays) -> None:
         """Copy slot ``i`` back into the host stripes ``arrays`` (numpy

@@ -22,6 +22,7 @@ import textwrap
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from quantum_simulations_tpu.circuit import gates as RG
@@ -219,3 +220,75 @@ def test_one_process_cluster(tmp_path):
     assert rec["costs"] == [D.ICI_COST] * 2
     np.testing.assert_allclose(_assemble(tmp_path, "window", 4),
                                roracle.simulate(CD), atol=1e-10)
+
+
+
+def test_pod_mesh_defaults_to_the_card(monkeypatch, tmp_path):
+    """``make_pod_mesh`` and ``pod_worker`` run on the card LOCAL_RANK
+    unless asked for the CPU: without a card they raise, as every entry
+    point of the port does."""
+    from quantum_simulations_tpu_torch.parallel import pod_worker
+
+    for key in ("QST_COORDINATOR", "MASTER_ADDR", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    assert D.make_pod_mesh(2, device="cpu").devices == [torch.device("cpu")] * 2
+    if torch.cuda.is_available():
+        assert D.make_pod_mesh(1).devices == [torch.device("cuda", 0)]
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        D.make_pod_mesh(2)
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(CD))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pod_worker.main([str(path), "--devices", "2"])
+
+
+def test_pod_worker_two_processes(tmp_path):
+    """The pod entry point in two gloo processes of 4 CPU positions each:
+    every shard bit-equal to the in-process 8-position run, and the plain
+    torch gate calls and the bytes handed between positions, summed over
+    the processes, equal to that run's."""
+    from quantum_simulations_tpu_torch.ops import dense
+    from quantum_simulations_tpu_torch.parallel import comm
+    from quantum_simulations_tpu_torch.parallel import executor as E
+    from quantum_simulations_tpu_torch.parallel.pod_worker import shard_digests
+
+    path = tmp_path / "c.json"
+    path.write_text(json.dumps(CD))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("QST_", "MASTER_", "WORLD_SIZE", "RANK"))}
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "quantum_simulations_tpu_torch.parallel.pod_worker",
+         str(path), "--devices", "8", "--mode", "window", "--dtype",
+         "complex128", "--device", "cpu"],
+        env=dict(env, QST_COORDINATOR=f"file://{tmp_path}/store",
+                 QST_NUM_PROCESSES="2", QST_PROCESS_ID=str(i),
+                 QST_DIST_TIMEOUT="60"),
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for i in range(2)]
+    outs = []
+    try:
+        for i, p in enumerate(procs):
+            out, err = p.communicate(timeout=WALL_S)
+            assert p.returncode == 0, f"process {i} failed:\n{out}\n{err}"
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    got = json.loads(outs[0])
+    assert outs[1] == "" and got["processes"] == 2 and got["multihost"]
+    comm.reset_counts()
+    dense.GATE_CALLS = 0
+    state = E.simulate_sharded(make_mesh(8, device="cpu"), CD,
+                               dtype="complex128", mode="window")
+    assert got["shards_sha256"] == {str(s): h for s, h in
+                                    shard_digests(state).items()}
+    assert got["dense_gate_calls"] == dense.GATE_CALLS > 0
+    moved = sum(p["ppermute_bytes"] + p["all_to_all_bytes"]
+                for p in got["exchange_by_process"])
+    assert moved == comm.moved_bytes() > 0
+    assert sum(p["remote_bytes"] for p in got["exchange_by_process"]) > 0
+    assert abs(got["norm2"] - 1) < 1e-12
