@@ -236,6 +236,24 @@ Phases (any failure exits non-zero):
    ``placement --devices 1 --qubits 28`` (exit 0), ``run --devices 2``
    (exit 1, naming the one card).  Phase 8's seconds and the card line
    close it.
+9. The bench tier (``quantum_simulations_tpu_torch/bench/``), run after
+   phase 4 and before phase 5 (before phase 7 pins host memory): the
+   CLI's nine ``python -m quantum_simulations_tpu_torch bench <which>``,
+   then ``bench.c128_diff`` (sizes 16, 18), ``bench.passes`` on nonstab28
+   (reps 6, samples 3), ``bench.sharded shard_timing 30`` and
+   ``bench.headline``, each a subprocess started ahead of its turn and
+   waiting for a go file (:data:`BENCH_ARGV`), host MemAvailable and the
+   card's free memory logged before each.  A bench that exits non-zero
+   fails the phase after its stderr's tail.  Each JSON is held by
+   :func:`check_bench`: suite 0 mismatches; c128_diff met; every matrix
+   row ok, its sharded rows (8 positions sharing the card) present;
+   e2e, sweep and baseline_configs' walls and rates > 0; no kernel_bw row
+   above 105% of 3.35 TB/s; passes attributes every pass once, no row
+   above 105% of its bound, its TOTAL within 1.5x of phase 4's nonstab28
+   window ms; shard_timing has an exchange and at most collectives x
+   shard bytes; capacity's peak at n = 30 at most the two planes + 1
+   GiB; the headline within 1.5x of phase 4's nonstab28 rate.  One
+   ``bench <name>`` line each, then the phase's seconds.
 
 The last lines: the card line as nvidia-smi prints it, one JSON object
 ``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.  The
@@ -253,9 +271,11 @@ import time
 import traceback
 from pathlib import Path
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-FP32_FLOP_PER_S = 67e12        # float32 outside the tensor cores
-TF32_FLOP_PER_S = 495e12       # TF32 on the tensor cores, dense
+try:  # the card's peaks and a pass's bound: the benches' one account
+    from quantum_simulations_tpu_torch.bench import HBM_BYTES_PER_S, bound
+except ImportError:  # alone in a directory: main() says so and fails
+    pass
+
 # The kernels whose dim-128 instances run on the tensor cores (split TF32,
 # csrc/panels.cu namespace tc), and the phase-4 rows timed on them.
 TC_KERNELS = ("lane_panel", "positioned_panel", "dual_panel")
@@ -734,45 +754,6 @@ def cuda_ms(fn, reps: int) -> float:
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
-
-
-def straddle_flop(s) -> int:
-    """flop per amplitude of a (6, qb) straddler by the reference's term
-    plan: a select (CNOT) only moves data; a unit / real / complex term
-    costs 2 / 4 / 8 (a general complex U: 32)."""
-    import numpy as np
-
-    from quantum_simulations_tpu_torch.ops import panel_kernels as pk
-
-    kinds = pk._straddle_plan(s.qb, s.U, np.float32)[2][2]
-    return sum({"select": 0, "unit": 2, "real": 4, "complex": 8}[k]
-               for k in kinds)
-
-
-def bound(N: int, dims: list[int], straddles=(), diag=None, tc=False):
-    """(bound_ms, bound_by) of the work the function needs.  Bytes: both
-    planes read and written once, each W and straddler U read once, a
-    diag run's packed operand read once.  Operations: a complex
-    contraction of width dim costs 6 * dim flop per amplitude by Gauss's
-    three real products (the reference's default, ``_cmul_planes`` in
-    pallas_kernels.py), plus 4 adds, at the float32 rate; with ``tc`` (the
-    tensor-core panels, split TF32) each of the three real products takes
-    three TF32 products, 18 * dim flop per amplitude at the TF32 rate; a
-    straddler costs :func:`straddle_flop`; a diag run's rotation 6
-    per amplitude (its angle sums are integer adds and its cos / sin one
-    sincos, not counted); a bit permutation none."""
-    nbytes = (4 * N * 4 + sum(2 * d * d * 4 for d in dims)
-              + 32 * 4 * len(straddles)
-              + (0 if diag is None else 4 * diag.words.size))
-    fp32 = N * (sum(straddle_flop(s) for s in straddles)
-                + (0 if diag is None else 6))
-    if tc:
-        t_f = (fp32 / FP32_FLOP_PER_S
-               + N * sum(18 * d for d in dims) / TF32_FLOP_PER_S)
-    else:
-        t_f = (fp32 + N * sum(6 * d + 4 for d in dims)) / FP32_FLOP_PER_S
-    t_b = nbytes / HBM_BYTES_PER_S
-    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
 def moved_rows(n: int, src) -> int:
@@ -3759,6 +3740,230 @@ def sharded_tier(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the bench tier
+# ---------------------------------------------------------------------------
+
+PORT = "quantum_simulations_tpu_torch"
+# Each bench of phase 9 is a subprocess: its argv after the interpreter.
+# The CLI's nine run at the JAX package's defaults, except where a
+# ``--set`` (or, for the others, a flag) cuts one to the phase's budget.
+BENCH_ARGV = {
+    "kernel_bw": ["-m", PORT, "bench", "kernel_bw"],
+    "e2e": ["-m", PORT, "bench", "e2e"],
+    "sweep": ["-m", PORT, "bench", "sweep"],
+    "suite": ["-m", PORT, "bench", "suite"],
+    "spill_bw": ["-m", PORT, "bench", "spill_bw"],
+    "baseline_configs": ["-m", PORT, "bench", "baseline_configs"],
+    "capacity": ["-m", PORT, "bench", "capacity"],
+    "matrix": ["-m", PORT, "bench", "matrix"],
+    "projection": ["-m", PORT, "bench", "projection"],
+    "c128_diff": ["-m", f"{PORT}.bench.c128_diff", "--sizes", "16,18"],
+    "passes": ["-m", f"{PORT}.bench.passes", "--config", "nonstab28",
+               "--reps", "6", "--samples", "3"],
+    "shard_timing": ["-m", f"{PORT}.bench.sharded", "shard_timing", "30"],
+    "headline": ["-m", f"{PORT}.bench.headline"],
+}
+BENCH_AHEAD = 2          # subprocesses started (and waiting) beside the running one
+BENCH_BUDGET_S = 180.0
+BENCH_RATIO = 1.5        # passes' TOTAL and the headline against phase 4
+BENCH_OVER = 1.05        # no reading above 105% of a bound
+
+# A bench subprocess after :data:`_GATE`: its module run as ``-m`` runs it.
+_BENCH_RUN = ("import runpy\n"
+              "mod = sys.argv[2]\n"
+              "sys.argv = [mod] + sys.argv[3:]\n"
+              "runpy.run_module(mod, run_name='__main__', alter_sys=True)\n")
+
+
+def last_json(out: str):
+    """The JSON document a bench printed last: its last line, or (printed
+    with ``indent``) the lines from the last one that is ``{``."""
+    lines = out.rstrip().splitlines()
+    try:
+        return json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        start = max(i for i, line in enumerate(lines) if line == "{")
+        return json.loads("\n".join(lines[start:]))
+
+
+def _positive(rows, *keys) -> None:
+    bad = [r for r in rows if not all(r[k] > 0 for k in keys)]
+    if bad:
+        raise AssertionError(f"a wall time or rate is not > 0: {bad[:3]}")
+
+
+def check_bench(name: str, out: dict, ref: dict) -> str:
+    """Hold one bench's JSON to phase 9's checks (``ref``: phase 4's e2e
+    nonstab28 window record, ``ms`` and ``amp_updates_per_s``); returns
+    its key numbers for the log line, raises AssertionError if a check
+    fails."""
+    from quantum_simulations_tpu_torch.bench import HBM_BYTES_PER_S
+
+    if name == "suite":
+        if out["n_mismatch"]:
+            raise AssertionError(f"suite: {out['n_mismatch']} mismatches: "
+                                 f"{[r for r in out['rows'] if r.get('status') == 'MISMATCH'][:3]}")
+        ok = [r for r in out["rows"] if r["status"] == "ok"]
+        return (f"{len(ok)} rows ok ({len(out['rows']) - len(ok)} skipped), "
+                f"worst err {max(r['max_err'] for r in ok):.3e}")
+    if name == "c128_diff":
+        if not out["met"]:
+            raise AssertionError(f"c128_diff not met: {out}")
+        return f"met, worst amp err {out['worst_amp_err']:.3e}"
+    if name == "matrix":
+        rows = [r for r in out["rows"] if not r["status"].startswith("skip")]
+        bad = [r for r in rows if r["status"] != "ok"]
+        if bad or out["n_bad"]:
+            raise AssertionError(f"matrix: rows not ok: {bad[:3]}")
+        sharded = [r for r in rows if "sharded" in r["tiers"]]
+        want = [r for r in rows if (1 << r["n"]) >= out["positions"] * 128]
+        if not want or len(sharded) != len(want):
+            raise AssertionError(f"matrix: {len(sharded)} sharded rows of "
+                                 f"{len(want)} wanted")
+        worst = max(t["max_err"] for r in rows for t in r["tiers"].values())
+        return (f"{len(rows)} rows ok over {out['tiers_seen']}, {len(sharded)} "
+                f"sharded on {out['positions']} positions, worst err {worst:.3e}")
+    if name == "e2e":
+        _positive(out["results"], "wall_s", "amp_updates_per_s")
+        best = max(out["results"], key=lambda r: r["amp_updates_per_s"])
+        return (f"{len(out['results'])} rows; best {best['family']}{best['n']} "
+                f"{best['mode']} {best['amp_updates_per_s']:.4e} amp-updates/s")
+    if name == "sweep":
+        _positive(out["rows"], "wall_s")
+        return ", ".join(f"{r['mode']}/{r.get('use_fusion', '')}/"
+                         f"{r.get('panel_width', '')} {r['wall_s'] * 1e3:.3f} ms"
+                         for r in out["rows"])
+    if name == "baseline_configs":
+        _positive(out["rows"], "steady_s", "amp_updates_per_s")
+        return ", ".join(f"{r['config']} {r['steady_s'] * 1e3:.3f} ms"
+                         for r in out["rows"])
+    if name == "kernel_bw":
+        limit = BENCH_OVER * HBM_BYTES_PER_S / 1e9
+        bad = {k: v for k, v in out["ops"].items()
+               if "error" in v or not (v["s_per_pass"] > 0 and v["GBs"] <= limit)}
+        if bad:
+            raise AssertionError(f"kernel_bw: rows in error or above "
+                                 f"{limit:.0f} GB/s: {bad}")
+        return ", ".join(f"{k} {v['GBs']:.1f}" for k, v in out["ops"].items()) + " GB/s"
+    if name == "passes":
+        covered = sorted(p for r in out["rows"] for p in r["passes"])
+        if covered != list(range(out["passes"])):
+            raise AssertionError(f"passes: attributed {covered}, not each of "
+                                 f"{out['passes']} once")
+        over = [r for r in out["rows"]
+                if r["floor_ms"] > BENCH_OVER * r["measured_ms"]]
+        if over:
+            raise AssertionError(f"passes: rows above {BENCH_OVER:.0%} of "
+                                 f"their bound: {over}")
+        ratio = out["total_ms"] / ref["ms"]
+        if not 1 / BENCH_RATIO <= ratio <= BENCH_RATIO:
+            raise AssertionError(f"passes: TOTAL {out['total_ms']} ms is "
+                                 f"{ratio:.3f} x phase 4's {ref['ms']:.3f} ms")
+        return (f"TOTAL {out['total_ms']:.3f} ms ({ratio:.3f} x phase 4), bound "
+                f"{out['floor_total_ms']:.3f} ms; " + "; ".join(
+                    f"{r['kind']} {r['measured_ms']:.3f} ms {r['pct_of_bound']}% "
+                    f"{r['binding']}" for r in out["rows"]))
+    if name == "shard_timing":
+        shard = out["shard_amplitudes"] * 8
+        if not (out["collectives"] >= 1 and out["exchange_bytes_per_position"]
+                <= out["collectives"] * shard and out["measured_shard_compute_s"] > 0):
+            raise AssertionError(f"shard_timing: {out}")
+        return (f"{out['config']}: shard compute {out['measured_shard_compute_s']:.4f} s, "
+                f"{out['local_window_passes']} passes, {out['collectives']} "
+                f"exchanges, {out['exchange_bytes_per_position']} B a position")
+    if name == "capacity":
+        _positive(out["rows"], "steady_s", "amp_updates_per_s")
+        over = [r for r in out["rows"]
+                if "peak_gib" in r and r["peak_gib"] > r["planes_gib"] + 1]
+        if over:
+            raise AssertionError(f"capacity: peak above 2 planes + 1 GiB: {over}")
+        return ", ".join(f"{r['config']} {r['steady_s'] * 1e3:.3f} ms "
+                         f"peak {r.get('peak_gib', 0):.3f} GiB" for r in out["rows"])
+    if name == "headline":
+        ratio = out["metric"] / ref["amp_updates_per_s"]
+        if not 1 / BENCH_RATIO <= ratio <= BENCH_RATIO:
+            raise AssertionError(f"headline: {out['metric']:.4e} is {ratio:.3f} x "
+                                 f"phase 4's {ref['amp_updates_per_s']:.4e}")
+        return (f"{out['metric']:.4e} amp-updates/s ({ratio:.3f} x phase 4), "
+                f"vs_baseline {out['vs_baseline']:.1f}, t {out['wall_s'] * 1e3:.3f} ms")
+    if name == "spill_bw":
+        _positive(out["rows"], "wall_s", "MB_per_s")
+        if abs(out["rows"][0]["norm"] - 1) > 1e-4:
+            raise AssertionError(f"spill_bw: norm {out['rows'][0]['norm']}")
+        return ", ".join(f"{r['backend']} {r['MB_per_s']:.1f} MB/s" for r in out["rows"])
+    if name == "projection":
+        if not (math.isfinite(out["projected_total_s"]) and out["local_s"] > 0):
+            raise AssertionError(f"projection: {out}")
+        return (f"{out['projected_total_s']:.3f} s projected at "
+                f"{out['amp_updates_per_s']:.4e} amp-updates/s, "
+                f"{out['reshard_gib_per_position']} GiB resharded a position")
+    raise KeyError(name)
+
+
+def bench_tier(dev, ref: dict) -> None:
+    """Phase 9: every bench as a subprocess (started ahead of its turn,
+    waiting for a go file), its JSON held to :func:`check_bench`.  A bench
+    that exits non-zero fails the phase after its stderr's tail."""
+    import shutil
+
+    import torch
+
+    _free(dev)
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke_bench"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    env = dict(os.environ)  # the benches measure the device the phase is given
+    env.pop("QST_BENCH_PLATFORM", None)
+    if dev.type == "cpu":
+        env["QST_BENCH_PLATFORM"] = "cpu"
+    names = list(BENCH_ARGV)
+    procs: dict = {}
+    rec: dict = {}
+    t_phase = time.perf_counter()
+
+    def start(name):
+        argv = BENCH_ARGV[name]
+        procs[name] = _gated(_BENCH_RUN, argv, work / f"{name}.go", env, root)
+
+    try:
+        for name in names[:BENCH_AHEAD + 1]:
+            start(name)
+        for i, name in enumerate(names):
+            free, _ = torch.cuda.mem_get_info(dev) if dev.type == "cuda" else (0, 0)
+            log(f"bench {name}: host MemAvailable "
+                f"{meminfo()['MemAvailable'] / GIB:.1f} GiB, card free "
+                f"{free / GIB:.1f} GiB")
+            t0 = time.perf_counter()
+            (work / f"{name}.go").touch()
+            out, err = procs[name].communicate(timeout=600)
+            dt = time.perf_counter() - t0
+            if i + BENCH_AHEAD + 1 < len(names):
+                start(names[i + BENCH_AHEAD + 1])
+            if procs[name].returncode != 0:
+                log(f"bench {name}: FAIL exit {procs[name].returncode} after "
+                    f"{dt:.3f} s; stderr tail:\n{err[-4000:]}")
+                raise AssertionError(f"bench {name} exited "
+                                     f"{procs[name].returncode}")
+            result = last_json(out)
+            rec[name] = dict(s=dt, result=result)
+            try:
+                summary = check_bench(name, result, ref)
+            except AssertionError:
+                log(f"bench {name}: FAIL in {dt:.3f} s; stdout tail:\n{out[-3000:]}")
+                raise
+            log(f"bench {name}: {dt:.3f} s; {summary} ok")
+    finally:
+        _stop(procs.values())
+        shutil.rmtree(work, ignore_errors=True)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"bench phase 9: {rec['phase_s']:.3f} s (budget {BENCH_BUDGET_S:.0f} s"
+        f"{'' if rec['phase_s'] <= BENCH_BUDGET_S else ', OVER'}); card "
+        f"{card_line() if dev.type == 'cuda' else dev}")
+    RECORD["bench"] = rec
+
+
 def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
     """One record per kernel: its launches in the request that runs it
     (a panel's "+diag" and "+rotate" launches included; the requests
@@ -3855,6 +4060,7 @@ def main() -> int:
     counts = main_path(dev)
     counts.update(panel_path(dev))
     rows = times(dev, scheds)
+    bench_tier(dev, RECORD["e2e"]["nonstab28"])
     counts.update(capacity33(dev))
     counts.update(tiers(dev))
     counts.update(spill_tier(dev))

@@ -14,6 +14,7 @@ output).
     python -m quantum_simulations_tpu_torch run circuit.json --work-dir wd \
         [--checkpoint-every 2] [--step-levels 1]
     python -m quantum_simulations_tpu_torch placement [--devices 8] [--qubits 30]
+    python -m quantum_simulations_tpu_torch bench e2e [--set 'sizes=[20]']
 
 Circuit files are contract JSON dicts or OpenQASM 2.0 (.qasm).  Runs on
 the card; ``--device cpu`` runs the kernels' plain torch twins on the
@@ -25,6 +26,9 @@ fewer cards than asked: exit status 1, naming the cards found);
 ``--work-dir`` alone runs the WAL runner (a rerun resumes).
 ``placement`` prints the mesh's placement report and exits 0 when its
 invariants and the check of a state placed on it hold, else 1.
+``bench <which>`` runs one of the JAX package's nine CLI benches
+(``bench/``) on the card and prints its JSON; ``--set KEY=JSON`` changes
+one keyword of its ``run()`` (the defaults are the JAX package's).
 """
 from __future__ import annotations
 
@@ -32,6 +36,31 @@ import argparse
 import json
 import sys
 from pathlib import Path
+
+
+BENCHES = ["kernel_bw", "e2e", "sweep", "suite", "spill_bw",
+           "baseline_configs", "capacity", "matrix", "projection"]
+
+
+def _bench(which: str, overrides: list) -> dict:
+    """``bench.<which>.run()`` with each ``KEY=JSON`` of ``overrides`` as a
+    keyword; a malformed item or a keyword ``run`` does not take exits."""
+    import importlib
+    import inspect
+
+    mod = importlib.import_module(f".bench.{which}", __package__)
+    params = inspect.signature(mod.run).parameters
+    kw = {}
+    for item in overrides:
+        key, _, value = item.partition("=")
+        if key not in params:
+            raise SystemExit(f"--set {item!r}: bench {which} takes "
+                             f"{', '.join(params)}")
+        try:
+            kw[key] = json.loads(value)
+        except json.JSONDecodeError as e:
+            raise SystemExit(f"--set {item!r}: the value is not JSON ({e})")
+    return mod.run(**kw)
 
 
 def _load_circuit(path: str, trajectory: bool = False) -> dict:
@@ -102,6 +131,15 @@ def _parser() -> argparse.ArgumentParser:
                           choices=["qasm", "dot", "json"])
     p_export.add_argument("--partitions", type=int, default=None,
                           help="dot only: cluster by partition()")
+
+    p_bench = sub.add_parser(
+        "bench", help="run one bench and print its JSON (on the card; "
+                      "QST_BENCH_PLATFORM=cpu runs it on the CPU)")
+    p_bench.add_argument("which", choices=BENCHES)
+    p_bench.add_argument(
+        "--set", action="append", default=[], metavar="KEY=JSON",
+        help="override one keyword of the bench's run(), the value as "
+             "JSON (e.g. --set 'sizes=[8, 12]'); repeatable")
 
     p_place = sub.add_parser(
         "placement",
@@ -188,6 +226,10 @@ def main(argv=None) -> int:
         print(json.dumps(rep, indent=1))
         return 0 if (rep["invariants"]["ok"]
                      and rep["sharded_array_check"]["ok"]) else 1
+
+    if args.cmd == "bench":
+        print(json.dumps(_bench(args.which, args.set), indent=1))
+        return 0
 
     cd = _load_circuit(args.circuit, trajectory=args.trajectory)
     if args.cmd == "export":

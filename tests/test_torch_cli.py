@@ -217,3 +217,132 @@ def test_module_entry_point(files):
         cwd=ROOT, capture_output=True, text=True, timeout=300, check=True)
     out = json.loads(proc.stdout)
     assert [i for i, _ in out["top"]] == ["0x0", "0x3ff"]
+
+
+def test_bench_choices_match_reference(capsys):
+    """``bench`` takes the JAX package's nine choices, in its order."""
+    import re
+
+    from quantum_simulations_tpu_torch.__main__ import BENCHES
+
+    with pytest.raises(SystemExit) as e:
+        rmain(["bench", "--help"])
+    assert e.value.code == 0
+    choices = re.search(r"\{([a-z_,0-9]+)\}", capsys.readouterr().out).group(1)
+    assert BENCHES == choices.split(",")
+    assert len(BENCHES) == 9
+    with pytest.raises(SystemExit) as e:
+        main(["bench", "corpus"])
+    assert e.value.code == 2
+
+
+def test_bench_suite_prints_json_on_cpu(capsys, monkeypatch):
+    monkeypatch.setenv("QST_BENCH_PLATFORM", "cpu")
+    assert main(["bench", "suite", "--set", "sizes=[6]"]) == 0
+    out = json.loads(capsys.readouterr().out)
+    assert out["n_mismatch"] == 0 and out["device"] == "cpu"
+    assert {r["n"] for r in out["rows"]} <= {6, 2, 4, 5}  # fixed-size families
+    for bad in ("sizes", "sizes=(6,)", "size=[6]"):
+        with pytest.raises(SystemExit, match="--set"):
+            main(["bench", "suite", "--set", bad])
+
+
+def test_bench_platform_never_falls_back(monkeypatch):
+    """Without a card and without ``QST_BENCH_PLATFORM=cpu`` a bench
+    raises, naming the missing card; it does not run on the CPU."""
+    import torch
+
+    from quantum_simulations_tpu_torch.bench import setup_platform
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the benches measure it")
+    monkeypatch.delenv("QST_BENCH_PLATFORM", raising=False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        setup_platform()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        main(["bench", "e2e"])
+    monkeypatch.setenv("QST_BENCH_PLATFORM", "tpu")
+    with pytest.raises(ValueError, match="QST_BENCH_PLATFORM"):
+        setup_platform()
+    monkeypatch.setenv("QST_BENCH_PLATFORM", "cpu")
+    assert setup_platform() == torch.device("cpu")
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_phase9_checks_rehearsal(monkeypatch):
+    """chip_smoke.py phase 9's checks, fed the benches' JSON from CPU runs
+    at tiny sizes (each through the JSON text a subprocess would print),
+    and a corrupted copy of each that a check must refuse."""
+    import copy
+
+    from quantum_simulations_tpu_torch.bench import (
+        baseline_configs, c128_diff, capacity, e2e, headline, kernel_bw,
+        matrix, passes, projection, sharded, spill_bw, suite, sweep,
+    )
+
+    monkeypatch.setenv("QST_BENCH_PLATFORM", "cpu")
+    cs = _chip_smoke()
+    assert set(cs.BENCH_ARGV) == {
+        "kernel_bw", "e2e", "sweep", "suite", "spill_bw", "baseline_configs",
+        "capacity", "matrix", "projection", "c128_diff", "passes",
+        "shard_timing", "headline"}
+    outs = {
+        "kernel_bw": kernel_bw.run(n=14, reps=1, iters=2),
+        "e2e": e2e.run(sizes=(10,), families=("ghz",), reps=1),
+        "sweep": sweep.run(n=10, reps=1),
+        "suite": suite.run(sizes=(5,)),
+        "spill_bw": spill_bw.run(n=10, stripe_qubits=7),
+        "baseline_configs": baseline_configs.run(reps=1, only=("ghz20",)),
+        "capacity": capacity.run(ns=(12,)),
+        "matrix": matrix.run(sizes=(8, 10), families=("ghz", "nonstab")),
+        "projection": projection.run(rate_n=12),
+        "c128_diff": c128_diff.run(sizes=(8,), families=("qft",)),
+        "passes": passes.run(config="nonstab10", reps=2, samples=2),
+        "shard_timing": sharded.shard_timing(12, 4, depth=2, reps=1),
+        "headline": headline.run(n=10),
+    }
+    # the printed forms: indented JSON after streamed rows, or a last line
+    assert cs.last_json('{"row": 1}\n' + json.dumps(outs["suite"], indent=1)) \
+        == outs["suite"]
+    assert cs.last_json('{"row": 1}\n{"met": true}\n') == {"met": True}
+    ref = {"ms": outs["passes"]["total_ms"],
+           "amp_updates_per_s": outs["headline"]["metric"]}
+    for name, out in outs.items():
+        assert isinstance(cs.check_bench(name, json.loads(json.dumps(out)),
+                                         ref), str), name
+
+    def refused(name, edit):
+        bad = copy.deepcopy(outs[name])
+        edit(bad)
+        with pytest.raises(AssertionError):
+            cs.check_bench(name, bad, ref)
+
+    refused("suite", lambda o: o.update(n_mismatch=1))
+    refused("c128_diff", lambda o: o.update(met=False))
+    refused("matrix", lambda o: o["rows"][-1].update(status="MISMATCH"))
+    refused("matrix", lambda o: o["rows"][-1]["tiers"].pop("sharded"))
+    refused("e2e", lambda o: o["results"][0].update(wall_s=0.0))
+    refused("sweep", lambda o: o["rows"][0].update(wall_s=0.0))
+    refused("baseline_configs", lambda o: o["rows"][0].update(steady_s=0.0))
+    refused("kernel_bw", lambda o: o["ops"]["rotate7"].update(GBs=3600.0))
+    refused("kernel_bw", lambda o: o["ops"]["rotate7"].update(error="x"))
+    refused("passes", lambda o: o["rows"].pop())
+    refused("passes", lambda o: o["rows"][0].update(
+        floor_ms=2 * o["rows"][0]["measured_ms"] + 1))
+    refused("passes", lambda o: o.update(total_ms=2 * o["total_ms"]))
+    refused("shard_timing", lambda o: o.update(collectives=0))
+    refused("shard_timing", lambda o: o.update(
+        exchange_bytes_per_position=o["collectives"] * o["shard_amplitudes"] * 8 + 1))
+    refused("capacity", lambda o: o["rows"][0].update(peak_gib=1.5))
+    refused("headline", lambda o: o.update(metric=2 * o["metric"]))
+    refused("spill_bw", lambda o: o["rows"][0].update(norm=0.5))
+    refused("projection", lambda o: o.update(projected_total_s=float("nan")))

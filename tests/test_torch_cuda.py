@@ -957,3 +957,17 @@ def test_make_mesh_refuses_more_cards_than_present(dev):
     count = torch.cuda.device_count()
     with pytest.raises(MeshError, match=f"need {2 * count} devices, have {count}"):
         make_mesh(2 * count)
+
+
+@pytest.mark.parametrize("mode", ["panel", "window", "fused"])
+def test_every_family_at_small_n_on_card(dev, mode, monkeypatch):
+    """The suite bench's shapes on the card (n = 6, 10, 14: 2^6 is below
+    one 128-wide lane row) in each mode: every library family through the
+    kernels within 1e-4 of the numpy oracle."""
+    from quantum_simulations_tpu_torch.bench import suite
+
+    monkeypatch.delenv("QST_BENCH_PLATFORM", raising=False)
+    out = suite.run(mode=mode)
+    assert out["n_mismatch"] == 0, [r for r in out["rows"]
+                                    if r.get("status") == "MISMATCH"]
+    assert sum(r["status"] == "ok" for r in out["rows"]) > 60

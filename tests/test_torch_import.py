@@ -13,6 +13,20 @@ MODULES = [
     "quantum_simulations_tpu_torch",
     "quantum_simulations_tpu_torch.__main__",
     "quantum_simulations_tpu_torch.api",
+    "quantum_simulations_tpu_torch.bench",
+    "quantum_simulations_tpu_torch.bench.baseline_configs",
+    "quantum_simulations_tpu_torch.bench.c128_diff",
+    "quantum_simulations_tpu_torch.bench.capacity",
+    "quantum_simulations_tpu_torch.bench.e2e",
+    "quantum_simulations_tpu_torch.bench.headline",
+    "quantum_simulations_tpu_torch.bench.kernel_bw",
+    "quantum_simulations_tpu_torch.bench.matrix",
+    "quantum_simulations_tpu_torch.bench.passes",
+    "quantum_simulations_tpu_torch.bench.projection",
+    "quantum_simulations_tpu_torch.bench.sharded",
+    "quantum_simulations_tpu_torch.bench.spill_bw",
+    "quantum_simulations_tpu_torch.bench.suite",
+    "quantum_simulations_tpu_torch.bench.sweep",
     "quantum_simulations_tpu_torch.convert",
     "quantum_simulations_tpu_torch.circuit.dag",
     "quantum_simulations_tpu_torch.circuit.export_qasm",
