@@ -184,11 +184,13 @@ Phases (any failure exits non-zero):
    1e-6, chunk by chunk on the card) and nonstab33 staged (7 steps,
    groups of at most 2^30, the un-permute in place), within 1e-5 of the
    capacity tier's nonstab33, chunk by chunk; ghz34 needs 128 GiB and is
-   not run.  nonstab28 on the disk backend at m = 24 in subprocesses:
+   not run.  nonstab26 on the disk backend at m = 22 in subprocesses
+   (cut from nonstab28 at m = 24, 115 s of fsync'd chunk writes, to keep
+   the script inside its time limit beside phase 10):
    crashed by ``QST_CRASH_AFTER_STRIPE`` inside its first group step (the
    WAL's done_steps below the total), resumed in a fresh process, within
-   1e-5 of fused mode in HBM.  The CLI: ``run ghz28.json --mode fused
-   --stripe-qubits 24``, host and disk, the in-HBM run's output.  The
+   1e-5 of fused mode in HBM.  The CLI: ``run ghz26.json --mode fused
+   --stripe-qubits 22``, host and disk, the in-HBM run's output.  The
    native oracle (g++) on nonstab20 within 1e-10 of the numpy oracle.
    Each request prints its seconds, steps, groups, bytes and GB/s each
    way beside the pinned rates, the host's wait and allocation seconds,
@@ -221,7 +223,8 @@ Phases (any failure exits non-zero):
    level a step, in a subprocess crashed by ``QST_CRASH_AFTER_STEP=1``
    (WAL done_steps 1), resumed in a fresh one, ``collect_state`` equal
    bit for bit to an uninterrupted run in this process (checkpoint s and
-   GB/s); nonstab30 through ``api.simulate(cd, SimulatorConfig(mode=
+   GB/s); nonstab28 (cut from nonstab30, whose 8 GiB checkpoint took 15
+   s) through ``api.simulate(cd, SimulatorConfig(mode=
    "capacity"), work_dir=...)`` within 1e-6 of the capacity tier.  A pod
    of 2 processes x 2 positions over gloo, card pieces staged through
    host memory, both on this card (``parallel.pod_worker``): every
@@ -253,7 +256,27 @@ Phases (any failure exits non-zero):
    window ms; shard_timing has an exchange and at most collectives x
    shard bytes; capacity's peak at n = 30 at most the two planes + 1
    GiB; the headline within 1.5x of phase 4's nonstab28 rate.  One
-   ``bench <name>`` line each, then the phase's seconds.
+   ``bench <name>`` line each (with the kernels' launches by key), then
+   the launches by kernel and the phase's seconds.
+10. The bench diagnostics, run right after phase 9 by the same loop
+   (:func:`bench_tier`) from :data:`DIAG_ARGV`, at the JAX package's
+   defaults, budget 240 s: ``bench.probe_transfer`` (every copy checked,
+   each pinned rate in (0, 64] GB/s), ``bench.opprof`` (qft26's and
+   nonstab28's classes and counts equal to the schedule, no rate above
+   105% of 3.35 TB/s, nonstab28's est_total_s within 1.5x of phase 4's
+   window e2e, the straddler policies), ``bench.overhead all`` (the I/O
+   variants' norms within 1e-5 and states within 1e-6, the lane-panel
+   chain's slope within 1.5x of phase 4's lane_panel row, the diag
+   variants), ``bench.overhead wal`` (checkpoints under the phase's work
+   dir, a rate > 0, the same steps in every configuration),
+   ``bench.capacity sample`` (1e6 shots at n = 30: each one-count within
+   5 sigma of its exact P(1), peak at most the planes + 1 GiB),
+   ``bench.spill_bw`` overlap (bit-equal), slice40 (stripe passes = steps
+   x 2^14), real (within 1e-5 of the window run) and ghz (n = 31, 16 GiB
+   pinned: poles and off-pole amplitudes within 1e-6), ``bench.sharded``
+   (ghz30 / sycamore30 on 8 positions, the complex128 oracle rows within
+   1e-10) and ``bench.sharded mesh16`` (the five-tier dry run and the
+   pod14 program on 16 positions).
 
 The last lines: the card line as nvidia-smi prints it, one JSON object
 ``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.  The
@@ -2339,7 +2362,7 @@ def tiers(dev) -> dict:
 
 NSPILL, SPILL_M = 33, 28       # 64 GiB in host DRAM, stripes of 2 GiB
 NSPILL_MID, SPILL_M_MID = 30, 26   # nonstab30: 16 steps, groups to 2^30
-NDISK, DISK_M = 28, 24         # nonstab28 on disk: stripes of 128 MiB
+NDISK, DISK_M = 26, 22         # nonstab26 on disk: stripes of 32 MiB
 NNATIVE = 20                   # the native oracle against the numpy one
 HOST_MARGIN = 8 * GIB          # host RAM a full-size request leaves free
 SPILL_CHUNK = 1 << 26          # amplitudes per chunk of a host-side check
@@ -2672,7 +2695,7 @@ def spill_big(dev, env: dict, rec: dict, counts: dict) -> None:
 
 
 def spill_disk(dev, work: Path, rec: dict) -> None:
-    """nonstab28 on the disk backend at m = 24, in subprocesses: crashed by
+    """nonstab26 on the disk backend at m = 22, in subprocesses: crashed by
     QST_CRASH_AFTER_STRIPE inside its first group step (the WAL's
     done_steps below the total), resumed in a fresh process, then within
     1e-5 of fused mode in HBM."""
@@ -2736,7 +2759,7 @@ def spill_disk(dev, work: Path, rec: dict) -> None:
 
 
 def spill_cli(dev, work: Path, rec: dict) -> None:
-    """``run ghz28.json --mode fused --stripe-qubits 24``, host and disk
+    """``run ghz26.json --mode fused --stripe-qubits 22``, host and disk
     backend, as subprocesses: the same output as the in-HBM run's (the
     same command without ``--stripe-qubits``, in this process)."""
     import contextlib
@@ -2855,7 +2878,7 @@ NSH, SH_POS = 30, 8            # the reference's sharded size: 8 shards of 2^27
 NSH_CAP, CAP_POS = 31, 2       # 2 shards of 2^30 (the capacity guard: 2^27)
 NRUN, RUN_POS = 28, 4          # the runner's crash / resume request
 POD_PROCS, POD_POS = 2, 2      # the gloo pod: processes x positions each
-NRUN_CAP = 30                  # the runner in place on one position
+NRUN_CAP = 28                  # the runner in place on one position
 NSPM, SPM_M, SPM_POS = 28, 26, 4  # spill across a mesh: stripes of 2^26 on 4
 RANDOM_GATES = 600
 SHOTS = 1000
@@ -3769,11 +3792,27 @@ BENCH_BUDGET_S = 180.0
 BENCH_RATIO = 1.5        # passes' TOTAL and the headline against phase 4
 BENCH_OVER = 1.05        # no reading above 105% of a bound
 
-# A bench subprocess after :data:`_GATE`: its module run as ``-m`` runs it.
-_BENCH_RUN = ("import runpy\n"
+# A bench subprocess after :data:`_GATE`: its module run as ``-m`` runs it;
+# then the kernels' launches in that process, by key, go to stderr.
+_BENCH_RUN = ("import json, runpy\n"
+              "from quantum_simulations_tpu_torch.ops import (\n"
+              "    bitperm_kernels, diag_kernels, pair_kernels, panel_kernels)\n"
               "mod = sys.argv[2]\n"
               "sys.argv = [mod] + sys.argv[3:]\n"
-              "runpy.run_module(mod, run_name='__main__', alter_sys=True)\n")
+              "try:\n"
+              "    runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
+              "finally:\n"
+              "    print('LAUNCHES ' + json.dumps({\n"
+              "        k: v for m in (bitperm_kernels, diag_kernels, pair_kernels,\n"
+              "                       panel_kernels) for k, v in m.LAUNCHES.items()\n"
+              "        if v}), file=sys.stderr, flush=True)\n")
+LAUNCHES_TAG = "LAUNCHES "
+
+
+def bench_launches(err: str) -> dict:
+    """The launches a bench subprocess reported on its stderr."""
+    lines = [line for line in err.splitlines() if line.startswith(LAUNCHES_TAG)]
+    return json.loads(lines[-1][len(LAUNCHES_TAG):]) if lines else {}
 
 
 def last_json(out: str):
@@ -3901,31 +3940,36 @@ def check_bench(name: str, out: dict, ref: dict) -> str:
     raise KeyError(name)
 
 
-def bench_tier(dev, ref: dict) -> None:
-    """Phase 9: every bench as a subprocess (started ahead of its turn,
-    waiting for a go file), its JSON held to :func:`check_bench`.  A bench
-    that exits non-zero fails the phase after its stderr's tail."""
+def bench_tier(dev, ref: dict, argv: dict, budget_s: float, phase: int,
+               check) -> None:
+    """Phase 9 (:data:`BENCH_ARGV`, :func:`check_bench`) or phase 10
+    (:data:`DIAG_ARGV`, :func:`check_diag`): every bench of ``argv`` as a
+    subprocess (started ahead of its turn, waiting for a go file), its
+    JSON held to ``check(name, json, ref)`` and its kernels' launches
+    logged by key.  A bench that exits non-zero fails the phase after its
+    stderr's tail.  The entry ``{work}`` in an argv is the phase's work
+    directory under ``build/``, removed after."""
     import shutil
 
     import torch
 
     _free(dev)
     root = Path(__file__).resolve().parent
-    work = root / "build" / "chip_smoke_bench"
+    work = root / "build" / f"chip_smoke_phase{phase}"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     env = dict(os.environ)  # the benches measure the device the phase is given
     env.pop("QST_BENCH_PLATFORM", None)
     if dev.type == "cpu":
         env["QST_BENCH_PLATFORM"] = "cpu"
-    names = list(BENCH_ARGV)
+    names = list(argv)
     procs: dict = {}
     rec: dict = {}
     t_phase = time.perf_counter()
 
     def start(name):
-        argv = BENCH_ARGV[name]
-        procs[name] = _gated(_BENCH_RUN, argv, work / f"{name}.go", env, root)
+        args = [a.replace("{work}", str(work)) for a in argv[name]]
+        procs[name] = _gated(_BENCH_RUN, args, work / f"{name}.go", env, root)
 
     try:
         for name in names[:BENCH_AHEAD + 1]:
@@ -3947,21 +3991,222 @@ def bench_tier(dev, ref: dict) -> None:
                 raise AssertionError(f"bench {name} exited "
                                      f"{procs[name].returncode}")
             result = last_json(out)
-            rec[name] = dict(s=dt, result=result)
+            rec[name] = dict(s=dt, result=result, launches=bench_launches(err))
             try:
-                summary = check_bench(name, result, ref)
+                summary = check(name, result, ref)
             except AssertionError:
                 log(f"bench {name}: FAIL in {dt:.3f} s; stdout tail:\n{out[-3000:]}")
                 raise
-            log(f"bench {name}: {dt:.3f} s; {summary} ok")
+            log(f"bench {name}: {dt:.3f} s; {summary}; launches "
+                f"{rec[name]['launches']} ok")
     finally:
         _stop(procs.values())
         shutil.rmtree(work, ignore_errors=True)
     rec["phase_s"] = time.perf_counter() - t_phase
-    log(f"bench phase 9: {rec['phase_s']:.3f} s (budget {BENCH_BUDGET_S:.0f} s"
-        f"{'' if rec['phase_s'] <= BENCH_BUDGET_S else ', OVER'}); card "
+    by_kernel: dict = {}
+    for name in names:
+        for k, v in rec[name]["launches"].items():
+            by_kernel[kernel_of(k)] = by_kernel.get(kernel_of(k), 0) + v
+    rec["launches_by_kernel"] = by_kernel
+    log(f"bench phase {phase} launches by kernel: {by_kernel}")
+    log(f"bench phase {phase}: {rec['phase_s']:.3f} s (budget {budget_s:.0f} s"
+        f"{'' if rec['phase_s'] <= budget_s else ', OVER'}); card "
         f"{card_line() if dev.type == 'cuda' else dev}")
-    RECORD["bench"] = rec
+    RECORD[f"bench{phase}"] = rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the bench diagnostics
+# ---------------------------------------------------------------------------
+
+# Each diagnostic of phase 10 is a subprocess, at the JAX package's
+# defaults: its argv after the interpreter ({work}: the phase's work dir).
+DIAG_ARGV = {
+    "probe_transfer": ["-m", f"{PORT}.bench.probe_transfer"],
+    "opprof": ["-m", f"{PORT}.bench.opprof"],
+    "overhead": ["-m", f"{PORT}.bench.overhead", "all"],
+    "wal_tax": ["-m", f"{PORT}.bench.overhead", "wal", "{work}/wal_tax"],
+    "sample_run": ["-m", f"{PORT}.bench.capacity", "sample"],
+    "spill_overlap": ["-m", f"{PORT}.bench.spill_bw", "overlap"],
+    "spill_slice": ["-m", f"{PORT}.bench.spill_bw", "slice40"],
+    "spill_real": ["-m", f"{PORT}.bench.spill_bw", "real"],
+    "spill_ghz31": ["-m", f"{PORT}.bench.spill_bw", "ghz"],
+    "sharded_run": ["-m", f"{PORT}.bench.sharded"],
+    "sharded_run16": ["-m", f"{PORT}.bench.sharded", "mesh16", "{work}/mesh16"],
+}
+DIAG_BUDGET_S = 240.0
+PCIE_GBS = 64.0          # PCIe Gen5 x16, each way: no copy rate above it
+DIAG_NORM = 1e-5         # |norm2 - 1|
+DIAG_INPLACE = 1e-6      # an in-place state against the out-of-place one
+DIAG_SIGMA = 5.0         # a sampled one-count against its exact P(1)
+DIAG_POLE = 1e-6         # a GHZ pole's error, an off-pole amplitude
+DIAG_C128 = 1e-10        # complex128 rows against the oracle
+DIAG_POD = 1e-4          # the pod program (complex64) against the oracle
+
+
+def _norm_ok(x: float) -> bool:
+    return abs(x - 1.0) <= DIAG_NORM
+
+
+def _schedule_classes(cd: dict) -> dict:
+    from collections import Counter
+
+    from quantum_simulations_tpu_torch.bench.opprof import _class_key
+    from quantum_simulations_tpu_torch.circuit.panelize import compile_window_schedule
+
+    return dict(Counter(_class_key(op) for op in
+                        compile_window_schedule(cd, diag_terms_only=True)))
+
+
+def _not_over(what: str, rows: dict) -> None:
+    limit = BENCH_OVER * HBM_BYTES_PER_S / 1e9
+    bad = {k: v for k, v in rows.items()
+           if not (v["s_per_pass"] > 0 and v["GBs"] <= limit)}
+    if bad:
+        raise AssertionError(f"{what}: rows at 0 s or above {limit:.0f} GB/s: {bad}")
+
+
+def check_diag(name: str, out: dict, ref: dict) -> str:
+    """Hold one diagnostic's JSON to phase 10's checks (``ref``: phase 4's
+    nonstab28 window ``ms`` and its ``lane_panel_ms`` row); returns its key
+    numbers for the log line, raises AssertionError if a check fails."""
+    from quantum_simulations_tpu_torch.circuit import library
+
+    if name == "probe_transfer":
+        if out["failed"] or any("error" in r for r in out["rows"] + out["both_ways"]):
+            raise AssertionError(f"probe_transfer: copies failed: {out['failed']}")
+        pinned = ([(r["h2d_GBs"], r["d2h_GBs"]) for r in out["rows"]
+                   if r["memory"] == "pinned"]
+                  + [(r["each_way_GBs"],) for r in out["both_ways"]
+                     if r["memory"] == "pinned"])
+        if not all(0 < x <= PCIE_GBS for t in pinned for x in t):
+            raise AssertionError(f"probe_transfer: a pinned rate outside (0, "
+                                 f"{PCIE_GBS:.0f}] GB/s: {pinned}")
+        return "; ".join(
+            f"{r['dtype']} {r['MB']} MB {r['memory']} up {r['h2d_GBs']:.3f} "
+            f"down {r['d2h_GBs']:.3f}" for r in out["rows"]) + "; both ways " + \
+            ", ".join(f"{r['dtype']} {r['MB']} MB {r['each_way_GBs']:.3f} each"
+                      for r in out["both_ways"]) + " GB/s"
+    if name == "opprof":
+        for key, cd in (("qft", library.qft(out["qft"]["n"])),
+                        ("nonstab", library.non_stabilizer(out["nonstab"]["n"]))):
+            got = {k: v["count"] for k, v in out[key]["classes"].items()}
+            want = _schedule_classes(cd)
+            if got != want or out[key]["ops"] != sum(want.values()):
+                raise AssertionError(f"opprof {key}: classes {got}, the schedule's {want}")
+            _not_over(f"opprof {key}", out[key]["classes"])
+        _not_over("opprof policies", out["policies"]["cases"])
+        ratio = out["nonstab"]["est_total_s"] * 1e3 / ref["ms"]
+        if not 1 / BENCH_RATIO <= ratio <= BENCH_RATIO:
+            raise AssertionError(f"opprof: nonstab est_total_s "
+                                 f"{out['nonstab']['est_total_s']} is {ratio:.3f} x "
+                                 f"phase 4's {ref['ms']:.3f} ms")
+        return "; ".join(
+            f"{key}{out[key]['n']} est {out[key]['est_total_s'] * 1e3:.3f} ms ("
+            + ", ".join(f"{k} x{v['count']} {v['s_per_pass'] * 1e3:.3f} ms "
+                        f"{v['GBs']:.1f} GB/s" for k, v in out[key]["classes"].items())
+            + ")" for key in ("qft", "nonstab")) + \
+            f"; nonstab {ratio:.3f} x phase 4; policies " + ", ".join(
+                f"{k} {v['s_per_pass'] * 1e3:.3f} ms" for k, v in out["policies"]["cases"].items())
+    if name == "overhead":
+        rows = out["nonstab_variants"]
+        bad = [r for r in rows if not _norm_ok(r["norm2"])
+               or r["l2_vs_planar_io"] > DIAG_INPLACE]
+        fit = out["panel_scaling"]["fit"]
+        if bad:
+            raise AssertionError(f"overhead: variants off: {bad}")
+        ratio = fit["slope_ms_per_pass"] / ref["lane_panel_ms"]
+        if not 1 / BENCH_RATIO <= ratio <= BENCH_RATIO:
+            raise AssertionError(f"overhead: slope {fit['slope_ms_per_pass']:.3f} ms is "
+                                 f"{ratio:.3f} x phase 4's lane_panel "
+                                 f"{ref['lane_panel_ms']:.3f} ms")
+        _not_over("overhead diag", {r["variant"]: r for r in out["diag_variants"]})
+        return ("; ".join(f"{r['variant']} {r['steady_s'] * 1e3:.3f} ms, "
+                          f"{r['ms_per_pass']:.3f} ms a pass of {r['passes']}, l2 "
+                          f"{r['l2_vs_planar_io']:.3e}" for r in rows)
+                + f"; chain fixed {fit['intercept_ms']:.3f} ms, pass "
+                  f"{fit['slope_ms_per_pass']:.3f} ms ({ratio:.3f} x phase 4), norm2 "
+                  f"{out['panel_scaling']['norm2']:.9f}; diag "
+                + ", ".join(f"{r['variant']} ({r['n_terms']} terms) "
+                            f"{r['s_per_pass'] * 1e3:.3f} ms {r['GBs']:.1f} GB/s"
+                            for r in out["diag_variants"]))
+    if name == "wal_tax":
+        rows = out["wal_tax"]
+        if (len({r["n_steps"] for r in rows}) != 1
+                or not all(r["checkpoint_MB_s"] and r["checkpoint_MB_s"] > 0
+                           for r in rows)):
+            raise AssertionError(f"wal_tax: steps differ or no checkpoint rate: {rows}")
+        return "; ".join(f"{r['config']} wall {r['wall_s']:.3f} s, steps "
+                         f"{r['exec_s']:.3f} s ({r['n_steps']}), {r['n_checkpoints']} "
+                         f"checkpoints {r['checkpoint_s']:.3f} s at "
+                         f"{r['checkpoint_MB_s']:.1f} MB/s" for r in rows)
+    if name == "sample_run":
+        z = max(abs(c - out["shots"] * p) / math.sqrt(out["shots"] * p * (1 - p))
+                for c, p in zip(out["counts"], out["p1"]))
+        over = "peak_gib" in out and out["peak_gib"] > out["planes_gib"] + 1
+        if not _norm_ok(out["norm2"]) or z > DIAG_SIGMA or over:
+            raise AssertionError(f"sample_run: norm2 {out['norm2']}, worst "
+                                 f"{z:.2f} sigma, peak {out.get('peak_gib')} GiB")
+        return (f"{out['config']} {out['passes']} passes {out['circuit_s']:.3f} s; "
+                f"{out['shots']} shots {out['sample_s']:.4f} s, "
+                f"{out['shots_per_s']:.4e} shots/s; worst {z:.2f} sigma; peak "
+                f"{out.get('peak_gib', 0):.3f} GiB of {out['planes_gib']:.0f} GiB planes")
+    if name == "spill_overlap":
+        if not (out["bit_equal"] and _norm_ok(out["pipelined"]["norm"])
+                and _norm_ok(out["synchronous"]["norm"])):
+            raise AssertionError(f"spill_overlap: {out}")
+        return (f"pipelined {out['pipelined']['wall_s']:.3f} s, synchronous "
+                f"{out['synchronous']['wall_s']:.3f} s, x{out['overlap_speedup']:.3f}, "
+                f"bit-equal")
+    if name == "spill_slice":
+        kinds = {r["step_kind"] for r in out["measured"]}
+        want = out["steps"] << (out["n"] - out["stripe_qubits"])
+        if kinds != {"local", "nonlocal"} or out["total_stripe_passes"] != want \
+                or not out["est_full_run_s"] > 0:
+            raise AssertionError(f"spill_slice: {out}")
+        return (f"qft{out['n']} m={out['stripe_qubits']}: {out['steps']} steps, "
+                f"{out['total_stripe_passes']} stripe passes; " + ", ".join(
+                    f"{r['step_kind']} ({r['group_stripes']} stripes) "
+                    f"{r['per_stripe_s'] * 1e3:.3f} ms a stripe, {r['stripe_GB_s']:.3f} GB/s"
+                    for r in out["measured"]) + f"; est {out['est_full_run_h']:.3f} h")
+    if name == "spill_real":
+        if not out["l2_vs_inhbm"] <= TOL_L2:
+            raise AssertionError(f"spill_real: ||psi - psi_HBM|| {out['l2_vs_inhbm']}")
+        return (f"n={out['n']} m={out['stripe_qubits']} f32 {out['wall_s']:.3f} s, "
+                f"{out['MB_per_s_streamed']:.1f} MB/s streamed, ||psi - psi_HBM||_2="
+                f"{out['l2_vs_inhbm']:.3e}")
+    if name == "spill_ghz31":
+        errs = (out["amp0_err"], out["ampN_err"], out["max_offpole_amp"])
+        if max(errs) > DIAG_POLE or not _norm_ok(out["norm2"]):
+            raise AssertionError(f"spill_ghz31: {out}")
+        return (f"ghz{out['n']} m={out['stripe_qubits']} {out['state_GiB']:.0f} GiB "
+                f"pinned={out['pinned']} {out['wall_s']:.3f} s (alloc "
+                f"{out['alloc_s']:.3f} s), {out['MB_per_s_streamed']:.1f} MB/s "
+                f"streamed; pole errors {errs[0]:.3e} {errs[1]:.3e}, off-pole "
+                f"{errs[2]:.3e}, norm2 {out['norm2']:.9f}")
+    if name == "sharded_run":
+        ghz = next(r for r in out["rows"] if r["config"].startswith("ghz"))
+        syc = next(r for r in out["rows"] if r["config"].startswith("sycamore")
+                   and "d2" in r["config"])
+        orc = [r for r in out["rows"] if "max_err_vs_oracle" in r]
+        if (max(ghz["amp0_err"], ghz["ampN_err"]) > DIAG_POLE or not _norm_ok(syc["norm2"])
+                or len(orc) != 2 or max(r["max_err_vs_oracle"] for r in orc) > DIAG_C128):
+            raise AssertionError(f"sharded_run: {out['rows']}")
+        return "; ".join(f"{r['config']} {r['wall_s']:.3f} s" for r in out["rows"]) + \
+            (f"; poles {ghz['amp0_err']:.3e} {ghz['ampN_err']:.3e}, norm2 "
+             f"{syc['norm2']:.9f}, oracle " + ", ".join(
+                 f"{r['max_err_vs_oracle']:.3e}" for r in orc))
+    if name == "sharded_run16":
+        dry, pod = out["rows"]
+        if not (dry["ok"] and len(dry["tiers"]) == 5 and len(dry["max_err"]) == 5
+                and pod["max_err_vs_oracle"] <= DIAG_POD
+                and pod["sampler_min_prob_sampled"] > 1e-12):
+            raise AssertionError(f"sharded_run16: {out['rows']}")
+        return (f"dry run {dry['wall_s']:.3f} s, tiers " + ", ".join(
+            f"{k} {v:.3e}" for k, v in dry["max_err"].items())
+            + f"; pod14 on 16 positions err {pod['max_err_vs_oracle']:.3e}, "
+              f"{pod['stages']} stages, 64 shots min p {pod['sampler_min_prob_sampled']:.3e}")
+    raise KeyError(name)
 
 
 def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
@@ -4060,7 +4305,11 @@ def main() -> int:
     counts = main_path(dev)
     counts.update(panel_path(dev))
     rows = times(dev, scheds)
-    bench_tier(dev, RECORD["e2e"]["nonstab28"])
+    bench_tier(dev, RECORD["e2e"]["nonstab28"], BENCH_ARGV, BENCH_BUDGET_S, 9,
+               check_bench)
+    bench_tier(dev, {"ms": RECORD["e2e"]["nonstab28"]["ms"],
+                     "lane_panel_ms": rows["lane_panel"]["ms"]},
+               DIAG_ARGV, DIAG_BUDGET_S, 10, check_diag)
     counts.update(capacity33(dev))
     counts.update(tiers(dev))
     counts.update(spill_tier(dev))

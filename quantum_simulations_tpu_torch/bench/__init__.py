@@ -14,6 +14,21 @@
 * :mod:`projection`       — 34 qubits on 16 positions, projected
 * :mod:`headline`         — nonstab28 window mode, one JSON line
 
+The diagnostics (run as modules, as in the JAX package; the CLI's
+``bench`` keeps its nine choices), which say where an end-to-end time
+goes:
+
+* :mod:`opprof`           — time per op class of a real window schedule,
+  and the straddler policies raced
+* :mod:`overhead`         — the cost of a pass beyond its kernel, the fixed
+  cost of a chain, the WAL runner's durability tax, the diag variants
+* :mod:`probe_transfer`   — host <-> card copy rates, pinned and pageable
+* :mod:`capacity`         — ``sample_run``: 1e6 shots on the card at n = 30
+* :mod:`spill_bw`         — ``overlap``, ``slice_run`` (qft40 extrapolated),
+  ``real_chip`` (f32 stripes), ``real_chip_ghz`` (n = 31 in host memory)
+* :mod:`sharded`          — ``run`` (n = 30 on 8 positions), ``run16`` (the
+  five-tier dry run and the n = 14 pod program on 16 positions)
+
 Every bench measures the card (``cuda:0``).  ``QST_BENCH_PLATFORM=cpu``
 runs it on the CPU instead, where the kernels' plain twins run: the tests
 do so, and a CPU number is never a card number.  Without a card and

@@ -1,4 +1,21 @@
-"""Sharded-tier benchmark: one shard's timing of the n = 30 mesh config.
+"""Sharded-tier benchmarks: the n = 30 mesh configs, the 16-position
+dry run and pod program, and one shard's timing.
+
+Positions are (rank, device) pairs (``parallel/mesh.py``); here all of a
+mesh's positions share ``cuda:0`` (or the CPU), so the rows show the
+sharded program's results and its exchanges at full shard size, and
+their wall times are one card's, not a pod's.
+
+* :func:`run` — ghz30 and sycamore30 (depth 2) on 8 positions, and the
+  sycamore14 rows in fused and window mode in complex128 against the
+  numpy oracle.  Each row is printed as it finishes.
+* :func:`dryrun_mesh` — the five tiers of the sharded program on a mesh
+  of ``positions``, each against the oracle: the fused exchange cases,
+  window mode with the staged boundary reshard, the in-place capacity
+  tier, the runner's crash and resume (two subprocesses), and spill
+  across the mesh.
+* :func:`run16` — :func:`dryrun_mesh` on 16 positions, then the n = 14
+  pod program (:func:`pod14`).
 
 :func:`shard_timing` runs the per-position half of the sharded program
 on the card: every step's local window ops over one 2^(n - log2 P) shard
@@ -8,15 +25,292 @@ x shard bytes), converted to time at a link rate the caller passes.  The
 default rate is the H100 SXM data sheet's NVLink 4, 450 GB/s each way:
 a data-sheet figure, not a measurement (the machine has one card).
 
-Run: ``python -m quantum_simulations_tpu_torch.bench.sharded shard_timing [n]``.
+Run: ``python -m quantum_simulations_tpu_torch.bench.sharded
+[n] [ghz|sycamore|oracle]``, ``... sharded mesh16`` or
+``... sharded shard_timing [n]``.
 """
 from __future__ import annotations
 
 import json
+import math
+import time
 
 from . import (
     NVLINK_BYTES_PER_S, describe, force, setup_platform, timeit, warm_grant,
 )
+
+DRYRUN_TIERS = ("fused_exchange", "window_staged_reshard",
+                "capacity_inplace", "wal_crash_resume", "mesh_x_spill")
+
+
+def _mesh(dev, positions: int):
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh(positions, devices=[dev] * positions)
+
+
+def run(n: int = 30, *, with_window_row: bool = True,
+        only: tuple = ()) -> dict:
+    """ghz(n) (each pole's error), sycamore_like(n, depth 2) (its norm)
+    and sycamore_like(14, depth 4) in fused and window mode in
+    complex128 (the largest error against the oracle), on 8 positions of
+    the device.  ``only``: a subset of {"ghz", "sycamore", "oracle"}."""
+    import numpy as np
+
+    from ..circuit import library as lib
+    from ..oracle import dense_numpy as oracle
+    from ..parallel import executor as E
+
+    dev = setup_platform()
+    warm_grant(dev)
+    mesh = _mesh(dev, 8)
+    rows = []
+
+    def emit(row):
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    def wanted(tag: str) -> bool:
+        return not only or tag in only
+
+    if wanted("ghz"):
+        cd = lib.ghz(n)
+        t0 = time.perf_counter()
+        st = E.simulate_sharded(mesh, cd)
+        a0 = complex(float(st.shards[0][0][0]), float(st.shards[0][1][0]))
+        last = st.shards[mesh.size - 1]
+        aN = complex(float(last[0][-1]), float(last[1][-1]))
+        wall = time.perf_counter() - t0
+        inv = 1 / math.sqrt(2)
+        emit({"config": f"ghz{n}_sharded8", "gates": len(cd["gates"]),
+              "wall_s": wall, "amp0_err": abs(a0 - inv),
+              "ampN_err": abs(aN - inv), "shard_amplitudes": 1 << st.k})
+        del st, last
+
+    if wanted("sycamore"):
+        cd = lib.sycamore_like(n, depth=2, seed=11)
+        t0 = time.perf_counter()
+        st = E.simulate_sharded(mesh, cd)
+        norm2 = sum(force(*pl) for pl in st.shards.values())
+        wall = time.perf_counter() - t0
+        emit({"config": f"sycamore{n}_d2_sharded8",
+              "gates": len(cd["gates"]), "wall_s": wall, "norm2": norm2})
+        del st
+
+    if wanted("oracle"):
+        cd = lib.sycamore_like(14, depth=4, seed=3)
+        want = oracle.simulate(cd)
+        for mode in ("fused",) + (("window",) if with_window_row else ()):
+            t0 = time.perf_counter()
+            got = E.collect_state(E.simulate_sharded(
+                mesh, cd, dtype="complex128", mode=mode))
+            emit({"config": f"sycamore14_d4_sharded8_{mode}",
+                  "wall_s": time.perf_counter() - t0,
+                  "max_err_vs_oracle": float(np.max(np.abs(got - want)))})
+
+    return {"device": describe(dev), "n_devices": 8, "rows": rows}
+
+
+_CRASH_RUN = (
+    "import sys\n"
+    "sys.path.insert(0, sys.argv[1])\n"
+    "from quantum_simulations_tpu_torch.circuit import library as lib\n"
+    "from quantum_simulations_tpu_torch.parallel.mesh import make_mesh\n"
+    "from quantum_simulations_tpu_torch.runtime import runner\n"
+    "runner.run(lib.qft(6), sys.argv[2],\n"
+    "           mesh=make_mesh(devices=[sys.argv[3]] * int(sys.argv[4])),\n"
+    "           mode='window', dtype='complex64')\n")
+
+
+def dryrun_mesh(positions: int, work_dir=None) -> dict:
+    """The sharded program's five tiers on ``positions`` positions of the
+    device, each held to the numpy oracle within 1e-4 (complex64); raises
+    AssertionError naming the tier that fails.  Returns each tier's
+    error.  The runner's crash (``QST_CRASH_AFTER_STEP=1``: exit 1 after
+    its first checkpoint) and its resume (exit 0) are subprocesses on one
+    work directory under ``work_dir`` (a new temporary directory when
+    None), removed after."""
+    import os
+    import shutil
+    import subprocess
+    import sys
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from ..circuit import library as lib
+    from ..circuit import staging as S
+    from ..oracle import dense_numpy as oracle
+    from ..parallel import executor as E
+    from ..parallel import mesh as M
+    from ..parallel.reshard import plan_boundary_reshard
+    from ..runtime import runner, spill
+
+    dev = setup_platform()
+    mesh = _mesh(dev, positions)
+    d = int(math.log2(mesh.size))
+    errs = {}
+
+    def hold(tier: str, got, want, norm: bool = True) -> None:
+        err = float(np.max(np.abs(got - want.astype(np.complex64))))
+        if norm:
+            nrm = float(np.vdot(got, got).real)
+            assert abs(nrm - 1.0) < 1e-4, f"{tier}: norm {nrm}"
+        assert err < 1e-4, f"{tier}: {err} from the oracle"
+        errs[tier] = err
+
+    # 1. every exchange case across the shard boundary, fused mode
+    n = max(6, d + 3)
+    gates = [{"qubits": [q], "gate": "H"} for q in range(n)]
+    gates += [
+        {"qubits": [n - 1], "gate": "T"},                       # device-bit diag
+        {"qubits": [0, n - 1], "gate": "CNOT"},                 # target on device bit
+        {"qubits": [n - 1, 0], "gate": "CNOT"},                 # control on device bit
+        {"qubits": [n - 1], "gate": "H"},                       # 1q butterfly
+        {"qubits": [0, n - 1], "gate": "SWAP"},                 # swap across boundary
+        {"qubits": [n - 1, n - 2], "gate": "CR", "params": {"k": 2}},
+    ]
+    if d >= 2:
+        gates.append({"qubits": [n - 1, n - 2], "gate": "SWAP"})  # both device bits
+    cd = {"number_of_qubits": n, "gates": gates}
+    hold("fused_exchange", E.collect_state(E.simulate_sharded(mesh, cd)),
+         oracle.simulate(cd))
+
+    # 2. window kernels + staging whose boundary SWAPs are one reshard
+    n2 = max(10, d + 7)
+    k2 = n2 - d
+    g2 = [{"qubits": [q], "gate": "H"} for q in range(n2)]
+    for q in range(n2 - 1):
+        g2.append({"qubits": [q, q + 1], "gate": "CNOT"})
+    for q in range(k2, n2):  # gates on the device-bit qubits
+        g2.append({"qubits": [q], "gate": "T"})
+        g2.append({"qubits": [q % k2, q], "gate": "SWAP"})
+        g2.append({"qubits": [q], "gate": "H"})
+    cd2 = {"number_of_qubits": n2, "gates": g2}
+    staged, log2phys, _ = S.stage_circuit(cd2, k2, "heuristic")
+    steps, _ = E.build_circuit_fns(mesh, staged, mode="window")
+    pairs = sum(len(plan_boundary_reshard(s.nonlocal_ops, k2)[0])
+                for s in steps)
+    assert pairs > 0, "window_staged_reshard: the plan has no boundary reshard"
+    got = S.permute_state(E.collect_state(E.simulate_sharded(
+        mesh, staged, mode="window")), log2phys)
+    hold("window_staged_reshard", got, oracle.simulate(cd2))
+
+    # 3. the sharded capacity tier: planar, every pass in place
+    cd3 = lib.qft(n2)
+    _, fn3 = E.build_circuit_fns(mesh, cd3, mode="window", inplace=True)
+    hold("capacity_inplace",
+         E.collect_state(fn3(M.zero_state_planar_sharded(mesh, n2))),
+         oracle.simulate(cd3), norm=False)
+
+    # 4. the runner on the mesh: a real crash, then a resume
+    root = str(Path(__file__).resolve().parents[2])
+    base = Path(tempfile.mkdtemp(prefix="qst_dryrun_") if work_dir is None
+                else work_dir)
+    wd = base / f"wal{positions}"
+    shutil.rmtree(wd, ignore_errors=True)
+    argv = [sys.executable, "-c", _CRASH_RUN, root, str(wd), str(dev),
+            str(positions)]
+    env = dict(os.environ, QST_CRASH_AFTER_STEP="1")
+    try:
+        p = subprocess.run(argv, env=env, capture_output=True, text=True,
+                           timeout=600)
+        assert p.returncode == 1, (f"wal_crash_resume: the crash hook did "
+                                   f"not fire (exit {p.returncode})\n"
+                                   f"{p.stderr[-2000:]}")
+        env.pop("QST_CRASH_AFTER_STEP")
+        p = subprocess.run(argv, env=env, capture_output=True, text=True,
+                           timeout=600)
+        assert p.returncode == 0, (f"wal_crash_resume: the resume exited "
+                                   f"{p.returncode}\n{p.stderr[-2000:]}")
+        hold("wal_crash_resume", runner.collect_state(wd),
+             oracle.simulate(lib.qft(6)))
+    finally:
+        shutil.rmtree(base if work_dir is None else wd, ignore_errors=True)
+
+    # 5. host stripes streamed through the mesh
+    n5, m5 = d + 5, d + 3  # 2 host bits, d mesh bits, 3 local bits
+    g5 = [{"qubits": [q], "gate": "H"} for q in range(n5)]
+    g5 += [
+        {"qubits": [0, 1], "gate": "CNOT"},            # local
+        {"qubits": [2, m5 - 1], "gate": "CNOT"},       # local-device
+        {"qubits": [m5 - 1], "gate": "T"},             # device diag
+        {"qubits": [n5 - 1, n5 - 2], "gate": "CZ"},    # host-host
+        {"qubits": [1, n5 - 1], "gate": "CNOT"},       # local-host
+        {"qubits": [m5 - 1, n5 - 1], "gate": "SWAP"},  # device-host
+        {"qubits": [0], "gate": "H"},
+    ]
+    cd5 = {"number_of_qubits": n5, "gates": g5}
+    hold("mesh_x_spill", spill.run_out_of_core(
+        cd5, stripe_qubits=m5, backend="host", mesh=mesh, use_wal=False,
+        device=dev), oracle.simulate(cd5))
+    return errs
+
+
+def pod14(positions: int = 16) -> dict:
+    """The 34-qubit pod program's shape at n = 14 on ``positions``
+    positions: heuristic staging at k = n - 4, the in-place window body,
+    the final state against the oracle (1e-4), then 64 shots from
+    ``sample_bits_sharded`` scored against the staged oracle's
+    probabilities (none may be impossible)."""
+    import numpy as np
+
+    from ..circuit import library as lib
+    from ..circuit import staging as S
+    from ..oracle import dense_numpy as oracle
+    from ..ops.sampling import sample_bits_sharded
+    from ..parallel import executor as E
+    from ..parallel import mesh as M
+
+    dev = setup_platform()
+    n = 14
+    mesh = _mesh(dev, positions)
+    k = M.shard_width(mesh, n)
+    assert k == n - 4, k
+    cd = lib.sycamore_like(n, depth=2, seed=5)
+    staged, log2phys, stats = S.stage_circuit(cd, k, "heuristic")
+    t0 = time.perf_counter()
+    _, fn = E.build_circuit_fns(mesh, staged, mode="window", inplace=True)
+    got = E.collect_state(fn(M.zero_state_planar_sharded(mesh, n)))
+    got = S.permute_state(got, log2phys)
+    err = float(np.max(np.abs(got - oracle.simulate(cd).astype(np.complex64))))
+    assert err < 1e-4, f"pod14: {err} from the oracle"
+    wall = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    psi = E.simulate_sharded(mesh, staged, mode="window")
+    shots = sample_bits_sharded(psi, 64, seed=0).numpy()
+    assert shots.shape == (64, n), shots.shape
+    p2 = np.abs(oracle.simulate(staged)) ** 2
+    idx = (shots.astype(np.int64) << np.arange(n, dtype=np.int64)).sum(1)
+    min_p = float(p2[idx].min())
+    assert min_p > 1e-12, f"pod14: sampled a state of probability {min_p}"
+    return {"config": f"pod34q_program_n14_sharded{positions}_capacity",
+            "stages": stats["stages"], "gates": len(cd["gates"]),
+            "max_err_vs_oracle": err, "wall_s": wall,
+            "sampler_shots": 64, "sampler_min_prob_sampled": min_p,
+            "sampler_wall_s": time.perf_counter() - t0}
+
+
+def run16(work_dir=None) -> dict:
+    """16-position rows: :func:`dryrun_mesh` (a fourth device bit and
+    reshard groups two bits deeper than on 8) and :func:`pod14`."""
+    dev = setup_platform()
+    warm_grant(dev)
+    rows = []
+
+    def emit(row):
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    t0 = time.perf_counter()
+    errs = dryrun_mesh(16, work_dir)
+    emit({"config": "dryrun_5tier_sharded16", "ok": True,
+          "tiers": list(DRYRUN_TIERS), "max_err": errs,
+          "wall_s": time.perf_counter() - t0})
+    emit(pod14(16))
+    return {"device": describe(dev), "n_devices": 16, "rows": rows}
 
 
 def shard_timing(n: int = 30, n_devices: int = 8, *, depth: int = 8,
@@ -103,8 +397,13 @@ def shard_timing(n: int = 30, n_devices: int = 8, *, depth: int = 8,
 if __name__ == "__main__":
     import sys
 
-    if "shard_timing" not in sys.argv[1:]:
-        raise SystemExit("usage: python -m quantum_simulations_tpu_torch.bench"
-                         ".sharded shard_timing [n]")
-    ns = [int(a) for a in sys.argv[1:] if a.isdigit()]
-    print(json.dumps(shard_timing(ns[0] if ns else 30), indent=1))
+    args = sys.argv[1:]
+    ns = [int(a) for a in args if a.isdigit()]
+    if "shard_timing" in args:
+        print(json.dumps(shard_timing(ns[0] if ns else 30), indent=1))
+    elif "mesh16" in args:
+        words = [a for a in args if a != "mesh16"]
+        print(json.dumps(run16(words[0] if words else None), indent=1))
+    else:
+        only = tuple(a for a in args if not a.isdigit())
+        print(json.dumps(run(*(ns or [30]), only=only), indent=1))

@@ -11,9 +11,11 @@ tier's readout; ``collapse_planar_`` is the trajectory tier's collapse
 in place, and ``normalize`` / ``project`` / ``measure_qubit`` /
 ``fidelity`` (:24, :62, :75, :124) work on complex tensors.  The reference
 leans on XLA fusing ``re * re + im * im`` into each reduction.  Here every
-reduction runs over chunks of at most 2^``CHUNK_BITS`` = 2^28 amplitudes and no
-temporary is larger than a chunk: at n = 33 the probability vector alone
-would be 32 GiB, and the card holds about 15 GiB beside the two planes.
+reduction runs over chunks of at most 2^``CHUNK_BITS`` = 2^26 amplitudes and no
+temporary is larger than a chunk (256 MiB of float32), one at a time: at
+n = 33 the probability vector alone would be 32 GiB, and the card holds
+about 15 GiB beside the two planes; the sampler at n = 30 holds under
+1 GiB beside its 8 GiB of planes.
 Sums accumulate in float64 (the reference sums in float32).  Indices are
 int64 (the reference keeps int32 for n <= 31; qpe(32)'s answer lies above
 2^32), and random draws come from an explicit seeded ``torch.Generator``:
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import torch
 
-CHUNK_BITS = 28
+CHUNK_BITS = 26
 
 
 def _n_of(re: torch.Tensor) -> int:
@@ -44,6 +46,7 @@ def _prob_chunks(re: torch.Tensor, im: torch.Tensor, at_least: int = 1):
         p = r * r
         p.addcmul_(i, i)
         yield start, p
+        del p  # before the next chunk's: the caller drops its own first
 
 
 def _block_bits(n: int, floor: int = 3, cap: int = 15) -> int:
@@ -72,6 +75,7 @@ def norm2_planar(re: torch.Tensor, im: torch.Tensor) -> float:
     acc = torch.zeros((), dtype=torch.float64, device=re.device)
     for _, p in _prob_chunks(re, im):
         acc += p.sum(dtype=torch.float64)
+        del p
     return float(acc)
 
 
@@ -88,6 +92,7 @@ def expectation_z_planar(re: torch.Tensor, im: torch.Tensor, qubits) -> float:
     for start, p in _prob_chunks(re, im):
         sign = -1.0 if bin(start & mask).count("1") & 1 else 1.0
         acc += sign * p.mul_(signs).sum(dtype=torch.float64)
+        del p
     return float(acc)
 
 
@@ -103,6 +108,7 @@ def qubit_probability_planar(re: torch.Tensor, im: torch.Tensor, q: int,
                 acc += p.sum(dtype=acc_dtype)
         else:
             acc += p.view(-1, 2, 1 << q)[:, 1].sum(dtype=acc_dtype)
+        del p
     return float(acc)
 
 
@@ -148,6 +154,7 @@ def top_amplitudes_planar(re: torch.Tensor, im: torch.Tensor, k: int = 8):
     for start, p in _prob_chunks(re, im, L):
         rows = p.view(-1, L)
         bm[start >> lb:(start >> lb) + rows.shape[0]] = rows.amax(dim=1)
+        del p, rows
     _, blocks = torch.topk(bm, kb)
     rr = re.view(B, L)[blocks]
     ri = im.view(B, L)[blocks]
@@ -198,6 +205,7 @@ def _hier_sample(re, im, generator: torch.Generator, shots: int, n: int):
         rows = p.view(-1, L)
         s[start >> lb:(start >> lb) + rows.shape[0]] = rows.sum(
             dim=1, dtype=torch.float64)
+        del p, rows
     cdf = torch.cumsum(s, dim=0)
     kw = dict(generator=generator, dtype=torch.float64, device=re.device)
     u_b = torch.rand(shots, **kw) * cdf[-1]
@@ -205,8 +213,10 @@ def _hier_sample(re, im, generator: torch.Generator, shots: int, n: int):
     rr, ri = re.view(B, L), im.view(B, L)
 
     def prob_rows(blk):
-        r, i = rr[blk].double(), ri[blk].double()
-        return r * r + i * i
+        p = rr[blk].double()
+        p.mul_(p)
+        i = ri[blk].double()
+        return p.addcmul_(i, i)
 
     blocks, local = _chunked_invcdf(cdf, prob_rows, u_b, u_l, shots, L, B)
     return blocks, local, lb

@@ -21,7 +21,10 @@ MODULES = [
     "quantum_simulations_tpu_torch.bench.headline",
     "quantum_simulations_tpu_torch.bench.kernel_bw",
     "quantum_simulations_tpu_torch.bench.matrix",
+    "quantum_simulations_tpu_torch.bench.opprof",
+    "quantum_simulations_tpu_torch.bench.overhead",
     "quantum_simulations_tpu_torch.bench.passes",
+    "quantum_simulations_tpu_torch.bench.probe_transfer",
     "quantum_simulations_tpu_torch.bench.projection",
     "quantum_simulations_tpu_torch.bench.sharded",
     "quantum_simulations_tpu_torch.bench.spill_bw",
