@@ -184,13 +184,11 @@ Phases (any failure exits non-zero):
    1e-6, chunk by chunk on the card) and nonstab33 staged (7 steps,
    groups of at most 2^30, the un-permute in place), within 1e-5 of the
    capacity tier's nonstab33, chunk by chunk; ghz34 needs 128 GiB and is
-   not run.  nonstab26 on the disk backend at m = 22 in subprocesses
-   (cut from nonstab28 at m = 24, 115 s of fsync'd chunk writes, to keep
-   the script inside its time limit beside phase 10):
+   not run.  nonstab28 on the disk backend at m = 24 in subprocesses:
    crashed by ``QST_CRASH_AFTER_STRIPE`` inside its first group step (the
    WAL's done_steps below the total), resumed in a fresh process, within
-   1e-5 of fused mode in HBM.  The CLI: ``run ghz26.json --mode fused
-   --stripe-qubits 22``, host and disk, the in-HBM run's output.  The
+   1e-5 of fused mode in HBM.  The CLI: ``run ghz28.json --mode fused
+   --stripe-qubits 24``, host and disk, the in-HBM run's output.  The
    native oracle (g++) on nonstab20 within 1e-10 of the numpy oracle.
    Each request prints its seconds, steps, groups, bytes and GB/s each
    way beside the pinned rates, the host's wait and allocation seconds,
@@ -223,8 +221,7 @@ Phases (any failure exits non-zero):
    level a step, in a subprocess crashed by ``QST_CRASH_AFTER_STEP=1``
    (WAL done_steps 1), resumed in a fresh one, ``collect_state`` equal
    bit for bit to an uninterrupted run in this process (checkpoint s and
-   GB/s); nonstab28 (cut from nonstab30, whose 8 GiB checkpoint took 15
-   s) through ``api.simulate(cd, SimulatorConfig(mode=
+   GB/s); nonstab30 through ``api.simulate(cd, SimulatorConfig(mode=
    "capacity"), work_dir=...)`` within 1e-6 of the capacity tier.  A pod
    of 2 processes x 2 positions over gloo, card pieces staged through
    host memory, both on this card (``parallel.pod_worker``): every
@@ -267,16 +264,21 @@ Phases (any failure exits non-zero):
    window e2e, the straddler policies), ``bench.overhead all`` (the I/O
    variants' norms within 1e-5 and states within 1e-6, the lane-panel
    chain's slope within 1.5x of phase 4's lane_panel row, the diag
-   variants), ``bench.overhead wal`` (checkpoints under the phase's work
-   dir, a rate > 0, the same steps in every configuration),
+   variants), ``bench.overhead wal`` at n = 26 (cut from the default 28
+   for the script's time limit; checkpoints under the phase's work dir, a
+   rate > 0, the same steps in every configuration),
    ``bench.capacity sample`` (1e6 shots at n = 30: each one-count within
-   5 sigma of its exact P(1), peak at most the planes + 1 GiB),
+   5 sigma of its exact P(1), the card's peak reported and at most the
+   planes + 1 GiB),
    ``bench.spill_bw`` overlap (bit-equal), slice40 (stripe passes = steps
    x 2^14), real (within 1e-5 of the window run) and ghz (n = 31, 16 GiB
    pinned: poles and off-pole amplitudes within 1e-6), ``bench.sharded``
    (ghz30 / sycamore30 on 8 positions, the complex128 oracle rows within
    1e-10) and ``bench.sharded mesh16`` (the five-tier dry run and the
    pod14 program on 16 positions).
+
+After each phase, ``script: phase N done at T s`` gives the script's
+clock since the card was found (build included).
 
 The last lines: the card line as nvidia-smi prints it, one JSON object
 ``{"kernels": [...]}``, and ``{"ok": true, "device": {...}}``.  The
@@ -2362,7 +2364,7 @@ def tiers(dev) -> dict:
 
 NSPILL, SPILL_M = 33, 28       # 64 GiB in host DRAM, stripes of 2 GiB
 NSPILL_MID, SPILL_M_MID = 30, 26   # nonstab30: 16 steps, groups to 2^30
-NDISK, DISK_M = 26, 22         # nonstab26 on disk: stripes of 32 MiB
+NDISK, DISK_M = 28, 24         # nonstab28 on disk: stripes of 128 MiB
 NNATIVE = 20                   # the native oracle against the numpy one
 HOST_MARGIN = 8 * GIB          # host RAM a full-size request leaves free
 SPILL_CHUNK = 1 << 26          # amplitudes per chunk of a host-side check
@@ -2695,7 +2697,7 @@ def spill_big(dev, env: dict, rec: dict, counts: dict) -> None:
 
 
 def spill_disk(dev, work: Path, rec: dict) -> None:
-    """nonstab26 on the disk backend at m = 22, in subprocesses: crashed by
+    """nonstab28 on the disk backend at m = 24, in subprocesses: crashed by
     QST_CRASH_AFTER_STRIPE inside its first group step (the WAL's
     done_steps below the total), resumed in a fresh process, then within
     1e-5 of fused mode in HBM."""
@@ -2759,7 +2761,7 @@ def spill_disk(dev, work: Path, rec: dict) -> None:
 
 
 def spill_cli(dev, work: Path, rec: dict) -> None:
-    """``run ghz26.json --mode fused --stripe-qubits 22``, host and disk
+    """``run ghz28.json --mode fused --stripe-qubits 24``, host and disk
     backend, as subprocesses: the same output as the in-HBM run's (the
     same command without ``--stripe-qubits``, in this process)."""
     import contextlib
@@ -2878,7 +2880,7 @@ NSH, SH_POS = 30, 8            # the reference's sharded size: 8 shards of 2^27
 NSH_CAP, CAP_POS = 31, 2       # 2 shards of 2^30 (the capacity guard: 2^27)
 NRUN, RUN_POS = 28, 4          # the runner's crash / resume request
 POD_PROCS, POD_POS = 2, 2      # the gloo pod: processes x positions each
-NRUN_CAP = 28                  # the runner in place on one position
+NRUN_CAP = 30                  # the runner in place on one position
 NSPM, SPM_M, SPM_POS = 28, 26, 4  # spill across a mesh: stripes of 2^26 on 4
 RANDOM_GATES = 600
 SHOTS = 1000
@@ -4020,12 +4022,17 @@ def bench_tier(dev, ref: dict, argv: dict, budget_s: float, phase: int,
 # ---------------------------------------------------------------------------
 
 # Each diagnostic of phase 10 is a subprocess, at the JAX package's
-# defaults: its argv after the interpreter ({work}: the phase's work dir).
+# defaults but for wal_tax: its argv after the interpreter ({work}: the
+# phase's work dir).
+NWAL = 26
 DIAG_ARGV = {
     "probe_transfer": ["-m", f"{PORT}.bench.probe_transfer"],
     "opprof": ["-m", f"{PORT}.bench.opprof"],
     "overhead": ["-m", f"{PORT}.bench.overhead", "all"],
-    "wal_tax": ["-m", f"{PORT}.bench.overhead", "wal", "{work}/wal_tax"],
+    # nonstab26, not the default nonstab28: its 2 GiB fsync'd checkpoints
+    # cost about 20 s, which the script's time limit does not leave
+    "wal_tax": ["-m", f"{PORT}.bench.overhead", "wal", "{work}/wal_tax",
+                str(NWAL)],
     "sample_run": ["-m", f"{PORT}.bench.capacity", "sample"],
     "spill_overlap": ["-m", f"{PORT}.bench.spill_bw", "overlap"],
     "spill_slice": ["-m", f"{PORT}.bench.spill_bw", "slice40"],
@@ -4143,7 +4150,10 @@ def check_diag(name: str, out: dict, ref: dict) -> str:
     if name == "sample_run":
         z = max(abs(c - out["shots"] * p) / math.sqrt(out["shots"] * p * (1 - p))
                 for c, p in zip(out["counts"], out["p1"]))
-        over = "peak_gib" in out and out["peak_gib"] > out["planes_gib"] + 1
+        # a card run must report its peak; only the CPU rehearsal has none
+        if out["device"] != "cpu" and "peak_gib" not in out:
+            raise AssertionError("sample_run: the card run reports no peak_gib")
+        over = out.get("peak_gib", 0.0) > out["planes_gib"] + 1
         if not _norm_ok(out["norm2"]) or z > DIAG_SIGMA or over:
             raise AssertionError(f"sample_run: norm2 {out['norm2']}, worst "
                                  f"{z:.2f} sigma, peak {out.get('peak_gib')} GiB")
@@ -4262,6 +4272,13 @@ def main() -> int:
         log(f"FAIL: the port is not beside this script ({e})")
         return 2
 
+    t_main = time.perf_counter()
+    RECORD["done_at_s"] = {}
+
+    def done(what: str) -> None:  # the script's clock at each phase's end
+        RECORD["done_at_s"][what] = time.perf_counter() - t_main
+        log(f"script: {what} done at {RECORD['done_at_s'][what]:.1f} s")
+
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"env python={sys.version.split()[0]} torch={torch.__version__} "
@@ -4298,22 +4315,33 @@ def main() -> int:
             pass_name(o, r) for o, r in scheds[label + " panel"][:24])
             + (" ..." if len(scheds[label + " panel"]) > 24 else ""))
 
+    done("phase 1")
     worst = check_kernels(dev, scheds)
+    done("phase 2")
     if quick:
         log("quick: build and kernel checks passed")
         return 0
     counts = main_path(dev)
+    done("phase 3 main path")
     counts.update(panel_path(dev))
+    done("phase 3 panel path")
     rows = times(dev, scheds)
+    done("phase 4")
     bench_tier(dev, RECORD["e2e"]["nonstab28"], BENCH_ARGV, BENCH_BUDGET_S, 9,
                check_bench)
+    done("phase 9")
     bench_tier(dev, {"ms": RECORD["e2e"]["nonstab28"]["ms"],
                      "lane_panel_ms": rows["lane_panel"]["ms"]},
                DIAG_ARGV, DIAG_BUDGET_S, 10, check_diag)
+    done("phase 10")
     counts.update(capacity33(dev))
+    done("phase 5")
     counts.update(tiers(dev))
+    done("phase 6")
     counts.update(spill_tier(dev))
+    done("phase 7")
     counts.update(sharded_tier(dev))
+    done("phase 8")
     kernels = kernels_line(counts, rows, worst)
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -26,9 +26,10 @@ Device work is timed with CUDA events (:func:`bench.device_s`) or with
 the host clock closed by :func:`bench.force`.
 
 Run: ``python -m quantum_simulations_tpu_torch.bench.overhead
-[variants | wal [work_dir] | scaling | diag | all]`` (``all``: variants,
-scaling and diag, as in the JAX package; ``wal`` writes its checkpoints
-under ``work_dir``, by default a new temporary directory).
+[variants | wal [work_dir [n]] | scaling | diag | all]`` (``all``:
+variants, scaling and diag, as in the JAX package; ``wal`` runs
+nonstab(n), by default n = 28, and writes its checkpoints under
+``work_dir``, by default a new temporary directory).
 """
 from __future__ import annotations
 
@@ -246,7 +247,7 @@ if __name__ == "__main__":
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
     if which not in ("variants", "wal", "scaling", "diag", "all"):
         raise SystemExit("usage: python -m quantum_simulations_tpu_torch.bench"
-                         ".overhead [variants | wal [work_dir] | scaling | "
+                         ".overhead [variants | wal [work_dir [n]] | scaling | "
                          "diag | all]")
     dev = setup_platform()
     warm_grant(dev)
@@ -254,8 +255,9 @@ if __name__ == "__main__":
     if which in ("all", "variants"):
         out["nonstab_variants"] = nonstab_variants()
     if which == "wal":
-        out["wal_tax"] = wal_tax(work_dir=sys.argv[2] if len(sys.argv) > 2
-                                 else None)
+        out["wal_tax"] = wal_tax(
+            *map(int, sys.argv[3:4]),
+            work_dir=sys.argv[2] if len(sys.argv) > 2 else None)
     if which in ("all", "scaling"):
         out["panel_scaling"] = panel_scaling()
     if which in ("all", "diag"):

@@ -111,12 +111,18 @@ def run(n: int = 30, *, with_window_row: bool = True,
     return {"device": describe(dev), "n_devices": 8, "rows": rows}
 
 
+# argv: root, work dir, device, positions[, go file: wait for it to exist
+# after start-up, before the run]
 _CRASH_RUN = (
-    "import sys\n"
+    "import os, sys, time\n"
     "sys.path.insert(0, sys.argv[1])\n"
+    "import torch\n"
     "from quantum_simulations_tpu_torch.circuit import library as lib\n"
     "from quantum_simulations_tpu_torch.parallel.mesh import make_mesh\n"
     "from quantum_simulations_tpu_torch.runtime import runner\n"
+    "torch.zeros(1, device=sys.argv[3])\n"
+    "while len(sys.argv) > 5 and not os.path.exists(sys.argv[5]):\n"
+    "    time.sleep(0.02)\n"
     "runner.run(lib.qft(6), sys.argv[2],\n"
     "           mesh=make_mesh(devices=[sys.argv[3]] * int(sys.argv[4])),\n"
     "           mode='window', dtype='complex64')\n")
@@ -129,7 +135,8 @@ def dryrun_mesh(positions: int, work_dir=None) -> dict:
     error.  The runner's crash (``QST_CRASH_AFTER_STEP=1``: exit 1 after
     its first checkpoint) and its resume (exit 0) are subprocesses on one
     work directory under ``work_dir`` (a new temporary directory when
-    None), removed after."""
+    None), removed after; both start before the first tier, the resume
+    held at a go file until the crash has exited."""
     import os
     import shutil
     import subprocess
@@ -160,73 +167,85 @@ def dryrun_mesh(positions: int, work_dir=None) -> dict:
         assert err < 1e-4, f"{tier}: {err} from the oracle"
         errs[tier] = err
 
-    # 1. every exchange case across the shard boundary, fused mode
-    n = max(6, d + 3)
-    gates = [{"qubits": [q], "gate": "H"} for q in range(n)]
-    gates += [
-        {"qubits": [n - 1], "gate": "T"},                       # device-bit diag
-        {"qubits": [0, n - 1], "gate": "CNOT"},                 # target on device bit
-        {"qubits": [n - 1, 0], "gate": "CNOT"},                 # control on device bit
-        {"qubits": [n - 1], "gate": "H"},                       # 1q butterfly
-        {"qubits": [0, n - 1], "gate": "SWAP"},                 # swap across boundary
-        {"qubits": [n - 1, n - 2], "gate": "CR", "params": {"k": 2}},
-    ]
-    if d >= 2:
-        gates.append({"qubits": [n - 1, n - 2], "gate": "SWAP"})  # both device bits
-    cd = {"number_of_qubits": n, "gates": gates}
-    hold("fused_exchange", E.collect_state(E.simulate_sharded(mesh, cd)),
-         oracle.simulate(cd))
-
-    # 2. window kernels + staging whose boundary SWAPs are one reshard
-    n2 = max(10, d + 7)
-    k2 = n2 - d
-    g2 = [{"qubits": [q], "gate": "H"} for q in range(n2)]
-    for q in range(n2 - 1):
-        g2.append({"qubits": [q, q + 1], "gate": "CNOT"})
-    for q in range(k2, n2):  # gates on the device-bit qubits
-        g2.append({"qubits": [q], "gate": "T"})
-        g2.append({"qubits": [q % k2, q], "gate": "SWAP"})
-        g2.append({"qubits": [q], "gate": "H"})
-    cd2 = {"number_of_qubits": n2, "gates": g2}
-    staged, log2phys, _ = S.stage_circuit(cd2, k2, "heuristic")
-    steps, _ = E.build_circuit_fns(mesh, staged, mode="window")
-    pairs = sum(len(plan_boundary_reshard(s.nonlocal_ops, k2)[0])
-                for s in steps)
-    assert pairs > 0, "window_staged_reshard: the plan has no boundary reshard"
-    got = S.permute_state(E.collect_state(E.simulate_sharded(
-        mesh, staged, mode="window")), log2phys)
-    hold("window_staged_reshard", got, oracle.simulate(cd2))
-
-    # 3. the sharded capacity tier: planar, every pass in place
-    cd3 = lib.qft(n2)
-    _, fn3 = E.build_circuit_fns(mesh, cd3, mode="window", inplace=True)
-    hold("capacity_inplace",
-         E.collect_state(fn3(M.zero_state_planar_sharded(mesh, n2))),
-         oracle.simulate(cd3), norm=False)
-
-    # 4. the runner on the mesh: a real crash, then a resume
+    # 4's two processes start first, so that their start-up (interpreter,
+    # torch, the device's context) overlaps tiers 1-3: the crash runs at
+    # once, the resume waits for its go file until the crash has exited
     root = str(Path(__file__).resolve().parents[2])
     base = Path(tempfile.mkdtemp(prefix="qst_dryrun_") if work_dir is None
                 else work_dir)
-    wd = base / f"wal{positions}"
+    wd, go = base / f"wal{positions}", base / f"wal{positions}.go"
     shutil.rmtree(wd, ignore_errors=True)
+    go.unlink(missing_ok=True)
     argv = [sys.executable, "-c", _CRASH_RUN, root, str(wd), str(dev),
             str(positions)]
-    env = dict(os.environ, QST_CRASH_AFTER_STEP="1")
+    env = {k: v for k, v in os.environ.items() if k != "QST_CRASH_AFTER_STEP"}
+    pipes = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    crash = subprocess.Popen(argv, env=dict(env, QST_CRASH_AFTER_STEP="1"),
+                             **pipes)
+    resume = subprocess.Popen(argv + [str(go)], env=env, **pipes)
     try:
-        p = subprocess.run(argv, env=env, capture_output=True, text=True,
-                           timeout=600)
-        assert p.returncode == 1, (f"wal_crash_resume: the crash hook did "
-                                   f"not fire (exit {p.returncode})\n"
-                                   f"{p.stderr[-2000:]}")
-        env.pop("QST_CRASH_AFTER_STEP")
-        p = subprocess.run(argv, env=env, capture_output=True, text=True,
-                           timeout=600)
-        assert p.returncode == 0, (f"wal_crash_resume: the resume exited "
-                                   f"{p.returncode}\n{p.stderr[-2000:]}")
+        # 1. every exchange case across the shard boundary, fused mode
+        n = max(6, d + 3)
+        gates = [{"qubits": [q], "gate": "H"} for q in range(n)]
+        gates += [
+            {"qubits": [n - 1], "gate": "T"},                       # device-bit diag
+            {"qubits": [0, n - 1], "gate": "CNOT"},                 # target on device bit
+            {"qubits": [n - 1, 0], "gate": "CNOT"},                 # control on device bit
+            {"qubits": [n - 1], "gate": "H"},                       # 1q butterfly
+            {"qubits": [0, n - 1], "gate": "SWAP"},                 # swap across boundary
+            {"qubits": [n - 1, n - 2], "gate": "CR", "params": {"k": 2}},
+        ]
+        if d >= 2:
+            gates.append({"qubits": [n - 1, n - 2], "gate": "SWAP"})  # both device bits
+        cd = {"number_of_qubits": n, "gates": gates}
+        hold("fused_exchange", E.collect_state(E.simulate_sharded(mesh, cd)),
+             oracle.simulate(cd))
+
+        # 2. window kernels + staging whose boundary SWAPs are one reshard
+        n2 = max(10, d + 7)
+        k2 = n2 - d
+        g2 = [{"qubits": [q], "gate": "H"} for q in range(n2)]
+        for q in range(n2 - 1):
+            g2.append({"qubits": [q, q + 1], "gate": "CNOT"})
+        for q in range(k2, n2):  # gates on the device-bit qubits
+            g2.append({"qubits": [q], "gate": "T"})
+            g2.append({"qubits": [q % k2, q], "gate": "SWAP"})
+            g2.append({"qubits": [q], "gate": "H"})
+        cd2 = {"number_of_qubits": n2, "gates": g2}
+        staged, log2phys, _ = S.stage_circuit(cd2, k2, "heuristic")
+        steps, _ = E.build_circuit_fns(mesh, staged, mode="window")
+        pairs = sum(len(plan_boundary_reshard(s.nonlocal_ops, k2)[0])
+                    for s in steps)
+        assert pairs > 0, "window_staged_reshard: the plan has no boundary reshard"
+        got = S.permute_state(E.collect_state(E.simulate_sharded(
+            mesh, staged, mode="window")), log2phys)
+        hold("window_staged_reshard", got, oracle.simulate(cd2))
+
+        # 3. the sharded capacity tier: planar, every pass in place
+        cd3 = lib.qft(n2)
+        _, fn3 = E.build_circuit_fns(mesh, cd3, mode="window", inplace=True)
+        hold("capacity_inplace",
+             E.collect_state(fn3(M.zero_state_planar_sharded(mesh, n2))),
+             oracle.simulate(cd3), norm=False)
+
+        # 4. the runner on the mesh: a real crash, then a resume
+        _, err = crash.communicate(timeout=600)
+        assert crash.returncode == 1, (f"wal_crash_resume: the crash hook "
+                                       f"did not fire (exit "
+                                       f"{crash.returncode})\n{err[-2000:]}")
+        go.touch()
+        _, err = resume.communicate(timeout=600)
+        assert resume.returncode == 0, (f"wal_crash_resume: the resume "
+                                        f"exited {resume.returncode}\n"
+                                        f"{err[-2000:]}")
         hold("wal_crash_resume", runner.collect_state(wd),
              oracle.simulate(lib.qft(6)))
     finally:
+        for p in (crash, resume):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        go.unlink(missing_ok=True)
         shutil.rmtree(base if work_dir is None else wd, ignore_errors=True)
 
     # 5. host stripes streamed through the mesh

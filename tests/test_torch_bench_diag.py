@@ -412,6 +412,8 @@ def test_phase10_checks_rehearsal(tmp_path):
     refused("wal_tax", lambda o: o["wal_tax"][2].update(checkpoint_MB_s=None))
     refused("sample_run", lambda o: o["counts"].__setitem__(0, 0))
     refused("sample_run", lambda o: o.update(peak_gib=o["planes_gib"] + 2))
+    refused("sample_run", lambda o: o.update(device="NVIDIA H100 80GB HBM3, "
+                                             "700.00 W"))
     refused("spill_overlap", lambda o: o.update(bit_equal=False))
     refused("spill_slice", lambda o: o.update(
         total_stripe_passes=o["total_stripe_passes"] + 1))
