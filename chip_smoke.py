@@ -276,6 +276,27 @@ Phases (any failure exits non-zero):
    (ghz30 / sycamore30 on 8 positions, the complex128 oracle rows within
    1e-10) and ``bench.sharded mesh16`` (the five-tier dry run and the
    pod14 program on 16 positions).
+11. The corpus tier, run right after phase 10 by the same loop from
+   :func:`corpus_argv`, budget 75 s, on a corpus the phase writes under
+   its work dir (QASMBench's ``<name>/<name>.qasm``, from
+   ``circuit/library`` through ``export_qasm.to_qasm``; each subprocess's
+   ``QST_QASMBENCH`` from :data:`CORPUS_ENV`): ``bench.corpus --tier all
+   --seg-gates 4 --seg-k 1`` over qft_n14 and sycamore_n18 (e2e: three
+   tiers at complex128), nonstab_n26 (one 4-gate segment restart),
+   traj_n16 (:func:`traj_qasm`: the trajectory twin, outcomes equal to the
+   oracle's), adder_n40 (classical, basis state that of a + b) and
+   qft_n33 (skipped with the JAX package's reason): every other row
+   ``verified`` within 1e-10; ``verify_one(sycamore_n18,
+   spot_sharded=True)`` (8 positions sharing the card, within 1e-10);
+   ``bench.corpus33`` on random_circuit(28, 200, seed=8) in stripes of
+   2^24 (``verified_c64``: norm within 1e-5, lightcone amplitudes within
+   1e-6, a host bit in the segment, launches equal to ``spill_want``,
+   lane_panel and the pair kernel among them); a fingerprint of
+   qaoa_maxcut(14) built by ``fingerprints.torch_simulate`` on the CPU
+   and ``fingerprints.verify`` against it (within 1e-10), then refused
+   with one top-k amplitude moved by 1e-6.  complex128 runs the plain
+   twins on the card; only corpus33 launches kernels.  n = 33, the size
+   corpus33 exists for, is :func:`corpus33_full`, run by hand.
 
 After each phase, ``script: phase N done at T s`` gives the script's
 clock since the card was found (build included).
@@ -3796,13 +3817,18 @@ BENCH_OVER = 1.05        # no reading above 105% of a bound
 
 # A bench subprocess after :data:`_GATE`: its module run as ``-m`` runs it;
 # then the kernels' launches in that process, by key, go to stderr.
+# An argv of ``-c <code>`` runs the code instead (phase 11's entries that
+# are a function call, not a module's ``__main__``).
 _BENCH_RUN = ("import json, runpy\n"
               "from quantum_simulations_tpu_torch.ops import (\n"
               "    bitperm_kernels, diag_kernels, pair_kernels, panel_kernels)\n"
-              "mod = sys.argv[2]\n"
+              "kind, mod = sys.argv[1], sys.argv[2]\n"
               "sys.argv = [mod] + sys.argv[3:]\n"
               "try:\n"
-              "    runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
+              "    if kind == '-c':\n"
+              "        exec(mod, {'__name__': '__main__'})\n"
+              "    else:\n"
+              "        runpy.run_module(mod, run_name='__main__', alter_sys=True)\n"
               "finally:\n"
               "    print('LAUNCHES ' + json.dumps({\n"
               "        k: v for m in (bitperm_kernels, diag_kernels, pair_kernels,\n"
@@ -3942,40 +3968,70 @@ def check_bench(name: str, out: dict, ref: dict) -> str:
     raise KeyError(name)
 
 
+def _stdout_json(out: str, err: str):
+    return last_json(out)
+
+
+def open_phase(dev, argv: dict, phase: int, *, prepare=None, envs=None) -> dict:
+    """A bench phase's work dir (``build/chip_smoke_phase<N>``, made anew;
+    ``prepare(work)`` then fills it) and its first subprocesses started,
+    waiting for their go files: ``{"work", "procs", "start"}``.  The entry
+    ``{work}`` in an argv, or in a value of ``envs[name]`` (variables set
+    for that bench alone), is the work dir."""
+    import shutil
+
+    root = Path(__file__).resolve().parent
+    work = root / "build" / f"chip_smoke_phase{phase}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    if prepare is not None:
+        prepare(work)
+    env = dict(os.environ)  # the benches measure the device the phase is given
+    env.pop("QST_BENCH_PLATFORM", None)
+    if dev.type == "cpu":
+        env["QST_BENCH_PLATFORM"] = "cpu"
+    procs: dict = {}
+
+    def start(name):
+        args = [a.replace("{work}", str(work)) for a in argv[name]]
+        own = dict(env, **{k: v.replace("{work}", str(work))
+                           for k, v in (envs or {}).get(name, {}).items()})
+        procs[name] = _gated(_BENCH_RUN, args, work / f"{name}.go", own, root)
+
+    try:
+        for name in list(argv)[:BENCH_AHEAD + 1]:
+            start(name)
+    except BaseException:
+        _stop(procs.values())
+        raise
+    return {"work": work, "procs": procs, "start": start}
+
+
 def bench_tier(dev, ref: dict, argv: dict, budget_s: float, phase: int,
-               check) -> None:
-    """Phase 9 (:data:`BENCH_ARGV`, :func:`check_bench`) or phase 10
-    (:data:`DIAG_ARGV`, :func:`check_diag`): every bench of ``argv`` as a
-    subprocess (started ahead of its turn, waiting for a go file), its
-    JSON held to ``check(name, json, ref)`` and its kernels' launches
-    logged by key.  A bench that exits non-zero fails the phase after its
-    stderr's tail.  The entry ``{work}`` in an argv is the phase's work
-    directory under ``build/``, removed after."""
+               check, *, parse=_stdout_json, opened=None, then=None) -> None:
+    """Phase 9 (:data:`BENCH_ARGV`, :func:`check_bench`), phase 10
+    (:data:`DIAG_ARGV`, :func:`check_diag`) or phase 11
+    (:func:`corpus_argv`, :func:`check_corpus`): every bench of ``argv``
+    as a subprocess (started ahead of its turn, waiting for a go file),
+    its output read by ``parse(stdout, stderr)`` (by default the JSON it
+    printed last), held to ``check(name, result, ref)`` and its kernels'
+    launches logged by key.  A bench that exits non-zero fails the phase
+    after its stderr's tail.  The phase is ``opened`` (:func:`open_phase`)
+    here unless it was opened earlier; its work dir is removed after.
+    ``then()`` runs as the last bench starts: phase 10 opens phase 11
+    there, so phase 11's first processes start while it runs."""
     import shutil
 
     import torch
 
     _free(dev)
-    root = Path(__file__).resolve().parent
-    work = root / "build" / f"chip_smoke_phase{phase}"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    env = dict(os.environ)  # the benches measure the device the phase is given
-    env.pop("QST_BENCH_PLATFORM", None)
-    if dev.type == "cpu":
-        env["QST_BENCH_PLATFORM"] = "cpu"
+    opened = opened or open_phase(dev, argv, phase)
+    work, procs, start = opened["work"], opened["procs"], opened["start"]
     names = list(argv)
-    procs: dict = {}
     rec: dict = {}
     t_phase = time.perf_counter()
 
-    def start(name):
-        args = [a.replace("{work}", str(work)) for a in argv[name]]
-        procs[name] = _gated(_BENCH_RUN, args, work / f"{name}.go", env, root)
-
     try:
-        for name in names[:BENCH_AHEAD + 1]:
-            start(name)
         for i, name in enumerate(names):
             free, _ = torch.cuda.mem_get_info(dev) if dev.type == "cuda" else (0, 0)
             log(f"bench {name}: host MemAvailable "
@@ -3983,6 +4039,8 @@ def bench_tier(dev, ref: dict, argv: dict, budget_s: float, phase: int,
                 f"{free / GIB:.1f} GiB")
             t0 = time.perf_counter()
             (work / f"{name}.go").touch()
+            if then is not None and i == len(names) - 1:
+                then()
             out, err = procs[name].communicate(timeout=600)
             dt = time.perf_counter() - t0
             if i + BENCH_AHEAD + 1 < len(names):
@@ -3992,7 +4050,7 @@ def bench_tier(dev, ref: dict, argv: dict, budget_s: float, phase: int,
                     f"{dt:.3f} s; stderr tail:\n{err[-4000:]}")
                 raise AssertionError(f"bench {name} exited "
                                      f"{procs[name].returncode}")
-            result = last_json(out)
+            result = parse(out, err)
             rec[name] = dict(s=dt, result=result, launches=bench_launches(err))
             try:
                 summary = check(name, result, ref)
@@ -4219,6 +4277,360 @@ def check_diag(name: str, out: dict, ref: dict) -> str:
     raise KeyError(name)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the corpus tier
+# ---------------------------------------------------------------------------
+
+# The corpus the phase writes in QASMBench's cluster/ layout
+# (<name>/<name>.qasm) from circuit/library through export_qasm.to_qasm,
+# and each circuit's policy (corpus.py): the method its row must carry.
+# Under corpus/ for `corpus --tier all`; under extra/ the circuits of
+# corpus33 and of the fingerprint check, which the corpus run must not see.
+CORPUS_N = {"qft": 14, "sycamore": 18, "nonstab": 26, "traj": 16,
+            "adder": 40, "qft33": 33}
+CORPUS_METHOD = {"qft": "e2e_c128", "sycamore": "e2e_c128",
+                 "nonstab": "segment_restart_c128[4]_fusedtier",
+                 "traj": "trajectory_twin_c128",
+                 "adder": "sparse_exact_vs_classical_oracle",
+                 "qft33": "parse_only"}
+CORPUS_SEG = ("--seg-gates", "4", "--seg-k", "1")
+# The JAX package's reason for a dense row it cannot twin (n = 33).
+CORPUS_REASON = ("c128 twin needs 384 GiB host RAM (>125); runnable at c64 "
+                 "via spill tier")
+ADDER_A, ADDER_B = 370001, 150037  # both operands: only X / CNOT / CCX
+# corpus33: random_circuit(28, 200, seed=8), whose first host-bit window
+# of 7 gates runs lane_panel and the pair kernel in its stripe groups.
+C33_N, C33_M, C33_SEG, C33_SEED = 28, 24, 7, 8
+FP_N = 14                # the fingerprint check's circuit: qaoa_maxcut(14)
+FP_SHIFT = 1e-6          # the corrupted fingerprint's shift of one amplitude
+TOL_C64_NORM, TOL_C64_AMP = 1e-5, 1e-6   # corpus33's own bounds
+
+
+def corpus_name(key: str) -> str:
+    return "qft_n33" if key == "qft33" else f"{key}_n{CORPUS_N[key]}"
+
+
+def c33_name() -> str:
+    return f"random_n{C33_N}"
+
+
+def fp_name() -> str:
+    return f"qaoa_n{FP_N}"
+
+
+def traj_qasm(n: int) -> str:
+    """``traj_circuit(n)`` as OpenQASM 2.0: its unitary gates as
+    ``to_qasm`` writes them, and the MEASURE, RESET and conditions that
+    the exporter does not write."""
+    from quantum_simulations_tpu_torch.circuit.export_qasm import to_qasm
+
+    cd = traj_circuit(n)
+    lines = ["OPENQASM 2.0;", 'include "qelib1.inc";', f"qreg q[{n}];",
+             "creg c[3];"]
+    for g in cd["gates"]:
+        q = g["qubits"][0]
+        if g["gate"] == "MEASURE":
+            lines.append(f"measure q[{q}] -> c[{g['params']['cbit']}];")
+        elif g["gate"] == "RESET":
+            lines.append(f"reset q[{q}];")
+        else:
+            one = {k: v for k, v in g.items() if k != "cond"}
+            text = to_qasm({"number_of_qubits": n, "gates": [one]})
+            stmt = text.splitlines()[3:]
+            if "cond" in g:
+                c = g["cond"]
+                stmt = [f"if({c['creg']}=={c['value']}) {s}" for s in stmt]
+            lines += stmt
+    return "\n".join(lines) + "\n"
+
+
+def corpus_texts() -> dict:
+    """{"corpus": {name: qasm}, "extra": {name: qasm}}."""
+    from quantum_simulations_tpu_torch.circuit import library
+    from quantum_simulations_tpu_torch.circuit.export_qasm import to_qasm
+
+    N = CORPUS_N
+    corpus = {
+        "qft": to_qasm(library.qft(N["qft"])),
+        "sycamore": to_qasm(library.sycamore_like(N["sycamore"], depth=4)),
+        "nonstab": to_qasm(library.non_stabilizer(N["nonstab"])),
+        "traj": traj_qasm(N["traj"]),
+        "adder": to_qasm(library.ripple_adder(N["adder"], ADDER_A, ADDER_B)),
+        "qft33": to_qasm(library.qft(N["qft33"])),
+    }
+    extra = {c33_name(): to_qasm(library.random_circuit(C33_N, 200, seed=C33_SEED)),
+             fp_name(): to_qasm(library.qaoa_maxcut(FP_N))}
+    return {"corpus": {corpus_name(k): v for k, v in corpus.items()},
+            "extra": extra}
+
+
+def adder_basis() -> int:
+    """ripple_adder(n, a, b)'s output basis state by arithmetic: a on bits
+    1..m, (a + b) mod 2^m on bits m+1..2m, the carry on bit 2m+1."""
+    m = (CORPUS_N["adder"] - 2) // 2
+    a, b = ADDER_A % (1 << m), ADDER_B % (1 << m)  # the bits the circuit sets
+    return (a << 1) | (((a + b) % (1 << m)) << (m + 1)) | (((a + b) >> m) << (2 * m + 1))
+
+
+def write_corpus(work: Path) -> dict:
+    """The phase's corpus under ``work``; returns what the checks hold the
+    rows to that the files decide: corpus33's launches and plain gate
+    calls, ``spill_want`` of the segment it will pick."""
+    from quantum_simulations_tpu_torch.bench.corpus import parse_one
+    from quantum_simulations_tpu_torch.bench.corpus33 import _pick_segment
+
+    for tree, files in corpus_texts().items():
+        for name, text in files.items():
+            d = work / tree / name
+            d.mkdir(parents=True)
+            (d / f"{name}.qasm").write_text(text)
+    cd, _, _ = parse_one(str(work / "extra" / c33_name() / f"{c33_name()}.qasm"))
+    seg, _ = _pick_segment(cd, C33_SEG, C33_M)
+    want, dense = spill_want({"number_of_qubits": C33_N, "gates": seg}, C33_M)
+    log(f"corpus: {sorted(os.listdir(work / 'corpus'))} under corpus/, "
+        f"{sorted(os.listdir(work / 'extra'))} under extra/; corpus33's "
+        f"segment {[(g['gate'], g['qubits']) for g in seg]}: launches {want}, "
+        f"{dense} plain gate calls")
+    return {"corpus33_want": want, "corpus33_dense": dense}
+
+
+def spot_sharded(name: str) -> None:
+    """Phase 11's subprocess: ``verify_one(name, spot_sharded=True)`` over
+    ``QST_QASMBENCH`` (``run`` spots only the names it is given)."""
+    from quantum_simulations_tpu_torch.bench.corpus import CLUSTER, verify_one
+
+    print(json.dumps(verify_one(name, os.path.join(CLUSTER, name, f"{name}.qasm"),
+                                spot_sharded=True)), flush=True)
+
+
+def fingerprint_check(name: str) -> None:
+    """Phase 11's subprocess: ``name``'s fingerprint built by the port's
+    independent engine (``torch_simulate``, on the CPU), frozen beside the
+    corpus, then ``fingerprints.verify`` (``simulate_np`` on the device,
+    complex128) against it and against a copy with one top-k amplitude
+    shifted by :data:`FP_SHIFT`."""
+    import copy
+
+    import numpy as np
+
+    from quantum_simulations_tpu_torch.bench import fingerprints as F
+    from quantum_simulations_tpu_torch.bench.corpus import CLUSTER, parse_one
+
+    cd, mode, err = parse_one(os.path.join(CLUSTER, name, f"{name}.qasm"))
+    assert cd is not None and mode == "unitary", (name, err)
+    fp = F._fingerprint(F.torch_simulate(cd), np.random.default_rng(42))
+    fp["gates"] = len(cd["gates"])
+    frozen = {"engine": "torch axis-permutation statevector (complex128)",
+              "tol": F.TOL, "circuits": {name: fp}}
+    bad = copy.deepcopy(frozen)
+    bad["circuits"][name]["topk"][0][1] += FP_SHIFT
+    out = {}
+    for key, doc in (("verify", frozen), ("corrupted", bad)):
+        path = os.path.join(CLUSTER, f"{key}_fingerprints.json")
+        with open(path, "w") as f:
+            json.dump(doc, f)
+        out[key] = F.verify(path)
+    print(json.dumps(out), flush=True)
+
+
+# corpus33 at the size it exists for, run by hand (below); the script's
+# limit does not leave it: random_circuit(33, 200, seed=1), whose first
+# host-bit window of 10 gates runs lane_panel and the pair kernel.
+C33_FULL_N, C33_FULL_M, C33_FULL_SEG, C33_FULL_SEED = 33, 28, 10, 1
+
+
+def corpus33_full() -> dict:
+    """``verify_one_33`` at n = 33 on the card: 64 GiB of complex64 in
+    pinned host memory, stripes of 2^28, filled twice from 512 chunk
+    streams (the norm, then the stripes).  Not a phase (minutes of host
+    work the 1200 s limit does not leave); run it alone:
+
+        python -c "import chip_smoke; chip_smoke.corpus33_full()"
+
+    Logs the card, the host's memory, the row (wall, engine and
+    allocation seconds, norm_err, max_amp_err) and the launches, which
+    must equal ``spill_want`` of the segment; the record goes to
+    ``chiprun_out/corpus33_full.json``."""
+    import shutil
+
+    from quantum_simulations_tpu_torch.bench import corpus33
+    from quantum_simulations_tpu_torch.bench.corpus import parse_one
+    from quantum_simulations_tpu_torch.circuit import library
+    from quantum_simulations_tpu_torch.circuit.export_qasm import to_qasm
+
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "corpus33_full"
+    shutil.rmtree(work, ignore_errors=True)
+    name = f"random_n{C33_FULL_N}"
+    (work / name).mkdir(parents=True)
+    path = work / name / f"{name}.qasm"
+    path.write_text(to_qasm(library.random_circuit(C33_FULL_N, 200,
+                                                   seed=C33_FULL_SEED)))
+    cd, _, _ = parse_one(str(path))
+    seg, _ = corpus33._pick_segment(cd, C33_FULL_SEG, C33_FULL_M)
+    want, dense = spill_want({"number_of_qubits": C33_FULL_N, "gates": seg},
+                             C33_FULL_M)
+    log(f"corpus33_full: card {card_line()}; host MemAvailable "
+        f"{meminfo()['MemAvailable'] / GIB:.1f} GiB; segment "
+        f"{[(g['gate'], g['qubits']) for g in seg]}: launches {want}, "
+        f"{dense} plain gate calls")
+    corpus33.CLUSTER = str(work)
+    reset_counts()
+    try:
+        row = corpus33.verify_one_33(name, seg_gates=C33_FULL_SEG,
+                                     stripe_qubits=C33_FULL_M)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    got = launches()
+    rec = dict(card=card_line(), row=row, launches=got, want=want)
+    out = root / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "corpus33_full.json").write_text(json.dumps(rec, indent=1))
+    log(json.dumps(rec))
+    if not (row["status"] == "verified_c64" and got == want
+            and row["norm_err"] < TOL_C64_NORM and row["max_amp_err"] < TOL_C64_AMP):
+        raise AssertionError(f"corpus33_full: {row}; launches {got}, want {want}")
+    return rec
+
+
+def corpus_argv() -> dict:
+    """Phase 11's subprocesses (after :data:`_GATE`), each with its own
+    QST_QASMBENCH (:data:`CORPUS_ENV`)."""
+    return {
+        "corpus": ["-m", f"{PORT}.bench.corpus", "--tier", "all", *CORPUS_SEG],
+        "corpus_sharded": ["-c", "import chip_smoke; chip_smoke.spot_sharded("
+                           f"{corpus_name('sycamore')!r})"],
+        "corpus33": ["-m", f"{PORT}.bench.corpus33", "--names", c33_name(),
+                     "--stripe-qubits", str(C33_M), "--seg-gates", str(C33_SEG)],
+        "fingerprints": ["-c", "import chip_smoke; chip_smoke.fingerprint_check("
+                         f"{fp_name()!r})"],
+    }
+
+
+CORPUS_ENV = {"corpus": {"QST_QASMBENCH": "{work}/corpus"},
+              "corpus_sharded": {"QST_QASMBENCH": "{work}/corpus"},
+              "corpus33": {"QST_QASMBENCH": "{work}/extra"},
+              "fingerprints": {"QST_QASMBENCH": "{work}/extra"}}
+CORPUS_BUDGET_S = 75.0
+PAIR_KEYS = ("pair_update", "mixed_pair", "mixed_low_pair", "midpair")
+
+
+def corpus_output(out: str, err: str) -> dict:
+    """Every JSON line a phase-11 subprocess printed, and its launches."""
+    docs = []
+    for line in out.splitlines():
+        try:
+            docs.append(json.loads(line))
+        except json.JSONDecodeError:
+            continue
+    return {"json": docs, "launches": bench_launches(err)}
+
+
+def _c128_ok(row: dict) -> bool:
+    errs = list(row.get("tiers", {}).values()) + [row.get("max_amp_err", 0.0)]
+    return all(e < DIAG_C128 for e in errs)
+
+
+def check_corpus(name: str, res: dict, ref: dict) -> str:
+    """Hold one phase-11 subprocess's output (:func:`corpus_output`) to its
+    checks (``ref``: :func:`write_corpus`'s); returns its key numbers for
+    the log line, raises AssertionError if a check fails.  A run with no
+    row, or with a row that is not ``verified…`` (but the n = 33 one,
+    ``skipped`` with the JAX package's reason), fails."""
+    docs = res["json"]
+    if not docs:
+        raise AssertionError(f"{name}: printed no JSON")
+    if name == "corpus":
+        summary, rows = docs[-1], [d for d in docs[:-1] if "circuit" in d]
+        want = {corpus_name(k): k for k in CORPUS_N}
+        if (summary.get("total_files") != len(want) or summary.get("failed")
+                or summary.get("checked") != len(want)
+                or sorted(r["circuit"] for r in rows) != sorted(want)):
+            raise AssertionError(f"corpus: {summary}, rows "
+                                 f"{[r['circuit'] for r in rows]}; want {sorted(want)}")
+        for r in rows:
+            key = want[r["circuit"]]
+            if key == "qft33":
+                ok = (r["status"] == "skipped" and r.get("method") == "parse_only"
+                      and r.get("reason") == CORPUS_REASON)
+            else:
+                ok = (r["status"] == "verified" and r.get("method") == CORPUS_METHOD[key]
+                      and _c128_ok(r))
+            if key in ("qft", "sycamore"):
+                ok = ok and set(r["tiers"]) == {"pergate", "fused", "window"}
+            if key == "traj":
+                ok = ok and r["seeds"] == [0, 1] and r["boundaries"] == 4
+            if key == "adder":
+                ok = ok and r["nnz"] == 1 and r["basis_state"] == hex(adder_basis())
+            if not ok:
+                raise AssertionError(f"corpus: row {r}")
+        return (f"{summary['verified']} verified, {summary['skipped']} skipped of "
+                f"{summary['total_files']}; " + ", ".join(
+                    f"{r['circuit']} {r.get('method')} {r.get('max_amp_err', 0):.3e} "
+                    f"{r.get('wall_s')} s" for r in rows))
+    row = docs[-1]
+    if name == "corpus_sharded":
+        if not (row["status"] == "verified" and "sharded8" in row["tiers"]
+                and _c128_ok(row)):
+            raise AssertionError(f"corpus_sharded: {row}")
+        return (f"{row['circuit']} " + ", ".join(
+            f"{k} {v:.3e}" for k, v in row["tiers"].items()) + f", {row['wall_s']} s")
+    if name == "corpus33":
+        got = res["launches"]
+        keys = {kernel_of(k) for k in got}
+        if not (row["status"] == "verified_c64" and row["n"] == C33_N
+                and row["stripe_qubits"] == C33_M
+                and row["norm_err"] < TOL_C64_NORM and row["max_amp_err"] < TOL_C64_AMP
+                and row["host_bit_qubits_in_segment"]
+                and "lane_panel" in keys and keys & set(PAIR_KEYS)
+                and got == ref["corpus33_want"]):
+            raise AssertionError(f"corpus33: {row}; launches {got}, want "
+                                 f"{ref['corpus33_want']} with lane_panel and a "
+                                 f"pair kernel")
+        return (f"{row['circuit']} n={row['n']} m={row['stripe_qubits']} "
+                f"{row['status']}: norm_err {row['norm_err']:.3e}, lightcone "
+                f"{row['max_amp_err']:.3e}, host bits "
+                f"{row['host_bit_qubits_in_segment']}, {row['steps']} steps "
+                f"{row['groups']} groups, engine {row['engine_s']} s (alloc "
+                f"{row['alloc_s']} s), wall {row['wall_s']} s")
+    if name == "fingerprints":
+        good, bad = row["verify"], row["corrupted"]
+        errs = [r["max_amp_err"] for r in good["rows"]]
+        bad_errs = [r["max_amp_err"] for r in bad["rows"]]
+        if not (good["all_ok"] and len(errs) == 1 and errs[0] < DIAG_C128
+                and not bad["all_ok"] and len(bad_errs) == 1
+                and bad_errs[0] > DIAG_C128):
+            raise AssertionError(f"fingerprints: {row}")
+        return (f"{good['rows'][0]['circuit']} {errs[0]:.3e} against its frozen "
+                f"fingerprint; shifted by {FP_SHIFT:g}: {bad_errs[0]:.3e}, refused")
+    raise KeyError(name)
+
+
+def corpus_open(dev) -> dict:
+    """Phase 11 opened (:func:`open_phase`): its corpus written, the ref its
+    checks read (``"ref"``), its first subprocesses started."""
+    ref: dict = {}
+    opened = open_phase(dev, corpus_argv(), 11, envs=CORPUS_ENV,
+                        prepare=lambda work: ref.update(write_corpus(work)))
+    opened["ref"] = ref
+    return opened
+
+
+def corpus_tier(dev, opened=None) -> dict:
+    """Phase 11: the corpus modules through :func:`bench_tier`, on a corpus
+    written to the phase's work dir (``opened`` while phase 10's last
+    bench ran, or here); returns the launches of its subprocesses, summed
+    by key (the ``corpus tier`` path of the kernels line)."""
+    opened = opened or corpus_open(dev)
+    argv = corpus_argv()
+    bench_tier(dev, opened["ref"], argv, CORPUS_BUDGET_S, 11, check_corpus,
+               parse=corpus_output, opened=opened)
+    total: dict = {}
+    for name in argv:
+        _add(total, RECORD["bench11"][name]["launches"])
+    return {"corpus tier": total}
+
+
 def kernels_line(counts: dict, rows: dict, worst: dict) -> list:
     """One record per kernel: its launches in the request that runs it
     (a panel's "+diag" and "+rotate" launches included; the requests
@@ -4330,10 +4742,17 @@ def main() -> int:
     bench_tier(dev, RECORD["e2e"]["nonstab28"], BENCH_ARGV, BENCH_BUDGET_S, 9,
                check_bench)
     done("phase 9")
-    bench_tier(dev, {"ms": RECORD["e2e"]["nonstab28"]["ms"],
-                     "lane_panel_ms": rows["lane_panel"]["ms"]},
-               DIAG_ARGV, DIAG_BUDGET_S, 10, check_diag)
-    done("phase 10")
+    phase11: dict = {}  # opened while phase 10's last bench runs
+    try:
+        bench_tier(dev, {"ms": RECORD["e2e"]["nonstab28"]["ms"],
+                         "lane_panel_ms": rows["lane_panel"]["ms"]},
+                   DIAG_ARGV, DIAG_BUDGET_S, 10, check_diag,
+                   then=lambda: phase11.update(corpus_open(dev)))
+        done("phase 10")
+        counts.update(corpus_tier(dev, phase11))
+    finally:
+        _stop(phase11.get("procs", {}).values())
+    done("phase 11")
     counts.update(capacity33(dev))
     done("phase 5")
     counts.update(tiers(dev))

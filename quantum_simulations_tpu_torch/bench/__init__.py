@@ -29,6 +29,18 @@ goes:
 * :mod:`sharded`          — ``run`` (n = 30 on 8 positions), ``run16`` (the
   five-tier dry run and the n = 14 pod program on 16 positions)
 
+The corpus tier (run as modules; the corpus is QASMBench's ``cluster/``
+tree, named by ``QST_QASMBENCH``, with HiSVSIM's partition files):
+
+* :mod:`corpus`           — every circuit of the corpus verified against the
+  numpy oracle under its size's policy (complex128, 1e-10)
+* :mod:`corpus33`         — n = 33 segments at complex64 through the spill
+  tier, held to their exact lightcone amplitudes
+* :mod:`fingerprints`     — the card's state against amplitudes frozen by an
+  independent torch engine
+* :mod:`hisvsim_parts`    — the staging scheduler against HiSVSIM's
+  partitions (host planning only)
+
 Every bench measures the card (``cuda:0``).  ``QST_BENCH_PLATFORM=cpu``
 runs it on the CPU instead, where the kernels' plain twins run: the tests
 do so, and a CPU number is never a card number.  Without a card and

@@ -642,7 +642,10 @@ def simulate(
     the reference, the recursive call does not pass ``segment_gates``
     on, so each part runs as one schedule.  ``donate_input`` keeps the
     reference's meaning (the caller will not touch ``initial_state``
-    again); out-of-place execution never writes it.
+    again): torch has no donation, so the call drops its reference to the
+    input as soon as the planes are built, and a tensor the caller holds
+    no name of is freed there (a c128 input at n = 31 is 32 GiB of the
+    card's 80).  Out-of-place execution never writes it.
     """
     cd = validate_circuit_dict(circuit_dict)
     n = cd["number_of_qubits"]
@@ -653,21 +656,23 @@ def simulate(
 
         n_seg = -(-len(cd["gates"]) // segment_gates)
         parts = partition(cd, n_seg)
-        psi = _as_state(initial_state, n, cdtype, dev)
-        first = True
+        owned = donate_input or initial_state is None
+        # The state lives only in ``box`` between parts, so each part's
+        # call holds the last reference to its input and can drop it.
+        box = [_as_state(initial_state, n, cdtype, dev)]
+        if donate_input:
+            del initial_state
         for part in parts:
             if not part:
                 continue
             sub = {"number_of_qubits": n,
                    "gates": [cd["gates"][i] for i in part]}
-            psi = simulate(sub, dtype=dtype, use_fusion=use_fusion,
-                           panel_width=panel_width, mode=mode,
-                           initial_state=psi,
-                           donate_input=(donate_input or not first
-                                         or initial_state is None),
-                           device=dev, plain=plain)
-            first = False
-        return psi
+            box.append(simulate(sub, dtype=dtype, use_fusion=use_fusion,
+                                panel_width=panel_width, mode=mode,
+                                initial_state=box.pop(), donate_input=owned,
+                                device=dev, plain=plain))
+            owned = True  # each later part's input is the previous output
+        return box.pop()
     if mode == "auto":
         from ..circuit.panelize import window_stats
 
@@ -686,4 +691,11 @@ def simulate(
         state = list(dense.zero_state_planar(n, float_dtype(cdtype), dev))
     else:
         state = list(pk.to_planar(_as_state(initial_state, n, cdtype, dev)))
+        if donate_input:
+            del initial_state
     return pk.from_planar(*fn.consume(state))
+
+
+def simulate_np(circuit_dict: dict, **kw) -> np.ndarray:
+    """Like :func:`simulate` (``device`` too) but returns host numpy."""
+    return simulate(circuit_dict, **kw).cpu().numpy()

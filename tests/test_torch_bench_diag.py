@@ -52,12 +52,9 @@ def _one_thread_per_worker():
 
 
 # ---------------------------------------------------------------------------
-# Every JAX bench module that reads no corpus has its counterpart
+# Every JAX bench module has its counterpart
 # ---------------------------------------------------------------------------
 
-# They read the QASMBench corpus and the HiSVSIM partition files, which
-# are not in the repository.
-CORPUS = {"corpus.py", "corpus33.py", "fingerprints.py", "hisvsim_parts.py"}
 NOT_PORTED = {"_compile_with_retries"}  # retried remote-compile 500s
 
 
@@ -69,9 +66,8 @@ def _functions(path: Path) -> set:
 def test_every_bench_function_has_its_counterpart():
     jax_bench = ROOT / "quantum_simulations_tpu" / "bench"
     port_bench = ROOT / "quantum_simulations_tpu_torch" / "bench"
-    modules = sorted(p.name for p in jax_bench.glob("*.py")
-                     if p.name not in CORPUS)
-    assert len(modules) == 16
+    modules = sorted(p.name for p in jax_bench.glob("*.py"))
+    assert len(modules) == 20
     for name in modules:
         want = {f for f in _functions(jax_bench / name)
                 if not f.startswith("_")} - NOT_PORTED

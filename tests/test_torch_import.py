@@ -17,7 +17,11 @@ MODULES = [
     "quantum_simulations_tpu_torch.bench.baseline_configs",
     "quantum_simulations_tpu_torch.bench.c128_diff",
     "quantum_simulations_tpu_torch.bench.capacity",
+    "quantum_simulations_tpu_torch.bench.corpus",
+    "quantum_simulations_tpu_torch.bench.corpus33",
     "quantum_simulations_tpu_torch.bench.e2e",
+    "quantum_simulations_tpu_torch.bench.fingerprints",
+    "quantum_simulations_tpu_torch.bench.hisvsim_parts",
     "quantum_simulations_tpu_torch.bench.headline",
     "quantum_simulations_tpu_torch.bench.kernel_bw",
     "quantum_simulations_tpu_torch.bench.matrix",
