@@ -294,9 +294,17 @@ Phases (any failure exits non-zero):
    lane_panel and the pair kernel among them); a fingerprint of
    qaoa_maxcut(14) built by ``fingerprints.torch_simulate`` on the CPU
    and ``fingerprints.verify`` against it (within 1e-10), then refused
-   with one top-k amplitude moved by 1e-6.  complex128 runs the plain
-   twins on the card; only corpus33 launches kernels.  n = 33, the size
-   corpus33 exists for, is :func:`corpus33_full`, run by hand.
+   with one top-k amplitude moved by 1e-6; ``bench.corpus --tier all
+   --seg-gates 4 --seg-k 1`` over a second corpus (``corpus_big``): the
+   branches the tier takes only at n = 29-31, switched on lower by
+   :data:`CORPUS_ENV` (nonstab_n26's segment through the disk memmap as
+   sub-programs of 2 gates; :func:`traj_short` at n = 22 through the
+   unitary-runs branch), both ``verified`` within 1e-10.  complex128 runs
+   the plain twins on the card (above ``dense.PLAIN_BLOCK`` amplitudes
+   block by block); only corpus33 launches kernels.  n = 33, the size
+   corpus33 exists for, is :func:`corpus33_full`, and n = 27-31, the
+   sizes of the segment and trajectory policies, :func:`corpus_full`,
+   both run by hand.
 
 After each phase, ``script: phase N done at T s`` gives the script's
 clock since the card was found (build included).
@@ -4285,7 +4293,8 @@ def check_diag(name: str, out: dict, ref: dict) -> str:
 # (<name>/<name>.qasm) from circuit/library through export_qasm.to_qasm,
 # and each circuit's policy (corpus.py): the method its row must carry.
 # Under corpus/ for `corpus --tier all`; under extra/ the circuits of
-# corpus33 and of the fingerprint check, which the corpus run must not see.
+# corpus33 and of the fingerprint check, which the corpus run must not see;
+# under big/ corpus_big's two.
 CORPUS_N = {"qft": 14, "sycamore": 18, "nonstab": 26, "traj": 16,
             "adder": 40, "qft33": 33}
 CORPUS_METHOD = {"qft": "e2e_c128", "sycamore": "e2e_c128",
@@ -4304,10 +4313,21 @@ C33_N, C33_M, C33_SEG, C33_SEED = 28, 24, 7, 8
 FP_N = 14                # the fingerprint check's circuit: qaoa_maxcut(14)
 FP_SHIFT = 1e-6          # the corrupted fingerprint's shift of one amplitude
 TOL_C64_NORM, TOL_C64_AMP = 1e-5, 1e-6   # corpus33's own bounds
+# corpus_big, under big/: the branches the corpus tier takes only at
+# n = 29-31, lowered by its switches (CORPUS_ENV) to sizes the phase's
+# budget holds: nonstab_n26's segment streamed through a disk memmap as
+# sub-programs of 2 gates, traj_short(22) through the unitary-runs branch.
+BIG_N = {"nonstab": 26, "traj": 22}
+BIG_METHOD = {"nonstab": "segment_restart_c128[4]_fusedtier",
+              "traj": "unitary_runs_segment_restart_c128[32]_fusedtier"}
 
 
 def corpus_name(key: str) -> str:
     return "qft_n33" if key == "qft33" else f"{key}_n{CORPUS_N[key]}"
+
+
+def big_name(key: str) -> str:
+    return f"{key}_n{BIG_N[key]}"
 
 
 def c33_name() -> str:
@@ -4319,12 +4339,17 @@ def fp_name() -> str:
 
 
 def traj_qasm(n: int) -> str:
-    """``traj_circuit(n)`` as OpenQASM 2.0: its unitary gates as
+    """``traj_circuit(n)`` as OpenQASM 2.0 (:func:`nonunitary_qasm`)."""
+    return nonunitary_qasm(traj_circuit(n))
+
+
+def nonunitary_qasm(cd: dict) -> str:
+    """A trajectory circuit as OpenQASM 2.0: its unitary gates as
     ``to_qasm`` writes them, and the MEASURE, RESET and conditions that
     the exporter does not write."""
     from quantum_simulations_tpu_torch.circuit.export_qasm import to_qasm
 
-    cd = traj_circuit(n)
+    n = cd["number_of_qubits"]
     lines = ["OPENQASM 2.0;", 'include "qelib1.inc";', f"qreg q[{n}];",
              "creg c[3];"]
     for g in cd["gates"]:
@@ -4344,8 +4369,35 @@ def traj_qasm(n: int) -> str:
     return "\n".join(lines) + "\n"
 
 
+def traj_short(n: int) -> dict:
+    """A short trajectory circuit on n >= 8 qubits: 16 unitary gates in
+    four runs (6, 4, 4, 2; the unitary-runs branch samples the first
+    three), MEASURE q0 -> c[0], X q(n/3) if c == 1, RESET q1, MEASURE
+    q(n-1) -> c[1], Z q4 if c == 2.  Short, because the numpy oracle's
+    trajectory twin spends seconds a gate on 2^28 amplitudes."""
+    def gate(name, *qubits, cond=None):
+        g = {"qubits": list(qubits), "gate": name, "params": {}}
+        return g if cond is None else dict(g, cond={"creg": "c", "value": cond})
+
+    def measure(q, cbit):
+        return {"qubits": [q], "gate": "MEASURE",
+                "params": {"creg": "c", "cbit": cbit}}
+
+    gates = [gate("H", 0), gate("H", 1), gate("H", 2),
+             gate("CNOT", 0, n - 1), gate("CNOT", 1, n // 2), gate("T", n // 2),
+             measure(0, 0),
+             gate("X", n // 3, cond=1), gate("H", n - 2),
+             gate("CNOT", n - 2, 3), gate("S", 3),
+             {"qubits": [1], "gate": "RESET"},
+             gate("H", 1), gate("CNOT", 1, n - 3), gate("T", n - 3),
+             gate("CNOT", 2, n - 1),
+             measure(n - 1, 1),
+             gate("Z", 4, cond=2), gate("H", 4)]
+    return {"number_of_qubits": n, "gates": gates}
+
+
 def corpus_texts() -> dict:
-    """{"corpus": {name: qasm}, "extra": {name: qasm}}."""
+    """{"corpus": {name: qasm}, "extra": {name: qasm}, "big": {name: qasm}}."""
     from quantum_simulations_tpu_torch.circuit import library
     from quantum_simulations_tpu_torch.circuit.export_qasm import to_qasm
 
@@ -4360,8 +4412,10 @@ def corpus_texts() -> dict:
     }
     extra = {c33_name(): to_qasm(library.random_circuit(C33_N, 200, seed=C33_SEED)),
              fp_name(): to_qasm(library.qaoa_maxcut(FP_N))}
+    big = {big_name("nonstab"): to_qasm(library.non_stabilizer(BIG_N["nonstab"])),
+           big_name("traj"): nonunitary_qasm(traj_short(BIG_N["traj"]))}
     return {"corpus": {corpus_name(k): v for k, v in corpus.items()},
-            "extra": extra}
+            "extra": extra, "big": big}
 
 
 def adder_basis() -> int:
@@ -4388,7 +4442,8 @@ def write_corpus(work: Path) -> dict:
     seg, _ = _pick_segment(cd, C33_SEG, C33_M)
     want, dense = spill_want({"number_of_qubits": C33_N, "gates": seg}, C33_M)
     log(f"corpus: {sorted(os.listdir(work / 'corpus'))} under corpus/, "
-        f"{sorted(os.listdir(work / 'extra'))} under extra/; corpus33's "
+        f"{sorted(os.listdir(work / 'extra'))} under extra/, "
+        f"{sorted(os.listdir(work / 'big'))} under big/; corpus33's "
         f"segment {[(g['gate'], g['qubits']) for g in seg]}: launches {want}, "
         f"{dense} plain gate calls")
     return {"corpus33_want": want, "corpus33_dense": dense}
@@ -4493,6 +4548,200 @@ def corpus33_full() -> dict:
     return rec
 
 
+# The corpus tier's segment and trajectory policies at the sizes they
+# exist for (bench/corpus.py: segments for 21 <= n <= 31 at the policy's
+# own plan, the trajectory twin up to n = 28 and its unitary-runs branch
+# above), run by hand (below): host draws and the numpy oracle take tens
+# of minutes.  Each row's segment plan, by corpus._seg_plan: nonstab_n27
+# and qft_n28 4 segments of 24 gates, random_n29 2 of 12, sycamore_n30
+# and nonstab_n31 1 of 12 (n = 31 through the disk memmap, as sub-programs
+# of 4 gates); traj_n28 the full twin of traj_short(28), both seeds;
+# traj_n30 traj_circuit(30)'s unitary runs, 1 segment of 12.
+FULL_PEAK_EXTRA = 2 * GIB   # a segment row's card peak: 2 states + this
+
+
+def full_texts() -> dict:
+    """{name: () -> qasm} of ``corpus_full``'s rows."""
+    from quantum_simulations_tpu_torch.circuit import library
+    from quantum_simulations_tpu_torch.circuit.export_qasm import to_qasm
+
+    return {
+        "nonstab_n27": lambda: to_qasm(library.non_stabilizer(27)),
+        "qft_n28": lambda: to_qasm(library.qft(28)),
+        "random_n29": lambda: to_qasm(library.random_circuit(29, 200, seed=3)),
+        "sycamore_n30": lambda: to_qasm(library.sycamore_like(30, depth=4)),
+        "nonstab_n31": lambda: to_qasm(library.non_stabilizer(31)),
+        "traj_n28": lambda: nonunitary_qasm(traj_short(28)),
+        "traj_n30": lambda: traj_qasm(30),
+    }
+
+
+class _RssPeak:
+    """The process's peak resident set while open, sampled every 50 ms
+    from /proc/self/statm."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = 0, threading.Event()
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._sample()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self) -> None:
+        with open("/proc/self/statm") as f:
+            self.peak = max(self.peak, int(f.read().split()[1]) * self._page)
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.05):
+            self._sample()
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+
+
+def disk_line(path) -> dict:
+    """Free space and file system of the mount that holds ``path``."""
+    import shutil
+
+    from quantum_simulations_tpu_torch.bench.corpus import _mount
+
+    mnt, fstype = _mount(str(path))
+    return {"path": str(path), "mount": mnt, "fstype": fstype,
+            "free_gib": shutil.disk_usage(path).free / GIB}
+
+
+def oracle_probe(n: int = 28) -> dict:
+    """Seconds of the host's numpy oracle at n: one random state
+    (``corpus._rand_state``), one H, one CNOT and one random 4x4 gate
+    through ``apply_gate_lean`` (the trajectory twin's and the segment
+    oracle's gate), and one MEASURE's P(1) and collapse (``_p1``,
+    ``_collapse``)."""
+    import numpy as np
+
+    from quantum_simulations_tpu_torch.bench.corpus import _rand_state
+    from quantum_simulations_tpu_torch.circuit import gates as G
+    from quantum_simulations_tpu_torch.oracle import dense_numpy as oracle
+
+    out = {"n": n}
+    t0 = time.perf_counter()
+    psi = _rand_state(n, 5)
+    out["rand_state_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(5)
+    u4, _ = np.linalg.qr(rng.standard_normal((4, 4))
+                         + 1j * rng.standard_normal((4, 4)))
+    for key, qubits, U in (("H", [n // 2], G.gate_matrix("H", {})),
+                           ("CNOT", [1, n - 1], G.gate_matrix("CNOT", {})),
+                           ("U4", [2, n - 2], u4)):
+        t0 = time.perf_counter()
+        oracle.apply_gate_lean(psi, qubits, U)
+        out[f"{key}_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p1 = oracle._p1(psi, 0)
+    psi = oracle._collapse(psi, 0, int(p1 < 0.5))
+    out["measure_s"] = time.perf_counter() - t0
+    del psi
+    log(f"oracle_probe: {json.dumps(out)}")
+    return out
+
+
+def corpus_full(names=None, out_dir=None) -> dict:
+    """``corpus.verify_one`` on each row of :func:`full_texts` (``names``:
+    some of them, so that rows can run in separate card calls), in this
+    process, on a corpus written under ``build/corpus_full`` (removed
+    after) with its memmap scratch there.  Not a phase; run it alone:
+
+        python -c "import chip_smoke; chip_smoke.corpus_full()"
+        python -c "import chip_smoke; chip_smoke.corpus_full(['nonstab_n31'])"
+
+    First :func:`oracle_probe` at n = 28.  Per row: the row, its wall
+    split as the row splits it (host draws, upload, card engine,
+    download, with the memmap at n = 31, oracle, comparison) and the
+    rest (parsing, writing the file), the card's peak
+    (``max_memory_allocated`` from a reset) and the host's peak RSS.  The record goes to ``corpus_full.json`` in
+    ``out_dir`` (by default ``chiprun_out/``) after every row.  A row
+    that raises is recorded with its traceback and the next one runs.
+    Raises at the end if a row is not ``verified`` below 1e-10 or a
+    segment row's card peak passes 2 states + 2 GiB (66 GiB at n = 31)."""
+    import shutil
+
+    import torch
+
+    from quantum_simulations_tpu_torch.bench import corpus, setup_platform
+
+    dev = setup_platform()
+    if dev.type == "cuda":  # the allocator's statistics exist from here on
+        dev = torch.device("cuda", torch.cuda.current_device())
+        torch.zeros(1, device=dev)
+    texts = full_texts()
+    names = list(texts) if names is None else list(names)
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "corpus_full"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "scratch").mkdir(parents=True)
+    out = Path(out_dir) if out_dir is not None else root / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    rec = dict(card=card_line() if dev.type == "cuda" else str(dev),
+               host=dict(mem_available_gib=meminfo()["MemAvailable"] / GIB,
+                         scratch=disk_line(work / "scratch"),
+                         tmpdir=disk_line(os.environ.get("TMPDIR", "/tmp"))),
+               rows=[])
+    log(f"corpus_full: {rec['card']}; host {json.dumps(rec['host'])}")
+    rec["oracle_probe"] = oracle_probe(28) if dev.type == "cuda" else None
+    old_scratch = os.environ.get("QST_SCRATCH")
+    os.environ["QST_SCRATCH"] = str(work / "scratch")
+    try:
+        for name in names:
+            path = work / name / f"{name}.qasm"
+            path.parent.mkdir()
+            path.write_text(texts[name]())
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            with _RssPeak() as rss:
+                try:
+                    row = corpus.verify_one(name, str(path))
+                except Exception:  # the row fails; the rows after it still run
+                    row = {"circuit": name, "status": "ERROR",
+                           "error": traceback.format_exc()[-2000:]}
+            wall = time.perf_counter() - t0
+            split = dict(row.get("split_s", {}))
+            split["rest"] = wall - sum(split.values())
+            entry = dict(row=row, wall_s=wall, split_s=split,
+                         host_peak_rss_gib=rss.peak / GIB,
+                         card_peak_gib=(torch.cuda.max_memory_allocated(dev) / GIB
+                                        if dev.type == "cuda" else None))
+            if str(row.get("method", "")).endswith("fusedtier") and row.get("gates_checked"):
+                entry["oracle_s_per_gate"] = split.get("oracle", 0.0) / row["gates_checked"]
+            rec["rows"].append(entry)
+            (out / "corpus_full.json").write_text(json.dumps(rec, indent=1))
+            log(f"corpus_full {name}: {json.dumps(entry)}")
+    finally:
+        if old_scratch is None:
+            os.environ.pop("QST_SCRATCH", None)
+        else:
+            os.environ["QST_SCRATCH"] = old_scratch
+        shutil.rmtree(work, ignore_errors=True)
+    bad = []
+    for e in rec["rows"]:
+        row, peak = e["row"], e["card_peak_gib"]
+        n = row.get("n", 0)
+        if not (row.get("status") == "verified" and row.get("max_amp_err", 1.0) < DIAG_C128):
+            bad.append(row)
+        elif ("segment_restart" in row["method"] and peak is not None
+              and peak * GIB > 2 * (16 << n) + FULL_PEAK_EXTRA):
+            bad.append(dict(row, card_peak_gib=peak))
+    if bad:
+        raise AssertionError(f"corpus_full: rows not verified or over 2 states "
+                             f"+ {FULL_PEAK_EXTRA // GIB} GiB on the card: {bad}")
+    return rec
+
+
 def corpus_argv() -> dict:
     """Phase 11's subprocesses (after :data:`_GATE`), each with its own
     QST_QASMBENCH (:data:`CORPUS_ENV`)."""
@@ -4504,13 +4753,18 @@ def corpus_argv() -> dict:
                      "--stripe-qubits", str(C33_M), "--seg-gates", str(C33_SEG)],
         "fingerprints": ["-c", "import chip_smoke; chip_smoke.fingerprint_check("
                          f"{fp_name()!r})"],
+        "corpus_big": ["-m", f"{PORT}.bench.corpus", "--tier", "all", *CORPUS_SEG],
     }
 
 
 CORPUS_ENV = {"corpus": {"QST_QASMBENCH": "{work}/corpus"},
               "corpus_sharded": {"QST_QASMBENCH": "{work}/corpus"},
               "corpus33": {"QST_QASMBENCH": "{work}/extra"},
-              "fingerprints": {"QST_QASMBENCH": "{work}/extra"}}
+              "fingerprints": {"QST_QASMBENCH": "{work}/extra"},
+              "corpus_big": {"QST_QASMBENCH": "{work}/big", "QST_SCRATCH": "{work}",
+                             "QST_SEG_DISK_MIN": str(BIG_N["nonstab"]),
+                             "QST_SEG_ENGINE_CHUNK": "2",
+                             "QST_TRAJ_FULL_NMAX": str(BIG_N["traj"] - 2)}}
 CORPUS_BUDGET_S = 75.0
 PAIR_KEYS = ("pair_update", "mixed_pair", "mixed_low_pair", "midpair")
 
@@ -4568,6 +4822,19 @@ def check_corpus(name: str, res: dict, ref: dict) -> str:
                 f"{summary['total_files']}; " + ", ".join(
                     f"{r['circuit']} {r.get('method')} {r.get('max_amp_err', 0):.3e} "
                     f"{r.get('wall_s')} s" for r in rows))
+    if name == "corpus_big":
+        summary, rows = docs[-1], [d for d in docs[:-1] if "circuit" in d]
+        want = {big_name(k): BIG_METHOD[k] for k in BIG_N}
+        if (summary.get("failed") or summary.get("checked") != len(want)
+                or sorted(r["circuit"] for r in rows) != sorted(want)):
+            raise AssertionError(f"corpus_big: {summary}, rows "
+                                 f"{[r['circuit'] for r in rows]}; want {sorted(want)}")
+        for r in rows:
+            if not (r["status"] == "verified" and r.get("method") == want[r["circuit"]]
+                    and r.get("gates_checked", 0) >= 4 and _c128_ok(r)):
+                raise AssertionError(f"corpus_big: row {r}")
+        return ", ".join(f"{r['circuit']} {r['method']} {r['gates_checked']} gates "
+                         f"{r['max_amp_err']:.3e} {r['wall_s']} s" for r in rows)
     row = docs[-1]
     if name == "corpus_sharded":
         if not (row["status"] == "verified" and "sharded8" in row["tiers"]

@@ -44,8 +44,10 @@ Usage::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import shutil
 import time
 
 import numpy as np
@@ -136,6 +138,25 @@ def _seg_plan(n_gates: int, n: int, seg_gates: int | None = None,
     return seg_gates, idxs
 
 
+class _Split(dict):
+    """Seconds of a row by part: ``with split("oracle"): ...`` adds the
+    block's wall time to ``split["oracle"]``; given the device, after
+    synchronising it (the card's work is asynchronous)."""
+
+    @contextlib.contextmanager
+    def __call__(self, key: str, dev=None):
+        import torch
+
+        t0 = time.perf_counter()
+        yield
+        if dev is not None and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        self[key] = self.get(key, 0.0) + time.perf_counter() - t0
+
+    def rounded(self) -> dict:
+        return {k: round(v, 3) for k, v in self.items()}
+
+
 def _max_diff(got: np.ndarray, want: np.ndarray) -> float:
     m = 0.0
     for i in range(0, got.size, _CHUNK):
@@ -173,6 +194,52 @@ def _verify_e2e(name: str, cd: dict, spot_sharded: bool) -> dict:
             "wall_s": round(time.time() - t0, 2)}
 
 
+def _mount(path: str) -> tuple[str, str]:
+    """(mount point, file system type) of the mount that holds ``path``."""
+    path = os.path.realpath(path)
+    best = ("/", "")
+    with open("/proc/mounts") as f:
+        for line in f:
+            _dev, mnt, fstype = line.split()[:3]
+            if ((path == mnt or path.startswith(mnt.rstrip("/") + "/"))
+                    and len(mnt) >= len(best[0])):
+                best = (mnt, fstype)
+    return best
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) << 10
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _host_refusal(n: int, big: bool, scratch: str) -> str | None:
+    """Why a segment row at n cannot run on this host (None if it can):
+    the host holds the oracle's state and, below ``QST_SEG_DISK_MIN``,
+    the engine's result beside it; above, the result streams to a
+    memmap in ``scratch``, which must have room for it, and which holds
+    it in RAM if it is a tmpfs.  A refusal names the numbers, where
+    running on would end in the kernel's OOM kill."""
+    state = 16 << n
+    ram = 2 * state
+    if big:
+        free = shutil.disk_usage(scratch).free
+        mnt, fstype = _mount(scratch)
+        if free < state:
+            return (f"memmap of {state >> 30} GiB does not fit in {scratch} "
+                    f"({fstype} at {mnt}, {free / 2**30:.1f} GiB free)")
+        if fstype not in ("tmpfs", "ramfs"):
+            ram = state
+    avail = _mem_available()
+    if avail < ram:
+        return (f"host needs {ram >> 30} GiB for the oracle's state"
+                f"{' and the result' if ram > state else ''}, "
+                f"MemAvailable {avail / 2**30:.1f} GiB")
+    return None
+
+
 def _verify_segments(name: str, cd: dict, seg_gates=None, k=None) -> dict:
     """Each sampled segment: the engine (fused tier, the path users run)
     from a random c128 state on the device, the numpy oracle in place
@@ -182,7 +249,8 @@ def _verify_segments(name: str, cd: dict, seg_gates=None, k=None) -> dict:
     through a disk memmap under ``QST_SCRATCH`` (by default the temporary
     directory) and the engine runs the segment as sub-programs of
     ``QST_SEG_ENGINE_CHUNK`` gates, so at most one full state is in host
-    RAM at a time."""
+    RAM at a time.  A host without room for that (:func:`_host_refusal`)
+    skips the row with the reason."""
     import tempfile
 
     import torch
@@ -195,34 +263,49 @@ def _verify_segments(name: str, cd: dict, seg_gates=None, k=None) -> dict:
     seg_gates, idxs = _seg_plan(len(gates), n, seg_gates, k)
     t0, worst = time.time(), 0.0
     big = n >= int(os.environ.get("QST_SEG_DISK_MIN", "31"))
+    refusal = _host_refusal(n, big, os.environ.get("QST_SCRATCH")
+                            or tempfile.gettempdir())
+    if refusal is not None:
+        return {"method": f"segment_restart_c128[{seg_gates}]_fusedtier",
+                "status": "skipped", "reason": refusal,
+                "wall_s": round(time.time() - t0, 2)}
+    split = _Split()
     for s in idxs:
         seg = gates[s * seg_gates:(s + 1) * seg_gates]
         sub = {"number_of_qubits": n, "gates": seg}
+        with split("draws"):
+            host = _rand_state(n, 1000 + s)
+        with split("upload", dev):
+            box = [torch.from_numpy(host).to(dev)]
+        del host
         # No name holds the input: donate_input drops the call's
         # reference once the planes are built (torch has no donation).
-        g = simulator.simulate(
-            sub, dtype="complex128", use_fusion=True, panel_width=7,
-            mode="fused",
-            initial_state=torch.from_numpy(_rand_state(n, 1000 + s)).to(dev),
-            donate_input=True,
-            segment_gates=(int(os.environ.get("QST_SEG_ENGINE_CHUNK", "4"))
-                           if big else None),
-            device=dev)
-        if big:
-            tmp = tempfile.NamedTemporaryFile(  # by default under TMPDIR
-                dir=os.environ.get("QST_SCRATCH"), delete=False)
-            tmp.close()
-            got = np.memmap(tmp.name, dtype=np.complex128, mode="w+",
-                            shape=(1 << n,))
-            for i in range(0, 1 << n, _CHUNK):
-                got[i:i + _CHUNK] = g[i:i + _CHUNK].cpu().numpy()
-            got.flush()
-        else:
-            got = g.cpu().numpy()
+        with split("engine", dev):
+            g = simulator.simulate(
+                sub, dtype="complex128", use_fusion=True, panel_width=7,
+                mode="fused", initial_state=box.pop(), donate_input=True,
+                segment_gates=(int(os.environ.get("QST_SEG_ENGINE_CHUNK", "4"))
+                               if big else None),
+                device=dev)
+        with split("download"):
+            if big:
+                tmp = tempfile.NamedTemporaryFile(  # by default under TMPDIR
+                    dir=os.environ.get("QST_SCRATCH"), delete=False)
+                tmp.close()
+                got = np.memmap(tmp.name, dtype=np.complex128, mode="w+",
+                                shape=(1 << n,))
+                for i in range(0, 1 << n, _CHUNK):
+                    got[i:i + _CHUNK] = g[i:i + _CHUNK].cpu().numpy()
+                got.flush()
+            else:
+                got = g.cpu().numpy()
         del g
-        psi0 = _rand_state(n, 1000 + s)
-        want = oracle.simulate_lean(sub, initial_state=psi0)  # aliases
-        worst = max(worst, _max_diff(got, want))
+        with split("draws"):
+            psi0 = _rand_state(n, 1000 + s)
+        with split("oracle"):
+            want = oracle.simulate_lean(sub, initial_state=psi0)  # aliases
+        with split("compare"):
+            worst = max(worst, _max_diff(got, want))
         del got, want, psi0
         if big:
             os.unlink(tmp.name)
@@ -232,7 +315,7 @@ def _verify_segments(name: str, cd: dict, seg_gates=None, k=None) -> dict:
             "gates_checked": min(len(gates), len(idxs) * seg_gates),
             "max_amp_err": worst,
             "status": "verified" if worst < TOL else "FAILED",
-            "wall_s": round(time.time() - t0, 2)}
+            "wall_s": round(time.time() - t0, 2), "split_s": split.rounded()}
 
 
 def _verify_trajectory(name: str, cd: dict, full_n_max: int | None = None,
@@ -251,26 +334,30 @@ def _verify_trajectory(name: str, cd: dict, full_n_max: int | None = None,
     t0 = time.time()
     if n <= full_n_max and len(gates) <= 400:
         dev = setup_platform()
-        worst = 0.0
+        worst, split = 0.0, _Split()
         for seed in seeds:
-            psi, cregs, outs = T.simulate_trajectory(
-                cd, seed=seed, dtype="complex128",
-                use_fusion=True, panel_width=7, device=dev)
-            want, cregs_o, outs_o = oracle.simulate_trajectory(cd, seed=seed)
+            with split("engine", dev):
+                psi, cregs, outs = T.simulate_trajectory(
+                    cd, seed=seed, dtype="complex128",
+                    use_fusion=True, panel_width=7, device=dev)
+            with split("oracle"):
+                want, cregs_o, outs_o = oracle.simulate_trajectory(cd, seed=seed)
             if outs != outs_o or cregs != cregs_o:
                 return {"method": "trajectory_twin_c128",
                         "status": "FAILED",
                         "detail": "outcome/creg divergence",
                         "wall_s": round(time.time() - t0, 2)}
-            worst = max(worst, float(np.max(np.abs(psi.cpu().numpy()
-                                                   - want))))
-            del psi, want
+            with split("download"):
+                got = psi.cpu().numpy()
+            with split("compare"):
+                worst = max(worst, float(np.max(np.abs(got - want))))
+            del psi, got, want
         return {"method": "trajectory_twin_c128", "seeds": list(seeds),
                 "boundaries": sum(g["gate"] in ("RESET", "MEASURE")
                                   for g in gates),
                 "max_amp_err": worst,
                 "status": "verified" if worst < TOL else "FAILED",
-                "wall_s": round(time.time() - t0, 2)}
+                "wall_s": round(time.time() - t0, 2), "split_s": split.rounded()}
     if n >= 32:
         return {"method": "parse_only", "status": "skipped",
                 "reason": f"c128 twin needs {3 * 16 * (1 << n) >> 30} GiB "

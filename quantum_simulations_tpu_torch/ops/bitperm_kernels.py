@@ -41,6 +41,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from . import dense
 from .cuda_build import check_aligned, launch, on_card, outputs, store
 
 LANE_BITS = 7
@@ -309,10 +310,23 @@ def permute_view(n: int, src: list[int]):
 
 
 def _permuted(re, im, src):
-    """out[i] = in[S(i)] of each plane, bit b of S(i) bit src[b] of i."""
-    shape, dims = permute_view(_n_of(re), src)
-    return tuple(x.reshape(shape).permute(dims).contiguous().reshape(-1)
-                 for x in (re, im))
+    """out[i] = in[S(i)] of each plane, bit b of S(i) bit src[b] of i;
+    above ``dense.PLAIN_BLOCK`` amplitudes block by block over bits the
+    permutation keeps."""
+    moved = [b for b, s in enumerate(src) if s != b]
+
+    def make(nb, at):
+        sub = list(range(nb))
+        for b in moved:
+            sub[at(b)] = at(src[b])
+        shape, dims = permute_view(nb, sub)
+
+        def body(xr, xi, base):
+            return tuple(x.reshape(shape).permute(dims).contiguous().reshape(-1)
+                         for x in (xr, xi))
+        return body
+
+    return dense.blocked(re, im, moved, make)
 
 
 def bitperm_swap_plain(re, im, pairs, grid_map=None):

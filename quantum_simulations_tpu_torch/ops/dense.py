@@ -13,6 +13,10 @@ their port: every call of :func:`apply_gate_planar` adds one to
 every ``DiagOp`` carries its Möbius terms, so
 ``ops/diag_kernels.fused_diag`` serves it.
 
+:func:`blocked` runs a plain pass on planes above :data:`PLAIN_BLOCK`
+amplitudes block by block; the gate paths here and the kernels' plain
+twins go through it.
+
 Endianness: little — qubit 0 is bit 0 of the flat index.
 Gate matrices are big-endian in the gate subspace (qubits[0] = MSB).
 """
@@ -26,6 +30,17 @@ _SWAP4 = np.array([[1, 0, 0, 0], [0, 0, 1, 0],
 
 LANE = 7
 GATE_CALLS = 0
+
+# The largest float64 plane (amplitudes) a plain pass takes whole.  Above
+# it the pass runs block by block (:func:`blocked`) and holds, beside its
+# input and output planes, only temporaries of a block: at n = 31 the
+# float64 planes are 32 GiB a state, and the whole-plane forms hold
+# several plane-sized temporaries, which an 80 GB card has no room for.
+# 2^23 float64 amplitudes are 64 MiB; the widest pass (a 3-qubit
+# contraction, or a panel with its diag run) holds about a dozen such
+# temporaries.  float32 plain passes (the kernels' references, the spill
+# tier's plain gates on its stripes) stay whole.
+PLAIN_BLOCK = 1 << 23
 
 
 def expand_to_low_block(qubits: tuple[int, ...], U: np.ndarray, width: int) -> np.ndarray:
@@ -105,6 +120,62 @@ def zero_state_planar(m: int, fdtype=torch.float32, device="cpu"):
 # Gate paths on (re, im) planes
 # ---------------------------------------------------------------------------
 
+def block_bits(n: int, touched, dtype=torch.float64) -> list[int]:
+    """The bits a blocked pass fixes in each block, high to low: the
+    highest bits outside ``touched``, as many as bring a block of the
+    2^n planes down to :data:`PLAIN_BLOCK` amplitudes (all of them, if
+    ``touched`` leaves fewer: a block holds whole orbits of the op);
+    none for planes of another ``dtype`` than float64."""
+    k = n - (PLAIN_BLOCK.bit_length() - 1)
+    if k <= 0 or dtype != torch.float64:
+        return []
+    return [b for b in range(n - 1, -1, -1) if b not in touched][:k]
+
+
+def blocked(re, im, touched, make, *, donate: bool = False):
+    """A plain pass on (re, im) planes, block by block above
+    :data:`PLAIN_BLOCK` float64 amplitudes.
+
+    ``make(nb, at)`` builds the pass for one block of 2^nb amplitudes
+    and returns ``body(xr, xi, base) -> (yr, yi)``: flat planes of the
+    block in, new planes out (never views of the input).  ``at(b)`` is
+    bit b's position in a block, ``base`` the flat index of the block's
+    amplitude 0.  The blocks fix the bits of :func:`block_bits`, which
+    the op leaves alone (``touched`` holds every bit it reads across), so
+    each block holds whole orbits; with no bit touched a block is a
+    contiguous run, its amplitude i at index ``base + i``.  The results
+    go into new output planes, or with ``donate`` (the caller reads the
+    input no more) into the input planes.  Up to :data:`PLAIN_BLOCK`
+    (and on float32 planes) the pass runs once on the whole planes and
+    its own result is returned.
+    """
+    N = re.numel()
+    n = N.bit_length() - 1
+    free = block_bits(n, set(touched), re.dtype)
+    if not free:
+        return make(n, lambda b: b)(re, im, 0)
+
+    def at(b: int) -> int:
+        return b - sum(f < b for f in free)
+
+    body = make(n - len(free), at)
+    shape, axes = _gate_view(n, free)
+    out = (re, im) if donate else (torch.empty_like(re), torch.empty_like(im))
+    src = [x.view(shape) for x in (re, im)]
+    dst = [x.view(shape) for x in out]
+    for v in range(1 << len(free)):
+        ix = [slice(None)] * len(shape)
+        base = 0
+        for j, (b, a) in enumerate(zip(free, axes)):
+            ix[a] = (v >> j) & 1
+            base |= ix[a] << b
+        ix = tuple(ix)
+        ys = body(src[0][ix].reshape(-1), src[1][ix].reshape(-1), base)
+        for d, y in zip(dst, ys):
+            d[ix].copy_(y.reshape(d[ix].shape))
+    return out
+
+
 def _gate_view(n: int, qubits) -> tuple[list[int], list[int]]:
     """(shape, axes): a factored view of the flat index (bit n-1 first)
     with one axis of 2 per gate qubit and one axis per run of other
@@ -147,14 +218,23 @@ def _gate_table(v, shape, axes, like: torch.Tensor):
 
 def diag_planar(re, im, qubits, d):
     """The diagonal ``d`` (2^m phases) on the gate bits as one broadcast
-    multiply (the reference's dense.py:677-685)."""
-    n = re.numel().bit_length() - 1
-    shape, axes = _gate_view(n, tuple(qubits))
-    pr, pi = _gate_table(d, shape, axes, re)
-    xr, xi = re.reshape(shape), im.reshape(shape)
-    if pi is None:
-        return (xr * pr).reshape(-1), (xi * pr).reshape(-1)
-    return (xr * pr - xi * pi).reshape(-1), (xr * pi + xi * pr).reshape(-1)
+    multiply (the reference's dense.py:677-685), block by block above
+    :data:`PLAIN_BLOCK`."""
+    qubits = tuple(qubits)
+
+    def make(nb, at):
+        shape, axes = _gate_view(nb, tuple(at(q) for q in qubits))
+        pr, pi = _gate_table(d, shape, axes, re)
+
+        def body(xr, xi, base):
+            xr, xi = xr.reshape(shape), xi.reshape(shape)
+            if pi is None:
+                return (xr * pr).reshape(-1), (xi * pr).reshape(-1)
+            return ((xr * pr - xi * pi).reshape(-1),
+                    (xr * pi + xi * pr).reshape(-1))
+        return body
+
+    return blocked(re, im, qubits, make)
 
 
 def lincomb_planar(re, im, qubits, U):
@@ -162,56 +242,76 @@ def lincomb_planar(re, im, qubits, U):
     (dense.py:687-753): on the (A, 2, B, 2, C) view
     ``out = sum_f C_f * flip_f(x)`` over the flip patterns f of the gate
     bits, with ``C_f[s] = U[s, s ^ f]`` and zero parts elided, so a
-    permutation gate only moves floats.  Uncounted: it is also the twin
-    of the pair kernels."""
+    permutation gate only moves floats.  Block by block above
+    :data:`PLAIN_BLOCK`.  Uncounted: it is also the twin of the pair
+    kernels."""
     qubits = tuple(qubits)
-    n, m = re.numel().bit_length() - 1, len(qubits)
+    m = len(qubits)
     U = np.asarray(U, dtype=np.complex128)
-    shape, axes = _gate_view(n, qubits)
-    xr, xi = re.reshape(shape), im.reshape(shape)
     s = np.arange(1 << m)
-    ar = ai = None
 
-    def add(acc, t):
-        return t if acc is None else acc + t
+    def make(nb, at):
+        shape, axes = _gate_view(nb, tuple(at(q) for q in qubits))
+        terms = []
+        for f in range(1 << m):
+            cf = U[s, s ^ f]
+            if not cf.any():
+                continue
+            dims = [axes[j] for j in range(m) if (f >> (m - 1 - j)) & 1]
+            cr, ci = _gate_table(cf, shape, axes, re)
+            terms.append((dims, cr if cf.real.any() else None, ci))
 
-    for f in range(1 << m):
-        cf = U[s, s ^ f]
-        if not cf.any():
-            continue
-        dims = [axes[j] for j in range(m) if (f >> (m - 1 - j)) & 1]
-        tr, ti = (xr.flip(dims), xi.flip(dims)) if dims else (xr, xi)
-        cr, ci = _gate_table(cf, shape, axes, re)
-        if cf.real.any():
-            ar, ai = add(ar, tr * cr), add(ai, ti * cr)
-        if ci is not None:
-            ar, ai = add(ar, -(ti * ci)), add(ai, tr * ci)
-    if ar is None:
-        return torch.zeros_like(re), torch.zeros_like(im)
-    return ar.reshape(-1), ai.reshape(-1)
+        def body(xr, xi, base):
+            xr, xi = xr.reshape(shape), xi.reshape(shape)
+            ar = ai = None
+
+            def add(acc, t):
+                return t if acc is None else acc + t
+
+            for dims, cr, ci in terms:
+                tr, ti = (xr.flip(dims), xi.flip(dims)) if dims else (xr, xi)
+                if cr is not None:
+                    ar, ai = add(ar, tr * cr), add(ai, ti * cr)
+                if ci is not None:
+                    ar, ai = add(ar, -(ti * ci)), add(ai, tr * ci)
+            if ar is None:
+                return (torch.zeros_like(xr).reshape(-1),
+                        torch.zeros_like(xi).reshape(-1))
+            return ar.reshape(-1), ai.reshape(-1)
+        return body
+
+    return blocked(re, im, qubits, make)
 
 
 def contract_planar(re, im, qubits, U):
     """Any m-qubit U as one dense contraction over the gate axes of the
     factored view: the port of the reference's complex ``apply_gate``
     fallback (simulator.py:344), for what the planar forms do not take
-    (a 3-qubit Toffoli, a 2q gate across the lane boundary)."""
+    (a 3-qubit Toffoli, a 2q gate across the lane boundary).  Block by
+    block above :data:`PLAIN_BLOCK`."""
     qubits = tuple(qubits)
-    n, m = re.numel().bit_length() - 1, len(qubits)
+    m = len(qubits)
     U = np.asarray(U, dtype=np.complex128)
-    shape, axes = _gate_view(n, qubits)
-    front = list(range(m))
     ur = torch.as_tensor(U.real, device=re.device).to(re.dtype)
     ui = torch.as_tensor(U.imag, device=re.device).to(re.dtype)
-    xr = torch.movedim(re.reshape(shape), axes, front)
-    xi = torch.movedim(im.reshape(shape), axes, front)
-    moved = xr.shape
-    xr, xi = xr.reshape(1 << m, -1), xi.reshape(1 << m, -1)
+    front = list(range(m))
 
-    def back(y):
-        return torch.movedim(y.reshape(moved), front, axes).reshape(-1)
+    def make(nb, at):
+        shape, axes = _gate_view(nb, tuple(at(q) for q in qubits))
 
-    return back(ur @ xr - ui @ xi), back(ur @ xi + ui @ xr)
+        def body(xr, xi, base):
+            xr = torch.movedim(xr.reshape(shape), axes, front)
+            xi = torch.movedim(xi.reshape(shape), axes, front)
+            moved = xr.shape
+            xr, xi = xr.reshape(1 << m, -1), xi.reshape(1 << m, -1)
+
+            def back(y):
+                return torch.movedim(y.reshape(moved), front, axes).reshape(-1)
+
+            return back(ur @ xr - ui @ xi), back(ur @ xi + ui @ xr)
+        return body
+
+    return blocked(re, im, qubits, make)
 
 
 def planar_kind(qubits, U, n: int) -> str:

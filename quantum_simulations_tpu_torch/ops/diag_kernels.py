@@ -31,6 +31,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from . import dense
 from .cuda_build import launch, on_card, outputs, store
 
 LANES = 128
@@ -119,10 +120,10 @@ class DiagTerms:
 # Plain torch twin
 # ---------------------------------------------------------------------------
 
-def terms_theta(N: int, terms, dtype, device) -> torch.Tensor:
-    """theta(i) = sum of coeff over the terms all set in i, for i < N,
-    summed in ``dtype``."""
-    idx = torch.arange(N, dtype=torch.int64, device=device)
+def terms_theta(N: int, terms, dtype, device, base: int = 0) -> torch.Tensor:
+    """theta(i) = sum of coeff over the terms all set in i, for
+    base <= i < base + N, summed in ``dtype``."""
+    idx = torch.arange(base, base + N, dtype=torch.int64, device=device)
     theta = torch.zeros(N, dtype=dtype, device=device)
     for qs, c in terms:
         m = _mask(qs)
@@ -136,12 +137,21 @@ def rotate_plain(re, im, theta):
     return re * c - im * s, im * c + re * s
 
 
-def apply_diag_plain(re, im, terms):
+def apply_diag_plain(re, im, terms, donate: bool = False):
     """The twin's arithmetic, uncounted (the panel twins' epilogue too):
-    theta summed in float64, the rotation in the plane dtype."""
+    theta summed in float64, the rotation in the plane dtype.  Above
+    ``dense.PLAIN_BLOCK`` amplitudes a contiguous block at a time, theta
+    from the block's base index; with ``donate`` into the given planes
+    there (the caller reads them no more)."""
     terms = DiagTerms.of(terms).terms
-    return rotate_plain(re, im, terms_theta(re.numel(), terms, torch.float64,
-                                            re.device))
+
+    def make(nb, at):
+        def body(xr, xi, base):
+            return rotate_plain(xr, xi, terms_theta(
+                xr.numel(), terms, torch.float64, xr.device, base))
+        return body
+
+    return dense.blocked(re, im, (), make, donate=donate)
 
 
 def _key(inplace: bool) -> str:

@@ -31,7 +31,10 @@ adds one to ``LAUNCHES[name]``, ``name + "+diag"`` with an epilogue,
 after any of them in place; every twin call adds one to
 ``PLAIN_CALLS`` under the same key.  A twin with ``diag_terms`` runs the
 panel and then the diag twin's arithmetic
-(``ops/diag_kernels.apply_diag_plain``).
+(``ops/diag_kernels.apply_diag_plain``).  Above ``dense.PLAIN_BLOCK``
+float64 amplitudes a twin runs block by block (``dense.blocked``: whole
+orbits of its view a block), the diag run then in place on the twin's
+own output.
 
 The kernels take float32 planes only (the TPU kernels never ran float64
 on the chip); the twins take any float type.  At dim 128 the lane and
@@ -50,6 +53,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from . import dense
 from .cuda_build import launch, load, on_card, outputs, store
 from .diag_kernels import DiagTerms, apply_diag_plain, fused_diag, phase_args
 
@@ -190,11 +194,16 @@ def _key(name: str, diag_terms, inplace: bool = False) -> str:
 
 
 def _epilogue_plain(re, im, out, diag_terms, inplace):
-    """The twin's diag run on ``out``, then the in-place copy into
-    ``(re, im)``."""
+    """The twin's diag run on its own ``out``, then the in-place copy
+    into ``(re, im)``."""
     if diag_terms is not None:
-        out = apply_diag_plain(*out, diag_terms)
+        out = apply_diag_plain(*out, diag_terms, donate=True)
     return store(re, im, out) if inplace else out
+
+
+def _bits(lo: int, dim: int) -> range:
+    """The index bits a panel of width ``dim`` at bit ``lo`` acts on."""
+    return range(lo, lo + dim.bit_length() - 1)
 
 
 def lane_panel_plain(re, im, W, diag_terms=None, inplace=False,
@@ -207,11 +216,34 @@ def lane_panel_plain(re, im, W, diag_terms=None, inplace=False,
                 else _key("lane_panel", diag_terms, inplace)] += 1
     wr, wi = w_planes(W, re.device, re.dtype)
     dim = wr.shape[0]
-    o_re, o_im = _cmm(re.reshape(-1, dim), im.reshape(-1, dim), wr.T, wi.T)
-    if rotate:
-        o_re, o_im = o_re.t().contiguous(), o_im.t().contiguous()
-    return _epilogue_plain(re, im, (o_re.reshape(-1), o_im.reshape(-1)),
-                           diag_terms, inplace)
+
+    def make(nb, at):
+        def body(xr, xi, base):
+            o_re, o_im = _cmm(xr.reshape(-1, dim), xi.reshape(-1, dim),
+                              wr.T, wi.T)
+            return o_re.reshape(-1), o_im.reshape(-1)
+        return body
+
+    out = (_lane_rotated_plain(re, im, wr, wi) if rotate
+           else dense.blocked(re, im, _bits(0, dim), make))
+    return _epilogue_plain(re, im, out, diag_terms, inplace)
+
+
+def _lane_rotated_plain(re, im, wr, wi):
+    """The rotated lane panel's twin: ``(x @ W.T).t()`` of the (R, dim)
+    view, stored into the (dim, R) output a block of rows at a time
+    (above ``dense.PLAIN_BLOCK`` float64 amplitudes more than one)."""
+    dim, N = wr.shape[0], re.numel()
+    rows = N // dim
+    step = rows >> len(dense.block_bits(N.bit_length() - 1, _bits(0, dim),
+                                        re.dtype))
+    xr, xi = re.reshape(rows, dim), im.reshape(rows, dim)
+    out = torch.empty_like(re), torch.empty_like(im)
+    for r0 in range(0, rows, step):
+        ys = _cmm(xr[r0:r0 + step], xi[r0:r0 + step], wr.T, wi.T)
+        for o, y in zip(out, ys):
+            o.view(dim, rows)[:, r0:r0 + step].copy_(y.t())
+    return out
 
 
 def _check_rotate(rotate: bool, inplace: bool) -> None:
@@ -228,10 +260,17 @@ def positioned_panel_plain(re, im, W, pos: int, diag_terms=None,
     PLAIN_CALLS[_key("positioned_panel", diag_terms, inplace)] += 1
     wr, wi = w_planes(W, re.device, re.dtype)
     dim = wr.shape[0]
-    shape = (-1, dim, 1 << pos)
-    o_re, o_im = _cmm(wr, wi, re.reshape(shape), im.reshape(shape))
-    return _epilogue_plain(re, im, (o_re.reshape(-1), o_im.reshape(-1)),
-                           diag_terms, inplace)
+
+    def make(nb, at):
+        shape = (-1, dim, 1 << at(pos))
+
+        def body(xr, xi, base):
+            o_re, o_im = _cmm(wr, wi, xr.reshape(shape), xi.reshape(shape))
+            return o_re.reshape(-1), o_im.reshape(-1)
+        return body
+
+    out = dense.blocked(re, im, _bits(pos, dim), make)
+    return _epilogue_plain(re, im, out, diag_terms, inplace)
 
 
 def _straddle_plain(xr, xi, s: Straddle):
@@ -283,20 +322,27 @@ def dual_panel_plain(re, im, W1, p1, W2, p2, straddle=None,
     mode "full" (pos 7): out[a, i, k] = sum_j W[i, j] x[a, j, k].
     """
     PLAIN_CALLS[_key("dual_panel", diag_terms, inplace)] += 1
-    xr = re.reshape(-1, LANES, LANES)
-    xi = im.reshape(-1, LANES, LANES)
-    if straddle is not None:
-        xr, xi = _straddle_plain(xr, xi, Straddle.of(straddle))
-    for W, p in ((W1, p1), (W2, p2)):
-        wr, wi = w_planes(W, re.device, re.dtype)
-        if p == 0:
-            xr, xi = _cmm(xr, xi, wr.T, wi.T)
-        else:
-            xr, xi = _cmm(wr, wi, xr, xi)
-    if post_straddle is not None:
-        xr, xi = _straddle_plain(xr, xi, Straddle.of(post_straddle))
-    return _epilogue_plain(re, im, (xr.reshape(-1), xi.reshape(-1)),
-                           diag_terms, inplace)
+    pre, post = Straddle.of(straddle), Straddle.of(post_straddle)
+    panels = [(w_planes(W, re.device, re.dtype), p) for W, p in ((W1, p1), (W2, p2))]
+
+    def make(nb, at):
+        def body(xr, xi, base):
+            xr = xr.reshape(-1, LANES, LANES)
+            xi = xi.reshape(-1, LANES, LANES)
+            if pre is not None:
+                xr, xi = _straddle_plain(xr, xi, pre)
+            for (wr, wi), p in panels:
+                if p == 0:
+                    xr, xi = _cmm(xr, xi, wr.T, wi.T)
+                else:
+                    xr, xi = _cmm(wr, wi, xr, xi)
+            if post is not None:
+                xr, xi = _straddle_plain(xr, xi, post)
+            return xr.reshape(-1), xi.reshape(-1)
+        return body
+
+    out = dense.blocked(re, im, _bits(0, LANES * LANES), make)
+    return _epilogue_plain(re, im, out, diag_terms, inplace)
 
 
 # ---------------------------------------------------------------------------

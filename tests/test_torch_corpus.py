@@ -225,6 +225,60 @@ def test_verify_segments_memmap_path(monkeypatch, tmp_path):
     assert not list(tmp_path.iterdir())
 
 
+def test_verify_segments_blocked_memmap(monkeypatch, tmp_path):
+    """The memmap path with every plain pass of the engine in blocks of
+    2^5 amplitudes (``dense.PLAIN_BLOCK`` lowered) gives the JAX row."""
+    from quantum_simulations_tpu_torch.ops import dense
+
+    monkeypatch.setattr(dense, "PLAIN_BLOCK", 1 << 5)
+    monkeypatch.setenv("QST_SEG_DISK_MIN", "5")
+    monkeypatch.setenv("QST_SCRATCH", str(tmp_path))
+    cd = library.non_stabilizer(10, depth=3)
+    got = corpus._verify_segments("nonstab_n10", cd)
+    _same_row(got, rcorpus._verify_segments("nonstab_n10", cd))
+    assert got["status"] == "verified" and got["gates_checked"] > 0
+    assert not list(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("short", ["disk", "ram"])
+def test_verify_segments_refuses_without_room(short, monkeypatch, tmp_path):
+    """A host without room for the row's states skips it with the
+    numbers, before anything is drawn (where running on would end in
+    an OOM kill)."""
+    import shutil
+
+    monkeypatch.setenv("QST_SEG_DISK_MIN", "5")
+    monkeypatch.setenv("QST_SCRATCH", str(tmp_path))
+    if short == "disk":
+        usage = shutil.disk_usage(tmp_path)
+        monkeypatch.setattr(corpus.shutil, "disk_usage",
+                            lambda p: usage._replace(free=100))
+    else:
+        monkeypatch.setattr(corpus, "_mem_available", lambda: 1000)
+    monkeypatch.setattr(corpus, "_rand_state", None)  # never reached
+    row = corpus._verify_segments("qpe_n9", library.qpe(8))
+    assert row["status"] == "skipped"
+    assert row["reason"].startswith({"disk": "memmap of 0 GiB does not fit",
+                                     "ram": "host needs 0 GiB"}[short]), row
+
+
+def test_host_refusal_counts_a_tmpfs_memmap_in_ram(monkeypatch, tmp_path):
+    """On a tmpfs the memmap is RAM beside the oracle's state; on a disk
+    only the oracle's state is."""
+    import shutil
+
+    usage = shutil.disk_usage(tmp_path)
+    monkeypatch.setattr(corpus.shutil, "disk_usage",
+                        lambda p: usage._replace(free=1 << 40))
+    monkeypatch.setattr(corpus, "_mem_available", lambda: 24 << 30)
+    for fstype, refused in (("tmpfs", True), ("ext4", False)):
+        monkeypatch.setattr(corpus, "_mount", lambda p, t=fstype: ("/x", t))
+        reason = corpus._host_refusal(30, True, str(tmp_path))
+        assert (reason is not None) == refused, (fstype, reason)
+    assert corpus._host_refusal(30, False, str(tmp_path)).startswith(
+        "host needs 32 GiB for the oracle's state and the result")
+
+
 @pytest.mark.parametrize("full_n_max", [None, 4])
 def test_verify_trajectory_matches_reference(tree, full_n_max):
     """The full twin (outcomes and registers equal to the oracle's) and,
@@ -774,6 +828,9 @@ def phase11():
     cs.CORPUS_N.update(qft=6, sycamore=8, nonstab=21, traj=8, adder=14)
     cs.C33_N, cs.C33_M, cs.C33_SEG, cs.C33_SEED = 12, 8, 7, 7
     cs.FP_N = 8
+    cs.BIG_N.update(nonstab=21, traj=10)
+    cs.CORPUS_ENV["corpus_big"].update(QST_SEG_DISK_MIN="21",
+                                       QST_TRAJ_FULL_NMAX="8")
     cs._BENCH_RUN = cs._BENCH_RUN.replace("m.LAUNCHES.items()",
                                           "m.PLAIN_CALLS.items()")
     cpu = torch.device("cpu")
@@ -823,6 +880,32 @@ def test_phase11_texts_round_trip(phase11):
                        "qft33": "parse_only"}[key]
     assert corpus._classical_oracle(library.ripple_adder(
         cs.CORPUS_N["adder"], cs.ADDER_A, cs.ADDER_B)) == cs.adder_basis()
+    for key, n in cs.BIG_N.items():
+        text = texts["big"][cs.big_name(key)]
+        mode = "trajectory" if key == "traj" else "unitary"
+        cd = qasm_to_dict(text, **({"nonunitary": "trajectory"} if key == "traj" else {}))
+        assert cd["number_of_qubits"] == n
+        assert corpus._policy(cs.big_name(key), cd, mode) == {
+            "nonstab": "segments", "traj": "trajectory"}[key]
+
+
+def test_traj_short_round_trips_with_long_runs(phase11):
+    """traj_short's text parses back to it; its three longest unitary
+    runs, which the unitary-runs branch samples, have >= 4 gates each."""
+    from quantum_simulations_tpu_torch.circuit.contract import validate_circuit_dict
+    from quantum_simulations_tpu_torch.circuit.import_qasm import qasm_to_dict
+    from quantum_simulations_tpu_torch.runtime import trajectory as T
+
+    cs, _ = phase11
+    for n in (8, 22, 28):
+        got = validate_circuit_dict(qasm_to_dict(cs.nonunitary_qasm(cs.traj_short(n)),
+                                                 nonunitary="trajectory"),
+                                    allow_nonunitary=True)
+        want = validate_circuit_dict(cs.traj_short(n), allow_nonunitary=True)
+        assert [(g["gate"], g["qubits"], g.get("cond")) for g in got["gates"]] == [
+            (g["gate"], g["qubits"], g.get("cond")) for g in want["gates"]]
+        runs = sorted((len(r) for r, _ in T.split_segments(got["gates"])), reverse=True)
+        assert runs[:3] == [6, 4, 4] and sum(runs) == 16
 
 
 def _refuse(cs, name, res, ref, edit):
@@ -865,6 +948,14 @@ _CORRUPT = {
         lambda r: r.update(launches={"lane_panel": r["launches"]["lane_panel"]}),
         lambda r: r["launches"].update(bitperm_swap=1),
     ],
+    "corpus_big": [
+        lambda r: r["json"].pop(0),
+        lambda r: r["json"][-1].update(failed=1),
+        lambda r: r["json"][0].update(status="skipped"),
+        lambda r: r["json"][1].update(method="trajectory_twin_c128"),
+        lambda r: r["json"][0].update(gates_checked=0),
+        lambda r: r["json"][1].update(max_amp_err=2e-10),
+    ],
     "fingerprints": [
         lambda r: r["json"][-1]["verify"].update(all_ok=False),
         lambda r: r["json"][-1]["verify"]["rows"][0].update(max_amp_err=1e-9),
@@ -882,3 +973,55 @@ def test_phase11_checks_refuse(phase11, tmp_path, name, i):
     ref = cs.write_corpus(tmp_path)
     assert isinstance(cs.check_corpus(name, copy.deepcopy(res), ref), str)
     _refuse(cs, name, res, ref, _CORRUPT[name][i])
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.corpus_full on the CPU at tiny sizes
+# ---------------------------------------------------------------------------
+
+def _full_texts(cs):
+    return {"nonstab_n21": lambda: to_qasm(library.non_stabilizer(21, depth=1)),
+            "nonstab_n22": lambda: to_qasm(library.non_stabilizer(22, depth=1)),
+            "traj_n8": lambda: cs.nonunitary_qasm(cs.traj_short(8)),
+            "traj_n10": lambda: cs.nonunitary_qasm(cs.traj_short(10))}
+
+
+def test_corpus_full_rehearsal(monkeypatch, tmp_path):
+    """corpus_full's rows at tiny sizes, each branch its policy takes at
+    full size: segments, segments through the memmap (QST_SEG_DISK_MIN
+    lowered), the trajectory twin and its unitary-runs branch
+    (QST_TRAJ_FULL_NMAX lowered); every row verified, its wall split into
+    the timed parts, and the record written where it was asked."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "full_texts", lambda: _full_texts(cs))
+    monkeypatch.setenv("QST_SEG_DISK_MIN", "22")
+    monkeypatch.setenv("QST_TRAJ_FULL_NMAX", "9")
+    monkeypatch.delenv("QST_SCRATCH", raising=False)
+    rec = cs.corpus_full(out_dir=tmp_path)
+    assert json.loads((tmp_path / "corpus_full.json").read_text()) == rec
+    assert "QST_SCRATCH" not in os.environ
+    rows = {e["row"]["circuit"]: e for e in rec["rows"]}
+    assert list(rows) == list(_full_texts(cs))
+    assert {k: e["row"]["method"] for k, e in rows.items()} == {
+        "nonstab_n21": "segment_restart_c128[32]_fusedtier",
+        "nonstab_n22": "segment_restart_c128[32]_fusedtier",
+        "traj_n8": "trajectory_twin_c128",
+        "traj_n10": "unitary_runs_segment_restart_c128[32]_fusedtier"}
+    for name, e in rows.items():
+        assert e["row"]["status"] == "verified" and e["row"]["max_amp_err"] < TOL
+        assert set(e["split_s"]) >= {"engine", "oracle", "download", "compare",
+                                     "rest"}, name
+        assert abs(sum(e["split_s"].values()) - e["wall_s"]) < 1e-6
+        assert e["host_peak_rss_gib"] > 0 and e["card_peak_gib"] is None
+    assert rows["nonstab_n22"]["oracle_s_per_gate"] > 0
+    assert not (ROOT / "build" / "corpus_full").exists()
+
+
+def test_corpus_full_raises_on_a_failed_row(monkeypatch, tmp_path):
+    cs = _chip_smoke()
+    monkeypatch.setattr(cs, "full_texts", lambda: _full_texts(cs))
+    monkeypatch.setattr(corpus, "verify_one", lambda name, path: {
+        "circuit": name, "n": 21, "status": "FAILED", "method": "e2e_c128"})
+    with pytest.raises(AssertionError, match="not verified"):
+        cs.corpus_full(["nonstab_n21"], out_dir=tmp_path)
+    assert json.loads((tmp_path / "corpus_full.json").read_text())["rows"]

@@ -971,3 +971,27 @@ def test_every_family_at_small_n_on_card(dev, mode, monkeypatch):
     assert out["n_mismatch"] == 0, [r for r in out["rows"]
                                     if r.get("status") == "MISMATCH"]
     assert sum(r["status"] == "ok" for r in out["rows"]) > 60
+
+
+@pytest.mark.parametrize("name,mode", [("non_stabilizer", "fused"), ("qft", "window")])
+def test_c128_blocked_passes_hold_two_states(dev, name, mode, monkeypatch):
+    """complex128 at n = 28 (the plain twins on the card, above
+    ``dense.PLAIN_BLOCK``): the run peaks at <= 2 states + 2 GiB of
+    ``max_memory_allocated`` (10 GiB) and is within 1e-10 of the same run
+    with every pass on whole planes."""
+    from quantum_simulations_tpu_torch.ops import dense
+    from quantum_simulations_tpu_torch.runtime import simulator
+
+    n = 28
+    cd = getattr(library, name)(n)
+    state = 16 << n
+    torch.zeros(1, device=dev)  # the allocator's statistics exist from here on
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    got = simulator.simulate(cd, dtype="complex128", mode=mode, device=dev)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    assert peak <= 2 * state + (2 << 30), peak / 2**30
+    monkeypatch.setattr(dense, "PLAIN_BLOCK", 1 << 40)
+    want = simulator.simulate(cd, dtype="complex128", mode=mode, device=dev)
+    assert float((got - want).abs().max()) < 1e-10
