@@ -1,0 +1,88 @@
+"""The comparison that decides ``correct``.
+
+Once the window has closed, the reference (``reference/statevector``,
+complex128) works out again what the timed requests returned, from
+their circuit dicts:
+
+* ``state_err``: ||psi - psi_ref||_2 of the final state of the last
+  request of the window, as the port handed it to the readout;
+* the request kind's own number (``kinds/<kind>.py``'s ``NUMBER``): the
+  largest ``error`` over the answers compared, such as ``z_err`` =
+  |<Z_S> - <Z_S>_ref|, ``energy_err`` = |E - E_ref| or ``sample_z``.
+
+Where every request runs one circuit the reference runs it once and
+every answer is compared.  Where each request has its own circuit it
+runs the last request's and ``requests - 1`` more drawn from the seed.
+Each number has its limit in ``checks/<workload>.json``; a request that
+raised, or a window with none, is not correct.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import stream as st
+from .reference import statevector as sv
+
+
+def state_err(psi: torch.Tensor, ref: torch.Tensor,
+              chunk: int = 1 << 24) -> float:
+    """||psi - ref||_2, the port's state widened to the reference's type,
+    a chunk at a time."""
+    psi = psi.reshape(-1)
+    acc = torch.zeros((), dtype=torch.float64, device=ref.device)
+    for s in range(0, ref.numel(), chunk):
+        d = ref[s:s + chunk] - psi[s:s + chunk].to(ref.device, ref.dtype)
+        acc += d.abs().square().sum()
+    return math.sqrt(float(acc))
+
+
+def chosen(records, new_instance: bool, requests: int, seed: int) -> list:
+    """The records whose circuits the reference runs: the last completed,
+    then (one circuit per request) ``requests - 1`` others drawn from the
+    seed."""
+    done = [r for r in records if r.answer is not None]
+    if not done:
+        return []
+    if not new_instance:
+        return done
+    rest = done[:-1]
+    k = min(requests - 1, len(rest))
+    picks = st.check_rng(seed).choice(len(rest), k, replace=False)
+    return [rest[i] for i in sorted(picks)] + [done[-1]]
+
+
+def compare(kind, records, last_state, config: dict, traffic: dict,
+            check: dict, seed: int, device) -> dict:
+    """{name: value} of every number the cell compares; ``kind`` is the
+    request kind's module."""
+    n = config["params"]["n"]
+    out = {"state_err": math.inf}
+    worst = 0.0
+    recs = chosen(records, traffic.get("new_instance", False),
+                  check.get("requests", 1), seed)
+    by_circuit: dict[int, list] = {}
+    for r in recs:
+        by_circuit.setdefault(id(r.request.circuit), []).append(r)
+    last = recs[-1] if recs else None
+    for group in by_circuit.values():
+        ref = sv.simulate(group[0].request.circuit, device)
+        if last in group and last_state is not None:
+            out["state_err"] = state_err(last_state, ref)
+        probs = sv.probabilities(ref)
+        del ref
+        for r in group:
+            worst = max(worst, kind.error(r.answer, r.request, probs, n,
+                                          config))
+        del probs
+    out[kind.NUMBER] = worst if recs else math.inf
+    return out
+
+
+def verdict(numbers: dict, limits: dict, attempted: int, failed: int):
+    """(correct, [(name, value, limit)]) with every number beside its limit."""
+    rows = [(k, numbers.get(k, math.inf), limits[k]) for k in sorted(limits)]
+    ok = (attempted > 0 and failed == 0
+          and all(math.isfinite(v) and v <= lim for _, v, lim in rows))
+    return ok, rows

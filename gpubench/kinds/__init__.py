@@ -1,0 +1,40 @@
+"""Request kinds: how one request calls the port, how the control answers
+it in the port's place, and how its answer is held to the reference.
+
+A traffic mix's ``kind`` names a module here, ``kinds/<kind>.py``, found
+by that name.  Each defines:
+
+* ``NUMBER``: the name of the number the check compares (``checks/``);
+* ``draw(stream, rng)``: the request's arguments, drawn from the seed
+  (``stream`` has the configuration, the traffic's parameters, ``n`` and
+  the MaxCut ``edges``);
+* ``call(port, req, cfg, spanning)``: the request as a user makes it
+  through ``systems.Port``; its answer on the host;
+* ``control(ctl, req, cfg, spanning)``: the same answer from
+  ``systems.Control``, the reference with TF32 products;
+* ``error(answer, req, probs, n, config)``: the answer's distance from
+  the reference, whose probabilities ``probs`` are of the request's
+  circuit.
+
+Each request's final state goes through ``system.run`` (``port.run`` or
+``ctl.run``), where ``systems.Capture`` sees it.
+"""
+from __future__ import annotations
+
+import importlib
+
+REQUIRED = ("NUMBER", "draw", "call", "control", "error")
+
+
+def load(name: str):
+    """The module ``kinds/<name>.py``."""
+    if not name.isidentifier():
+        raise ValueError(f"unknown request kind {name!r}")
+    try:
+        mod = importlib.import_module(f"{__name__}.{name}")
+    except ModuleNotFoundError as e:
+        raise ValueError(f"unknown request kind {name!r}") from e
+    missing = [k for k in REQUIRED if not hasattr(mod, k)]
+    if missing:
+        raise ValueError(f"request kind {name!r} lacks {missing}")
+    return mod

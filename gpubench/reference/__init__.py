@@ -1,0 +1,7 @@
+"""The plain reference the benchmark holds the port to.
+
+Plain PyTorch on the device it is given, complex128, gate by gate from
+the circuit dict, with its own gate matrices (``statevector.GATES``).
+It imports neither JAX nor the JAX package nor anything of the port,
+and takes nothing the port has made.
+"""
