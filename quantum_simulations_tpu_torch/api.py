@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .circuit.contract import has_nonunitary, validate_circuit_dict
+from .utils import timing
 from .utils.config import SimulatorConfig
 
 
@@ -73,6 +74,7 @@ def _simulate_sharded(cd: dict, cfg: SimulatorConfig, device):
         panel_width=cfg.panel_width, mode=_sharded_mode(cfg))
 
 
+@timing.spanned("qst.api.run")
 def run(circuit_dict: dict, cfg: SimulatorConfig, *, work_dir=None,
         device="cuda"):
     """Run a circuit and keep the result where its tier keeps it: the
@@ -172,6 +174,7 @@ def _on_device(res, device):
     return res
 
 
+@timing.spanned("qst.api.simulate")
 def simulate(circuit_dict: dict, config: SimulatorConfig | None = None,
              *, work_dir=None, device="cuda"):
     """Run a circuit under the given config.  Runs on the card unless
@@ -193,6 +196,7 @@ def simulate(circuit_dict: dict, config: SimulatorConfig | None = None,
     return res
 
 
+@timing.spanned("qst.api.sample")
 def sample(circuit_dict: dict, shots: int, *, seed: int = 0,
            config: SimulatorConfig | None = None,
            device="cuda") -> np.ndarray:
@@ -221,6 +225,7 @@ def sample(circuit_dict: dict, shots: int, *, seed: int = 0,
     return res.sample_bits(shots, n, seed=seed)
 
 
+@timing.spanned("qst.api.expectation_z")
 def expectation_z(circuit_dict: dict, qubits: list[int],
                   config: SimulatorConfig | None = None, *,
                   device="cuda") -> float:
@@ -237,6 +242,7 @@ def expectation_z(circuit_dict: dict, qubits: list[int],
     return res.expectation_z(qubits)
 
 
+@timing.spanned("qst.api.expectation_pauli")
 def expectation_pauli(circuit_dict: dict, pauli: str | dict[int, str],
                       config: SimulatorConfig | None = None, *,
                       device="cuda") -> float:

@@ -29,6 +29,7 @@ import json
 import re
 from typing import Any
 
+from ..utils import timing
 from . import gates as G
 
 ENDIANNESS = "little"
@@ -77,6 +78,7 @@ def has_nonunitary(d: dict[str, Any]) -> bool:
     return False
 
 
+@timing.spanned("qst.contract.validate")
 def validate_circuit_dict(d: dict[str, Any], *, core_only: bool = False,
                           allow_nonunitary: bool = False) -> dict:
     """Validate and normalise a circuit dict.  Raises ValueError on bad input.
@@ -222,6 +224,7 @@ def circuit_depth(circuit_dict: dict) -> int:
     return len(levelize(circuit_dict))
 
 
+@timing.spanned("qst.contract.hash")
 def circuit_hash(circuit_dict: dict) -> str:
     """Stable SHA-256 of a circuit dict (WAL identity, jit-cache key).
 

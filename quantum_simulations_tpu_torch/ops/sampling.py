@@ -25,7 +25,18 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
+
 CHUNK_BITS = 26
+# One per pass of a dense readout over a whole state's planes (norm,
+# <Z...Z>, a qubit's probability, the top amplitudes' block maxima, the
+# sampler's block masses); the rows a sampler or top-k gathers are not.
+READOUT_PASSES = 0
+
+
+def reset_counts() -> None:
+    global READOUT_PASSES
+    READOUT_PASSES = 0
 
 
 def _n_of(re: torch.Tensor) -> int:
@@ -39,7 +50,9 @@ def _chunk(re: torch.Tensor, at_least: int = 1) -> int:
 def _prob_chunks(re: torch.Tensor, im: torch.Tensor, at_least: int = 1):
     """``(start, p)`` for each chunk [start, start + len): p = |psi|^2 of
     its amplitudes, one float temporary of the chunk's length (at least
-    ``at_least`` amplitudes, a readout block)."""
+    ``at_least`` amplitudes, a readout block).  One ``READOUT_PASSES``."""
+    global READOUT_PASSES
+    READOUT_PASSES += 1
     step = _chunk(re, at_least)
     for start in range(0, re.numel(), step):
         r, i = re[start:start + step], im[start:start + step]
@@ -265,6 +278,7 @@ def norm(psi) -> float:
     return norm2_planar(*_planes(psi)) ** 0.5
 
 
+@timing.spanned("qst.readout.expectation_z")
 def expectation_z(psi, qubits) -> float:
     """<Z_{q1} Z_{q2} ...>: the diagonal Pauli-string expectation."""
     return expectation_z_planar(*_planes(psi), list(qubits))
@@ -284,6 +298,7 @@ def sample(psi, generator: torch.Generator, shots: int) -> torch.Tensor:
     return _sample_planar(re, im, generator, shots, _n_of(re))
 
 
+@timing.spanned("qst.readout.sample")
 def sample_bits(psi, generator: torch.Generator, shots: int,
                 n: int) -> torch.Tensor:
     """Samples as a (shots, n) int8 bit matrix, column q = qubit q."""

@@ -56,9 +56,31 @@ from ..ops import diag_kernels as dk
 from ..ops import pair_kernels as pq
 from ..ops import panel_kernels as pk
 from ..ops.cuda_build import store
+from ..utils import timing
 from ..utils.device import complex_dtype, float_dtype, resolve_device
 
 _COMPILE_CACHE: dict = {}
+# One per lookup of ``_COMPILE_CACHE`` by a ``build_*_fn``: a hit finds
+# the compiled schedule, a miss compiles it (``qst.compile``).
+SCHEDULE_CACHE_HITS = 0
+SCHEDULE_CACHE_MISSES = 0
+
+
+def reset_counts() -> None:
+    global SCHEDULE_CACHE_HITS, SCHEDULE_CACHE_MISSES
+    SCHEDULE_CACHE_HITS = SCHEDULE_CACHE_MISSES = 0
+
+
+def _cached(key):
+    """The compiled ``fn`` under ``key``, else None; counts the hit or
+    miss."""
+    global SCHEDULE_CACHE_HITS, SCHEDULE_CACHE_MISSES
+    fn = _COMPILE_CACHE.get(key)
+    if fn is None:
+        SCHEDULE_CACHE_MISSES += 1
+    else:
+        SCHEDULE_CACHE_HITS += 1
+    return fn
 
 
 def _diag_terms(op):
@@ -414,17 +436,20 @@ def build_window_circuit_fn(
     inplace = resolve_inplace(inplace, n, dev, fdtype)
     key = ("window", circuit_hash(cd), str(cdtype), window, planar_io,
            str(dev), plain, inplace, _switches())
-    cached = _COMPILE_CACHE.get(key)
+    cached = _cached(key)
     if cached is not None:
         return cached
 
-    paired = schedule(cd, window, inplace)
-    if inplace:
-        for op, _ in paired:
-            if (isinstance(op, PhysGateOp)
-                    and gate_route(op.qubits, op.U, n, True) == "dense"):
-                capacity_guard(op.qubits, op.U, n, op.name)
-    prepared = prepare_schedule(paired, dev, fdtype)
+    with timing.span("qst.compile"):
+        with timing.span("qst.compile.schedule"):
+            paired = schedule(cd, window, inplace)
+            if inplace:
+                for op, _ in paired:
+                    if (isinstance(op, PhysGateOp) and gate_route(
+                            op.qubits, op.U, n, True) == "dense"):
+                        capacity_guard(op.qubits, op.U, n, op.name)
+        with timing.span("qst.compile.prepare"):
+            prepared = prepare_schedule(paired, dev, fdtype)
 
     def body(state):
         re, im = state
@@ -547,11 +572,14 @@ def build_panel_circuit_fn(
     cd = validate_circuit_dict(circuit_dict)
     key = ("panel", circuit_hash(cd), str(cdtype), window, planar_io,
            str(dev), plain, _switches())
-    cached = _COMPILE_CACHE.get(key)
+    cached = _cached(key)
     if cached is not None:
         return cached
-    prepared = prepare_passes(panel_schedule(cd, window), dev,
-                               float_dtype(cdtype))
+    with timing.span("qst.compile"):
+        with timing.span("qst.compile.schedule"):
+            items = panel_schedule(cd, window)
+        with timing.span("qst.compile.prepare"):
+            prepared = prepare_passes(items, dev, float_dtype(cdtype))
     fn = _COMPILE_CACHE[key] = _planar_fn(run_passes(prepared, plain),
                                           planar_io)
     return fn
@@ -593,12 +621,15 @@ def build_circuit_fn(
     cd = validate_circuit_dict(circuit_dict)
     key = ("fused", circuit_hash(cd), str(cdtype), use_fusion, panel_width,
            planar_io, str(dev), plain, _switches())
-    cached = _COMPILE_CACHE.get(key)
+    cached = _cached(key)
     if cached is not None:
         return cached
-    ops = fused_ops(cd, use_fusion=use_fusion, panel_width=panel_width)
-    prepared = prepare_passes([(op, False) for op in ops], dev,
-                               float_dtype(cdtype))
+    with timing.span("qst.compile"):
+        with timing.span("qst.compile.schedule"):
+            ops = fused_ops(cd, use_fusion=use_fusion, panel_width=panel_width)
+        with timing.span("qst.compile.prepare"):
+            prepared = prepare_passes([(op, False) for op in ops], dev,
+                                      float_dtype(cdtype))
     fn = _COMPILE_CACHE[key] = _planar_fn(run_passes(prepared, plain),
                                           planar_io)
     return fn
@@ -647,53 +678,61 @@ def simulate(
     no name of is freed there (a c128 input at n = 31 is 32 GiB of the
     card's 80).  Out-of-place execution never writes it.
     """
-    cd = validate_circuit_dict(circuit_dict)
-    n = cd["number_of_qubits"]
-    dev = resolve_device(device)
-    cdtype = complex_dtype(dtype)
-    if segment_gates is not None and len(cd["gates"]) > segment_gates:
-        from ..circuit.dag import partition
+    # The span opens here, not in a decorator: a wrapper's frame would
+    # hold ``initial_state`` for the whole call, past ``donate_input``.
+    with timing.span("qst.simulate"):
+        cd = validate_circuit_dict(circuit_dict)
+        n = cd["number_of_qubits"]
+        dev = resolve_device(device)
+        cdtype = complex_dtype(dtype)
+        if segment_gates is not None and len(cd["gates"]) > segment_gates:
+            from ..circuit.dag import partition
 
-        n_seg = -(-len(cd["gates"]) // segment_gates)
-        parts = partition(cd, n_seg)
-        owned = donate_input or initial_state is None
-        # The state lives only in ``box`` between parts, so each part's
-        # call holds the last reference to its input and can drop it.
-        box = [_as_state(initial_state, n, cdtype, dev)]
-        if donate_input:
-            del initial_state
-        for part in parts:
-            if not part:
-                continue
-            sub = {"number_of_qubits": n,
-                   "gates": [cd["gates"][i] for i in part]}
-            box.append(simulate(sub, dtype=dtype, use_fusion=use_fusion,
-                                panel_width=panel_width, mode=mode,
-                                initial_state=box.pop(), donate_input=owned,
-                                device=dev, plain=plain))
-            owned = True  # each later part's input is the previous output
-        return box.pop()
-    if mode == "auto":
-        from ..circuit.panelize import window_stats
+            n_seg = -(-len(cd["gates"]) // segment_gates)
+            parts = partition(cd, n_seg)
+            owned = donate_input or initial_state is None
+            # The state lives only in ``box`` between parts, so each part's
+            # call holds the last reference to its input and can drop it.
+            box = [_as_state(initial_state, n, cdtype, dev)]
+            if donate_input:
+                del initial_state
+            for part in parts:
+                if not part:
+                    continue
+                sub = {"number_of_qubits": n,
+                       "gates": [cd["gates"][i] for i in part]}
+                box.append(simulate(
+                    sub, dtype=dtype, use_fusion=use_fusion,
+                    panel_width=panel_width, mode=mode,
+                    initial_state=box.pop(), donate_input=owned,
+                    device=dev, plain=plain))
+                owned = True  # each later part's input is the previous output
+            return box.pop()
+        if mode == "auto":
+            from ..circuit.panelize import window_stats
 
-        st = window_stats(cd)
-        dense_enough = st["hbm_passes"] <= max(4, len(cd["gates"]) // 2)
-        mode = "window" if (n >= 14 and dense_enough) else "fused"
-    kw = dict(dtype=cdtype, planar_io=True, device=dev, plain=plain)
-    if mode == "window":
-        fn = build_window_circuit_fn(cd, **kw)
-    elif mode == "panel":
-        fn = build_panel_circuit_fn(cd, **kw)
-    else:
-        fn = build_circuit_fn(cd, use_fusion=use_fusion,
-                              panel_width=panel_width, **kw)
-    if initial_state is None:
-        state = list(dense.zero_state_planar(n, float_dtype(cdtype), dev))
-    else:
-        state = list(pk.to_planar(_as_state(initial_state, n, cdtype, dev)))
-        if donate_input:
-            del initial_state
-    return pk.from_planar(*fn.consume(state))
+            st = window_stats(cd)
+            dense_enough = st["hbm_passes"] <= max(4, len(cd["gates"]) // 2)
+            mode = "window" if (n >= 14 and dense_enough) else "fused"
+        kw = dict(dtype=cdtype, planar_io=True, device=dev, plain=plain)
+        if mode == "window":
+            fn = build_window_circuit_fn(cd, **kw)
+        elif mode == "panel":
+            fn = build_panel_circuit_fn(cd, **kw)
+        else:
+            fn = build_circuit_fn(cd, use_fusion=use_fusion,
+                                  panel_width=panel_width, **kw)
+        if initial_state is None:
+            state = list(dense.zero_state_planar(n, float_dtype(cdtype), dev))
+        else:
+            state = list(pk.to_planar(
+                _as_state(initial_state, n, cdtype, dev)))
+            if donate_input:
+                del initial_state
+        with timing.span("qst.passes"):
+            re, im = fn.consume(state)
+        with timing.span("qst.from_planar"):
+            return pk.from_planar(re, im)
 
 
 def simulate_np(circuit_dict: dict, **kw) -> np.ndarray:
