@@ -48,7 +48,12 @@ Phases (any failure exits non-zero):
    float32 contraction, the accuracy of a float32 kernel) is reported
    beside it.  Fails on ||diff||_2 > 1e-5 (to the float32 twin, and for
    the tensor-core kernels to the float64 one), or on any difference for
-   a bit permutation.
+   a bit permutation.  Last, the readout kernel ``zstring_sum`` at n = 20
+   and n = 28 on a complex64 tensor's ``.real`` / ``.imag`` and on two
+   float32 planes, with one string (qubits 0 and n - 1) and with
+   qaoa_maxcut(n)'s edges (50 at n = 28): within 1e-6 of the plain twin
+   (``sampling.zstring_sums_plain``), equal bit for bit when repeated,
+   one launch a call.
 3. The main path, five requests through the entry points, the counters
    set to 0 just before each request and read just after it, no plain
    twin called: ``api.simulate(non_stabilizer(28, depth=4, seed=7),
@@ -86,7 +91,10 @@ Phases (any failure exits non-zero):
    its window-mode state; nonstab28 panel's peak memory at most 4
    planes + 1 GiB above what was held before it.  Last,
    ``python -m quantum_simulations_tpu_torch run ghz28.json`` as a
-   subprocess: top two 0x0 and 0xfffffff at 0.5 each.
+   subprocess: top two 0x0 and 0xfffffff at 0.5 each.  Between them,
+   qaoa28's state read as an energy request (``observables.maxcut_energy``
+   over its 50 edges, random weights): zstring_sum 1 and nothing else,
+   within 1e-6 of the twin's energy per unit weight.
 4. Times at n = 28: per kernel the median CUDA-event ms, the plain
    twin's ms, one torch library call computing the same function
    (timed here, never used by the port; for a diag run, with or without
@@ -121,7 +129,11 @@ Phases (any failure exits non-zero):
    .contiguous()``), every pass of nonstab28's panel schedule, and e2e
    of nonstab28 panel (also with the panel and the rotation as two
    passes), qft28
-   panel and nonstab28 fused.
+   panel and nonstab28 fused.  The readout: ``zstring_sum`` on one
+   string and on qaoa28's 50 edges, interleaved and planar (bound: one
+   read of 8 bytes an amplitude, 0.641 ms; library: the per-string plain
+   readout the port had before the kernel, a 2^26 sign table and four
+   chunks).
 5. The capacity tier at n = 33, the largest state an 80 GB card holds
    (two 32 GiB planes; an out-of-place pass would need 128 GiB).  With
    under 1 GiB allocated before it, ghz(33), non_stabilizer(33, depth=4,
@@ -130,7 +142,9 @@ Phases (any failure exits non-zero):
    plain call, ``dense.GATE_CALLS == 0`` and a peak
    ``max_memory_allocated`` <= 65 GiB.  No float64 twin fits at this
    size, so each state is held to what is known of it: ghz33's two end
-   amplitudes 2^-1/2 within 1e-6 and its top two indices; qft33 uniform
+   amplitudes 2^-1/2 within 1e-6 and its top two indices, its <Z0 Z32>,
+   <Z32> and <Z0...Z32> (1, 0, 0 within 1e-5: index bit 32) in one
+   zstring_sum launch within 1e-6 of the twin; qft33 uniform
    (chunked ||psi - 2^-16.5||_2 <= 1e-5); nonstab33 followed by its
    inverse back at |0> within 1e-5; qpe33 at index 2^32 + 2^29 with
    probability >= 1 - 1e-5; every |norm2 - 1| <= 1e-5.  Times:
@@ -354,7 +368,8 @@ SRC = {"lane_panel": f"{CSRC}/panels.cu",
        "mixed_low_pair": f"{CSRC}/pair.cu",
        "midpair": f"{CSRC}/pair.cu",
        "bitperm_involution": f"{CSRC}/bitperm.cu",
-       "tiled_transpose": f"{CSRC}/bitperm.cu"}
+       "tiled_transpose": f"{CSRC}/bitperm.cu",
+       "zstring_sum": f"{CSRC}/readout.cu"}
 KERNELS = list(SRC)
 PALLAS = "quantum_simulations_tpu/ops/pallas_kernels.py"
 REPLACES = {"lane_panel": f"{PALLAS}:93",
@@ -369,7 +384,9 @@ REPLACES = {"lane_panel": f"{PALLAS}:93",
             "mixed_low_pair": f"{PALLAS}:1692",
             "midpair": f"{PALLAS}:1187",
             "bitperm_involution": f"{PALLAS}:2147",
-            "tiled_transpose": f"{PALLAS}:2198"}
+            "tiled_transpose": f"{PALLAS}:2198",
+            "zstring_sum": "none: the JAX package's readout is jnp "
+                           "(quantum_simulations_tpu/ops/sampling.py:45)"}
 # lane_panel's rotate option replaces the transposed store of
 # _panel_kernel (the kernels line reports it inside lane_panel's record).
 ROTATE_REPLACES = f"{PALLAS}:116"
@@ -388,14 +405,16 @@ PATH = {"lane_panel": "nonstab28 panel",
         "mixed_low_pair": "w_qft28",
         "midpair": "qpe33",
         "bitperm_involution": "qft33",
-        "tiled_transpose": "nonstab28 panel"}
+        "tiled_transpose": "nonstab28 panel",
+        "zstring_sum": "qaoa28 energy"}
 # Launches of each request, by counter key (keys not listed: 0).
 WANT = {"nonstab28": {"dual_panel": 2, "positioned_panel": 3},
         "hadamard_wall28": {"lane_panel": 1, "positioned_panel": 3},
         "qft28": {"positioned_panel": 1, "positioned_panel+diag": 3,
                   "lane_panel": 1, "bitperm_swap": 1, "bitperm_transpose": 1},
         "qaoa28": {"dual_panel": 3, "positioned_panel": 8,
-                   "positioned_panel+diag": 2, "fused_diag": 2}}
+                   "positioned_panel+diag": 2, "fused_diag": 2},
+        "qaoa28 energy": {"zstring_sum": 1}}
 WANT.update({
     "qpe28": {"dual_panel": 1, "positioned_panel": 5, "fused_diag": 3,
               "bitperm_swap": 1, "mixed_pair": 7, "lane_panel+diag": 1,
@@ -500,6 +519,7 @@ PEAK_LIMIT = 65 * GIB          # the two planes (64 GiB) + 1 GiB
 E2E = ("nonstab28", "qft28", "qaoa28", "qpe28", "qft_adder28")
 TOL_L2 = 1e-5
 TOL_CAPACITY = 1e-6            # capacity-tier state against the window run's
+TOL_ZSTRING = 1e-6             # zstring_sum's sums against its twin's (unit norm)
 # Phase 6: the sparse (COO on the card, bigint on the host), adaptive and
 # trajectory tiers.
 NSPARSE = 62                   # the COO tier's widest (int64 indices)
@@ -678,13 +698,22 @@ def nodecomp():
     return env_switch("QST_BITPERM_DECOMP", "0")
 
 
-def count_modules():
+def gate_modules():
+    """The kernel modules of the state's passes (those a dry run stubs)."""
     from quantum_simulations_tpu_torch.ops import bitperm_kernels as bk
     from quantum_simulations_tpu_torch.ops import diag_kernels as dk
     from quantum_simulations_tpu_torch.ops import pair_kernels as pq
     from quantum_simulations_tpu_torch.ops import panel_kernels as pk
 
     return pk, dk, bk, pq
+
+
+def count_modules():
+    """Every kernel module whose launches a request counts: the passes'
+    and the readout's."""
+    from quantum_simulations_tpu_torch.ops import readout_kernels as rk
+
+    return (*gate_modules(), rk)
 
 
 def reset_counts() -> None:
@@ -808,6 +837,43 @@ def cuda_ms(fn, reps: int) -> float:
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def qaoa_edges(n: int) -> list:
+    """qaoa_maxcut(n)'s graph: the qubit pairs of its RZZ gates."""
+    from quantum_simulations_tpu_torch.circuit import library
+
+    return sorted({tuple(g["qubits"]) for g in library.qaoa_maxcut(n)["gates"]
+                   if g["gate"] == "RZZ"})
+
+
+def readout_masks(n: int) -> dict:
+    """The readout's cases at width n: one string (qubits 0 and n - 1) and
+    qaoa_maxcut(n)'s edges, as zstring_sum masks."""
+    return {"K=1": [1 | (1 << (n - 1))],
+            "edges": [(1 << i) | (1 << j) for i, j in qaoa_edges(n)]}
+
+
+def zstring_library(re, im, mask: int):
+    """<Z...Z> of one string as the port read it before zstring_sum, in
+    plain torch: a sign table over the chunk's 2^26 indices, shared by
+    the chunks, and one sign a chunk for the bits above."""
+    import torch
+
+    from quantum_simulations_tpu_torch.ops import sampling
+
+    L = sampling._chunk(re)
+    signs = 1.0 - 2.0 * sampling._bit_parity(L, mask & (L - 1),
+                                             re.device).to(re.dtype)
+    acc = torch.zeros((), dtype=torch.float64, device=re.device)
+    for start in range(0, re.numel(), L):
+        r, i = re[start:start + L], im[start:start + L]
+        p = r * r
+        p.addcmul_(i, i)
+        sign = -1.0 if bin(start & mask).count("1") & 1 else 1.0
+        acc += sign * p.mul_(signs).sum(dtype=torch.float64)
+        del p
+    return acc
 
 
 def moved_rows(n: int, src) -> int:
@@ -1347,7 +1413,49 @@ def check_kernels(dev, scheds) -> dict:
             del got, want
         del x
         torch.cuda.empty_cache()
+    check_readout(dev, worst)
     return worst
+
+
+def check_readout(dev, worst: dict) -> None:
+    """zstring_sum against its plain twin at n = 20 and NQ, on a complex64
+    tensor's views and on two contiguous planes, with one string and with
+    qaoa_maxcut(n)'s edges: within TOL_ZSTRING, bit-equal when
+    repeated, one launch a call."""
+    import torch
+
+    from quantum_simulations_tpu_torch.ops import readout_kernels as rk
+    from quantum_simulations_tpu_torch.ops import sampling
+
+    for n in (20, NQ):
+        x = unit_state(n, SEED + 2 * n, dev)
+        xc = torch.complex(*x)
+        layouts = {"interleaved": (xc.real, xc.imag), "planar": x}
+        for layout, (re, im) in layouts.items():
+            for case, masks in readout_masks(n).items():
+                rk.reset_counts()
+                got = sampling.zstring_sums(re, im, masks)
+                again = sampling.zstring_sums(re, im, masks)
+                torch.cuda.synchronize()
+                calls = (rk.LAUNCHES["zstring_sum"], rk.PLAIN_CALLS["zstring_sum"])
+                want = sampling.zstring_sums_plain(re, im, masks)
+                mx = float((got - want).abs().max())
+                exact = torch.equal(got, again)
+                ok = mx <= TOL_ZSTRING and exact and calls == (2, 0)
+                label = f"zstring_sum {layout} {case} (K={len(masks)})"
+                log(f"check n={n} {label:<42} max_abs_err={mx:.3e} "
+                    f"repeat {'exact' if exact else 'DIFFERS'} "
+                    f"launches, plain={calls} {'ok' if ok else 'FAIL'}")
+                RECORD["cases"].append(dict(n=n, case=label, kernel="zstring_sum",
+                                            max_abs_err=mx, exact_repeat=exact))
+                if not ok:
+                    raise AssertionError(f"zstring_sum ({label}, n={n}) "
+                                         f"disagrees with its plain twin: {mx:.3e}, "
+                                         f"repeat exact {exact}, calls {calls}")
+                worst["zstring_sum"] = max(worst.get("zstring_sum", 0.0), mx)
+                del got, again, want
+        del x, xc, layouts, re, im
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1403,6 +1511,36 @@ def against_f64(label: str, psi, cd, dev, initial_state=None,
     if not (finite and abs(nrm2 - 1) <= 1e-5 and l2 <= 1e-5):
         raise AssertionError(f"{label} output is off the float64 reference")
     return dict(norm2=nrm2, l2_vs_f64=l2, max_abs_vs_f64=mx)
+
+
+def energy_request(psi, dev, counts: dict) -> dict:
+    """qaoa28's state read as an energy request: ``maxcut_energy`` over
+    its edges with random weights, one zstring_sum launch and nothing
+    else, within TOL_ZSTRING per unit weight of the same sum over the
+    twin's <Z_i Z_j>."""
+    import numpy as np
+    import torch
+
+    from quantum_simulations_tpu_torch.ops import observables, sampling
+
+    label = "qaoa28 energy"
+    edges = qaoa_edges(NQ)
+    w = [float(v) for v in np.random.default_rng(SEED).uniform(0.1, 2.0, len(edges))]
+    dpsi = torch.as_tensor(psi, device=dev)
+    energy, counts[label], wall = request(
+        label, lambda: observables.maxcut_energy(dpsi, edges, w))
+    zz = sampling.zstring_sums_plain(
+        dpsi.real, dpsi.imag, [(1 << i) | (1 << j) for i, j in edges]).tolist()
+    want = sum(0.5 * wij * (1.0 - z) for z, wij in zip(zz, w))
+    err = abs(energy - want) / sum(w)
+    del dpsi
+    ok = err <= TOL_ZSTRING
+    log(f"main {label}: {len(edges)} edges, energy={energy:.12f} twin's "
+        f"{want:.12f}, |diff| / sum(w)={err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label} is off the twin's energy: {err:.3e}")
+    return dict(first_call_s=wall, edges=len(edges), energy=energy,
+                twin_energy=want, err_per_weight=err)
 
 
 def main_path(dev) -> dict:
@@ -1482,6 +1620,7 @@ def main_path(dev) -> dict:
     main["qaoa28"] = dict(first_call_s=wall, **against_f64(
         "qaoa28", psi, qaoa, dev))
     in_place("qaoa28", qaoa, psi)
+    main["qaoa28 energy"] = energy_request(psi, dev, counts)
     del psi
 
     re0, im0 = unit_state(NQ, SEED + 1, dev)
@@ -1627,6 +1766,8 @@ def times(dev, scheds) -> dict:
     from quantum_simulations_tpu_torch.ops import diag_kernels as dk
     from quantum_simulations_tpu_torch.ops import pair_kernels as pq
     from quantum_simulations_tpu_torch.ops import panel_kernels as pk
+    from quantum_simulations_tpu_torch.ops import readout_kernels as rk
+    from quantum_simulations_tpu_torch.ops import sampling
     from quantum_simulations_tpu_torch.runtime import simulator
 
     n, N = NQ, 1 << NQ
@@ -1834,6 +1975,19 @@ def times(dev, scheds) -> dict:
         lambda: pk.lane_panel_plain(*x, wp, rotate=True),
         lambda: (xl @ Wpt).t().contiguous(), [128],
         separate=lambda: bk.tiled_transpose(*pk.lane_panel(*x, wp), N >> 7, 128))
+
+    # The readout: one string and qaoa28's 50 edges on the complex64
+    # tensor's views (the first is the JSON row) and on the planes.  Its
+    # bound is one read of the state; its library call the per-string
+    # plain readout the port had before the kernel (one string only).
+    read_bound = (1e3 * N * 8 / HBM_BYTES_PER_S, "bytes")
+    for layout, planes in (("interleaved", (xc.real, xc.imag)), ("planar", x)):
+        for case, masks in readout_masks(n).items():
+            row("zstring_sum", f"zstring_sum {layout} {case} (K={len(masks)})",
+                lambda p=planes, m=masks: rk.zstring_sum(*p, m),
+                lambda p=planes, m=masks: sampling.zstring_sums_plain(*p, m),
+                (lambda p=planes, m=masks[0]: zstring_library(*p, m))
+                if len(masks) == 1 else None, [], bnd=read_bound)
     del xc, xv, xl
 
     # Every pass of qft28 and qaoa28, operands already on the card.
@@ -1956,6 +2110,33 @@ def zero_distance(res) -> float:
     return math.sqrt(max(res.norm2() - abs(a) ** 2 + abs(a - 1) ** 2, 0.0))
 
 
+def ghz33_readout(res) -> tuple:
+    """<Z0 Z32>, <Z32> and <Z0...Z32> of ghz33's planes (1, 0, 0) in one
+    counted zstring_sum launch (index bit 32), and the twin's: (record,
+    launches)."""
+    import torch
+
+    from quantum_simulations_tpu_torch.ops import sampling
+
+    masks = [1 | (1 << (NBIG - 1)), 1 << (NBIG - 1), (1 << NBIG) - 1]
+    reset_counts()
+    got = sampling.zstring_sums(res.re, res.im, masks).tolist()
+    torch.cuda.synchronize()
+    got_launches, plain = launches(), plain_calls()
+    twin = sampling.zstring_sums_plain(res.re, res.im, masks).tolist()
+    exact = (1.0, 0.0, (1 + (-1) ** NBIG) / 2)  # |1...1>'s parity: NBIG's
+    exact_err = max(abs(g - e) for g, e in zip(got, exact))
+    twin_err = max(abs(g - t) for g, t in zip(got, twin))
+    ok = (exact_err <= TOL_L2 and twin_err <= TOL_ZSTRING
+          and got_launches == {"zstring_sum": 1} and not plain)
+    log(f"capacity ghz{NBIG} readout <Z0 Z{NBIG - 1}>, <Z{NBIG - 1}>, <Z all>: "
+        f"{got} (twin {twin}), |diff| to {exact} {exact_err:.3e}, to the twin "
+        f"{twin_err:.3e}, launches={got_launches} plain_calls={plain} "
+        f"{'ok' if ok else 'FAIL'}")
+    return dict(z=got, twin=twin, exact_err=exact_err, twin_err=twin_err,
+                ok=ok), got_launches
+
+
 def capacity33(dev) -> dict:
     """ghz33, nonstab33 (then its inverse), qft33 and qpe33 through
     ``api.simulate(cd, SimulatorConfig(mode="capacity"))`` on two 32 GiB
@@ -1998,6 +2179,8 @@ def capacity33(dev) -> dict:
             top = sorted(i for i, _ in res.top_amplitudes(2))
             rec.update(end_err=max(abs(a - amp) for a in ends), top2=top)
             ok = ok and rec["end_err"] <= 1e-6 and top == [0, (1 << NBIG) - 1]
+            rec["readout"], counts["ghz33 readout"] = ghz33_readout(res)
+            ok = ok and rec["readout"]["ok"]
         elif label == "qft33":
             rec["l2_vs_exact"] = uniform_distance(res.re, res.im)
             ok = ok and rec["l2_vs_exact"] <= 1e-5
@@ -2927,8 +3110,8 @@ class dry_run:
     dispatch would make (tests/test_torch_capacity.py's dry run)."""
 
     def __enter__(self):
-        self.saved = [(m, m.on_card, m.launch) for m in count_modules()]
-        for m in count_modules():
+        self.saved = [(m, m.on_card, m.launch) for m in gate_modules()]
+        for m in gate_modules():
             m.on_card = lambda name, re, im: True
             m.launch = lambda *a: None
         return self

@@ -52,10 +52,11 @@ def expectation_sum(psi, terms: list[tuple[float, str | dict[int, str]]]) -> flo
 @timing.spanned("qst.readout.maxcut_energy")
 def maxcut_energy(psi, edges: list[tuple[int, int]],
                   weights: list[float] | None = None) -> float:
-    """QAOA MaxCut objective  sum_e w_e (1 - <Z_i Z_j>) / 2.  One span for
-    the whole sum: the edges' ``<Z_i Z_j>`` read the planes directly."""
+    """QAOA MaxCut objective  sum_e w_e (1 - <Z_i Z_j>) / 2.  Every edge's
+    ``<Z_i Z_j>`` from one ``zstring_sums`` pass over the planes and one
+    host read; the sum in float64 on the host."""
     w = weights or [1.0] * len(edges)
     re, im = sampling._planes(psi)
-    zz = sampling.expectation_z_planar
-    return sum((0.5 * wij * (1.0 - zz(re, im, [i, j]))
-               for (i, j), wij in zip(edges, w)), 0.0)
+    zz = sampling.zstring_sums(
+        re, im, [(1 << i) | (1 << j) for i, j in edges]).cpu().tolist()
+    return sum((0.5 * wij * (1.0 - z) for z, wij in zip(zz, w)), 0.0)

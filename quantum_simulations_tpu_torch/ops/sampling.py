@@ -15,7 +15,10 @@ reduction runs over chunks of at most 2^``CHUNK_BITS`` = 2^26 amplitudes and no
 temporary is larger than a chunk (256 MiB of float32), one at a time: at
 n = 33 the probability vector alone would be 32 GiB, and the card holds
 about 15 GiB beside the two planes; the sampler at n = 30 holds under
-1 GiB beside its 8 GiB of planes.
+1 GiB beside its 8 GiB of planes.  <Z...Z> is the exception:
+``zstring_sums`` reads every Z-string of a call in one pass through the
+``zstring_sum`` kernel (``readout_kernels``: no temporary), or, on the CPU
+and for float64 planes, through its plain twin, chunked as above.
 Sums accumulate in float64 (the reference sums in float32).  Indices are
 int64 (the reference keeps int32 for n <= 31; qpe(32)'s answer lies above
 2^32), and random draws come from an explicit seeded ``torch.Generator``:
@@ -26,11 +29,13 @@ from __future__ import annotations
 import torch
 
 from ..utils import timing
+from . import readout_kernels
 
 CHUNK_BITS = 26
 # One per pass of a dense readout over a whole state's planes (norm,
-# <Z...Z>, a qubit's probability, the top amplitudes' block maxima, the
-# sampler's block masses); the rows a sampler or top-k gathers are not.
+# <Z...Z> of up to readout_kernels.CAP strings, a qubit's probability, the
+# top amplitudes' block maxima, the sampler's block masses); the rows a
+# sampler or top-k gathers are not.
 READOUT_PASSES = 0
 
 
@@ -92,21 +97,70 @@ def norm2_planar(re: torch.Tensor, im: torch.Tensor) -> float:
     return float(acc)
 
 
-def expectation_z_planar(re: torch.Tensor, im: torch.Tensor, qubits) -> float:
-    """<Z...Z> on planes: the parity signs of the bits below the chunk
-    width are one table shared by every chunk; those above give each
-    chunk one sign."""
-    mask = 0
+def qubit_mask(qubits) -> int:
+    m = 0
     for q in qubits:
-        mask |= 1 << q
+        m |= 1 << q
+    return m
+
+
+def zstring_sums_plain(re: torch.Tensor, im: torch.Tensor,
+                       masks) -> torch.Tensor:
+    """The plain twin of one ``zstring_sum`` launch: each chunk's |psi|^2
+    once, and for each mask in turn its signs over the chunk's index bits
+    as the outer product of two tables of about sqrt(chunk) entries (the
+    low and the high half of the bits; built once a call), one sign a
+    chunk for the bits above.  The float32 products are exact sign flips,
+    summed in float64 by rows, then signed rows in float64."""
+    readout_kernels.PLAIN_CALLS["zstring_sum"] += 1
     L = _chunk(re)
-    signs = 1.0 - 2.0 * _bit_parity(L, mask & (L - 1), re.device).to(re.dtype)
-    acc = torch.zeros((), dtype=torch.float64, device=re.device)
+    bits = L.bit_length() - 1
+    lo = bits // 2
+    signs = [(1.0 - 2.0 * _bit_parity(1 << lo, m & ((1 << lo) - 1),
+                                      re.device).to(re.dtype),
+              1.0 - 2.0 * _bit_parity(L >> lo, (m & (L - 1)) >> lo,
+                                      re.device).to(torch.float64))
+             for m in masks]
+    acc = torch.zeros(len(masks), dtype=torch.float64, device=re.device)
     for start, p in _prob_chunks(re, im):
-        sign = -1.0 if bin(start & mask).count("1") & 1 else 1.0
-        acc += sign * p.mul_(signs).sum(dtype=torch.float64)
-        del p
-    return float(acc)
+        rows = p.view(-1, 1 << lo)
+        for k, m in enumerate(masks):
+            low, high = signs[k]
+            part = (rows * low).sum(dim=1, dtype=torch.float64) @ high
+            acc[k] += -part if bin(start & m).count("1") & 1 else part
+        del p, rows
+    return acc
+
+
+def zstring_sums(re: torch.Tensor, im: torch.Tensor, masks) -> torch.Tensor:
+    """S_k = sum_i |psi_i|^2 (-1)^popcount(i & m_k) for each of ``masks``
+    (ints of up to 64 bits: the qubits of a Z-string), a (K,) float64
+    tensor on the planes' device: <Z...Z> of a normalised state.  One pass
+    over the state, and one ``READOUT_PASSES``, for each
+    ``readout_kernels.CAP`` masks: the kernel where it takes the planes
+    (CUDA float32), else the plain twin."""
+    global READOUT_PASSES
+    masks = [int(m) for m in masks]
+    if any(m < 0 or m >> 64 for m in masks):
+        raise ValueError("zstring_sums: masks are unsigned 64-bit")
+    card = readout_kernels.takes(re, im)
+    parts = []
+    for g in range(0, len(masks), readout_kernels.CAP):
+        group = masks[g:g + readout_kernels.CAP]
+        if card:
+            parts.append(readout_kernels.zstring_sum(re, im, group))
+            READOUT_PASSES += 1
+        else:  # _prob_chunks counts the pass
+            parts.append(zstring_sums_plain(re, im, group))
+    if not parts:
+        return torch.zeros(0, dtype=torch.float64, device=re.device)
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def expectation_z_planar(re: torch.Tensor, im: torch.Tensor, qubits) -> float:
+    """<Z...Z> on planes (or a complex tensor's ``.real`` / ``.imag``): one
+    ``zstring_sums`` pass, one host read."""
+    return float(zstring_sums(re, im, [qubit_mask(qubits)])[0])
 
 
 def qubit_probability_planar(re: torch.Tensor, im: torch.Tensor, q: int,
