@@ -5,7 +5,9 @@
 JSON line.  Everything that belongs to one configuration, traffic mix,
 check or per-layer metric is a file of its own, found by name:
 
-* ``configs/<config>.json``: the circuit family, its sizes and source;
+* ``configs/<config>.json``: the circuit family, its sizes and source,
+  and the reference it is held to (``"reference": {"kind": "cut", ...}``
+  for a state too large to hold twice; the full state without it);
 * ``traffic/<traffic>.json``: the parameters that ``stream.py`` (the one
   request generator) reads, among them the request's ``kind``;
 * ``kinds/<kind>.py``: how one request of that kind calls the port, how

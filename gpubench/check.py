@@ -15,6 +15,13 @@ every answer is compared.  Where each request has its own circuit it
 runs the last request's and ``requests - 1`` more drawn from the seed.
 Each number has its limit in ``checks/<workload>.json``; a request that
 raised, or a window with none, is not correct.
+
+A configuration with ``"reference": {"kind": "cut", "cut": c}`` is held
+to ``reference/cut`` instead (:func:`compare_cut`), whose tensors are
+never as large as the state: ``state_err`` a chunk of 2^24 amplitudes at
+a time against the captured state, a tensor or planes (``.re`` /
+``.im``), and the kind's number by its ``cut_error``.  Every other
+configuration is held to the full state as above.
 """
 from __future__ import annotations
 
@@ -22,7 +29,9 @@ import math
 
 import torch
 
+from . import kinds
 from . import stream as st
+from .reference import cut as cr
 from .reference import statevector as sv
 
 
@@ -53,10 +62,41 @@ def chosen(records, new_instance: bool, requests: int, seed: int) -> list:
     return [rest[i] for i in sorted(picks)] + [done[-1]]
 
 
+def reference_cut(config: dict) -> int | None:
+    """The cut a configuration's ``reference`` names, else None (the
+    full-state reference)."""
+    ref = config.get("reference")
+    if ref is None:
+        return None
+    if ref.get("kind") != "cut":
+        raise ValueError(f"unknown reference {ref!r}")
+    return int(ref["cut"])
+
+
+def state_err_cut(state, ref: cr.CutReference, chunk: int = 1 << 24) -> float:
+    """||psi - ref||_2 against the cut reference's amplitudes, a chunk at a
+    time with float64 sums; ``state`` a tensor or planes (``.re``/``.im``)."""
+    planes = hasattr(state, "re")
+    flat = None if planes else state.reshape(-1)
+    acc = torch.zeros((), dtype=torch.float64, device=ref.device)
+    for s, amps in ref.chunks(chunk):
+        e = s + amps.numel()
+        if planes:
+            got = torch.complex(state.re[s:e].to(ref.device, torch.float64),
+                                state.im[s:e].to(ref.device, torch.float64))
+        else:
+            got = flat[s:e].to(ref.device, amps.dtype)
+        acc += (amps - got).abs().square().sum()
+    return math.sqrt(float(acc))
+
+
 def compare(kind, records, last_state, config: dict, traffic: dict,
             check: dict, seed: int, device) -> dict:
     """{name: value} of every number the cell compares; ``kind`` is the
     request kind's module."""
+    if reference_cut(config) is not None:
+        return compare_cut(kind, records, last_state, config, traffic,
+                           check, seed, device)
     n = config["params"]["n"]
     out = {"state_err": math.inf}
     worst = 0.0
@@ -76,6 +116,31 @@ def compare(kind, records, last_state, config: dict, traffic: dict,
             worst = max(worst, kind.error(r.answer, r.request, probs, n,
                                           config))
         del probs
+    out[kind.NUMBER] = worst if recs else math.inf
+    return out
+
+
+def compare_cut(kind, records, last_state, config: dict, traffic: dict,
+                check: dict, seed: int, device) -> dict:
+    """:func:`compare` against ``reference/cut``: the same records, each
+    circuit's halves instead of its state."""
+    error = kinds.cut_fn(kind, "cut_error")
+    out = {"state_err": math.inf}
+    worst = 0.0
+    recs = chosen(records, traffic.get("new_instance", False),
+                  check.get("requests", 1), seed)
+    by_circuit: dict[int, list] = {}
+    for r in recs:
+        by_circuit.setdefault(id(r.request.circuit), []).append(r)
+    last = recs[-1] if recs else None
+    for group in by_circuit.values():
+        ref = cr.CutReference(group[0].request.circuit, reference_cut(config),
+                              device)
+        if last in group and last_state is not None:
+            out["state_err"] = state_err_cut(last_state, ref)
+        for r in group:
+            worst = max(worst, error(r.answer, r.request, ref))
+        del ref
     out[kind.NUMBER] = worst if recs else math.inf
     return out
 

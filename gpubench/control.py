@@ -43,7 +43,8 @@ def main(argv=None) -> int:
         return 2
     cell = R.load_cell(R.load_json(R.ROOT / "BENCHMARK.json"), args.workload)
     dev = torch.device("cuda:0")
-    system = (Control if args.system == "control" else Port)(dev)
+    system = (Control(dev, cell.config)
+              if args.system == "control" else Port(dev))
     for seed in (int(s) for s in args.seeds.split(",")):
         with FAULTS[args.fault]() if args.fault else contextlib.nullcontext():
             res = R.run_cell(cell, seed, args.seconds, False, dev,

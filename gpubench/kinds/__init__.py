@@ -16,6 +16,14 @@ by that name.  Each defines:
   the reference, whose probabilities ``probs`` are of the request's
   circuit.
 
+A kind may also define, for a configuration held to the cut reference
+(``reference/cut``, which never holds the state):
+
+* ``cut_control(ctl, req, cfg, spanning)``: the control's answer from
+  its TF32 halves (``ctl.halves()``), after ``ctl.run``;
+* ``cut_error(answer, req, ref)``: the answer's distance from the
+  ``CutReference`` of the request's circuit.
+
 Each request's final state goes through ``system.run`` (``port.run`` or
 ``ctl.run``), where ``systems.Capture`` sees it.
 """
@@ -38,3 +46,14 @@ def load(name: str):
     if missing:
         raise ValueError(f"request kind {name!r} lacks {missing}")
     return mod
+
+
+def cut_fn(kind, name: str):
+    """The kind's ``cut_control`` or ``cut_error``; a clear error for a
+    kind that has none yet."""
+    fn = getattr(kind, name, None)
+    if fn is None:
+        raise NotImplementedError(
+            f"request kind {kind.__name__.rsplit('.', 1)[-1]!r} has no cut "
+            f"reference yet (no {name})")
+    return fn

@@ -27,3 +27,12 @@ def control(ctl, req, cfg, spanning) -> float:
 
 def error(answer, req, probs, n, config) -> float:
     return abs(answer - sv.z_expectation(probs, n, req.args["qubits"]))
+
+
+def cut_control(ctl, req, cfg, spanning) -> float:
+    ctl.run(req.circuit, cfg)
+    return ctl.halves().z_expectation(req.args["qubits"])
+
+
+def cut_error(answer, req, ref) -> float:
+    return abs(answer - ref.z_expectation(req.args["qubits"]))

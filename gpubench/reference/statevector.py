@@ -126,7 +126,10 @@ def apply_gate(psi: torch.Tensor, n: int, qubits, U: np.ndarray,
         for c in nz[r]:
             term = olds[c] * complex(U[r, c])
             acc = term if acc is None else acc.add_(term)
-        blocks[r].copy_(acc)
+        if acc is None:  # a zero row: a cut reference's factor, never a gate
+            blocks[r].zero_()
+        else:
+            blocks[r].copy_(acc)
     del olds
 
 

@@ -13,6 +13,8 @@ import time
 
 import torch
 
+from . import check, kinds
+from .reference import cut as cr
 from .reference import statevector as sv
 from .trace import span
 
@@ -59,15 +61,32 @@ class Port:
         return int(sum(value.values()) if isinstance(value, dict) else value)
 
 
+class Planes:
+    """A state as two float planes on the device, as the check reads one."""
+
+    def __init__(self, re: torch.Tensor, im: torch.Tensor):
+        self.re, self.im = re, im
+
+
 class Control:
     """The reference with TF32 products (``statevector.simulate(...,
     tf32=True)``) in the port's place: the check has to find it wrong.
     Its readouts are the reference's, in float64, on the TF32 state; a
-    circuit met again is not simulated again.  It has no counters."""
+    circuit met again is not simulated again.  It has no counters.
 
-    def __init__(self, device: torch.device):
+    For a configuration held to the cut reference (``config`` names
+    ``"reference": {"kind": "cut", "cut": c}``) it is the cut
+    reference with TF32 rounding: its state is written a chunk at a time
+    into two float32 planes (:class:`Planes`, never a complex copy), and
+    its answers come from the TF32 halves (``kinds.cut_fn(kind,
+    "cut_control")``).  Only ``gpubench.control`` runs it."""
+
+    CHUNK = 1 << 24
+
+    def __init__(self, device: torch.device, config: dict | None = None):
         self.entry = self
         self.device = device
+        self.cut = None if config is None else check.reference_cut(config)
         self._last = (None, None, None)
 
     def prepare(self) -> None:
@@ -79,9 +98,27 @@ class Control:
     def run(self, cd, cfg):
         if self._last[0] is not cd:
             self._last = (None, None, None)
-            psi = sv.simulate(cd, self.device, tf32=True)
-            self._last = (cd, psi, None)
+            if self.cut is None:
+                psi = sv.simulate(cd, self.device, tf32=True)
+                self._last = (cd, psi, None)
+            else:
+                ref = cr.CutReference(cd, self.cut, self.device, tf32=True)
+                self._last = (cd, self._planes(ref), ref)
         return self._last[1]
+
+    def _planes(self, ref) -> Planes:
+        n = 1 << ref.n
+        re = torch.empty(n, dtype=torch.float32, device=self.device)
+        im = torch.empty(n, dtype=torch.float32, device=self.device)
+        for s, amps in ref.chunks(self.CHUNK):
+            e = s + amps.numel()
+            re[s:e] = amps.real
+            im[s:e] = amps.imag
+        return Planes(re, im)
+
+    def halves(self) -> cr.CutReference:
+        """The TF32 cut reference of the circuit last run."""
+        return self._last[2]
 
     def probs(self, psi):
         cd, last, probs = self._last
@@ -92,7 +129,9 @@ class Control:
         return probs
 
     def answer(self, kind, req, cfg, spanning):
-        return kind.control(self, req, cfg, spanning)
+        if self.cut is None:
+            return kind.control(self, req, cfg, spanning)
+        return kinds.cut_fn(kind, "cut_control")(self, req, cfg, spanning)
 
     def counter(self, spec: str) -> int:
         return 0
