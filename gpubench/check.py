@@ -13,6 +13,9 @@ their circuit dicts:
 Where every request runs one circuit the reference runs it once and
 every answer is compared.  Where each request has its own circuit it
 runs the last request's and ``requests - 1`` more drawn from the seed.
+A check with ``"answers": "light_cone"`` runs the whole state only for
+those (``state_err``) and holds every answer of the window to its
+light cone instead (``reference/lightcone``, the kind's ``cone_error``).
 Each number has its limit in ``checks/<workload>.json``; a request that
 raised, or a window with none, is not correct.
 
@@ -100,6 +103,7 @@ def compare(kind, records, last_state, config: dict, traffic: dict,
     n = config["params"]["n"]
     out = {"state_err": math.inf}
     worst = 0.0
+    cone = check.get("answers") == "light_cone"
     recs = chosen(records, traffic.get("new_instance", False),
                   check.get("requests", 1), seed)
     by_circuit: dict[int, list] = {}
@@ -110,12 +114,18 @@ def compare(kind, records, last_state, config: dict, traffic: dict,
         ref = sv.simulate(group[0].request.circuit, device)
         if last in group and last_state is not None:
             out["state_err"] = state_err(last_state, ref)
+        if cone:
+            del ref
+            continue
         probs = sv.probabilities(ref)
         del ref
         for r in group:
             worst = max(worst, kind.error(r.answer, r.request, probs, n,
                                           config))
         del probs
+    if cone:
+        worst = max((kind.cone_error(r.answer, r.request, device)
+                     for r in records if r.answer is not None), default=0.0)
     out[kind.NUMBER] = worst if recs else math.inf
     return out
 

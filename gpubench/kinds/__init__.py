@@ -24,6 +24,12 @@ A kind may also define, for a configuration held to the cut reference
 * ``cut_error(answer, req, ref)``: the answer's distance from the
   ``CutReference`` of the request's circuit.
 
+and, for a check that holds every answer to its light cone
+(``"answers": "light_cone"``, ``reference/lightcone``):
+
+* ``cone_error(answer, req, device)``: the answer's distance from the
+  reference worked out on the light cone of what it reads.
+
 Each request's final state goes through ``system.run`` (``port.run`` or
 ``ctl.run``), where ``systems.Capture`` sees it.
 """

@@ -2,6 +2,7 @@
 ``z_weight = [lo, hi]`` distinct qubits, the weight drawn uniformly."""
 from __future__ import annotations
 
+from ..reference import lightcone as lc
 from ..reference import statevector as sv
 
 NUMBER = "z_err"
@@ -36,3 +37,8 @@ def cut_control(ctl, req, cfg, spanning) -> float:
 
 def cut_error(answer, req, ref) -> float:
     return abs(answer - ref.z_expectation(req.args["qubits"]))
+
+
+def cone_error(answer, req, device) -> float:
+    return abs(answer - lc.z_expectation(req.circuit, req.args["qubits"],
+                                         device))

@@ -8,6 +8,17 @@ plain torch operations: a diagonal gate as products in place, a
 permutation as block copies, any other gate as a linear combination of
 cloned blocks.
 
+``GATES`` holds every 1- and 2-qubit gate of the circuit contract, under
+the contract's names and parameter names: the core set (H X Y Z S T,
+RY(theta) R(k) G(p), CNOT SWAP CZ CY, CR(k) CU(U, exponent)), the
+extended set (SDG TDG SX, RX RZ P U U2, CP CRX CRY CRZ RXX RYY RZZ),
+and FSIM(theta, phi), the coupler of Google's Sycamore processor (Arute
+et al., Nature 574, 505 (2019), supplement; Cirq's ``FSimGate``).  Each
+is written from its published definition: the contract's own for R, G,
+CY, CR and CU, OpenQASM 2's ``u3`` and ``u2`` for U and U2,
+exp(-i theta/2 P(x)P) for RXX, RYY and RZZ.  The 3-qubit gates (CCX
+CCZ CSWAP) are not here: ``apply_gate`` takes 1- and 2-qubit gates only.
+
 ``tf32=True`` is the control: the state in complex64, and before every
 gate both the state and the gate's entries are rounded to TF32 (10
 mantissa bits, to nearest), so each product is what a TF32 tensor core
@@ -26,6 +37,26 @@ _R2 = 1.0 / math.sqrt(2.0)
 
 def _rz(theta):
     return np.diag([cmath.exp(-0.5j * theta), cmath.exp(0.5j * theta)])
+
+
+def _controlled(u) -> np.ndarray:
+    """The 4x4 of ``u`` on qubits[1] controlled by qubits[0] = 1."""
+    out = np.eye(4, dtype=np.complex128)
+    out[2:, 2:] = u
+    return out
+
+
+def _u3(theta, phi, lam):
+    c, s = math.cos(theta / 2), math.sin(theta / 2)
+    return np.array([[c, -cmath.exp(1j * lam) * s],
+                     [cmath.exp(1j * phi) * s, cmath.exp(1j * (phi + lam)) * c]])
+
+
+def _pauli_pair(theta, p):
+    """exp(-i theta/2 P(x)P) = cos(theta/2) I - i sin(theta/2) P(x)P, as
+    (P(x)P)^2 = I."""
+    return (math.cos(theta / 2) * np.eye(4)
+            - 1j * math.sin(theta / 2) * np.kron(p, p))
 
 
 GATES = {
@@ -55,6 +86,28 @@ GATES = {
     "RZZ": lambda theta: np.diag(
         [cmath.exp(-0.5j * theta), cmath.exp(0.5j * theta),
          cmath.exp(0.5j * theta), cmath.exp(-0.5j * theta)]),
+    "R": lambda k: np.diag([1, cmath.exp(2j * math.pi / (1 << k))]),
+    "G": lambda p: np.array(
+        [[math.sqrt(1 / p), -math.sqrt(1 - 1 / p)],
+         [math.sqrt(1 - 1 / p), math.sqrt(1 / p)]]),
+    "U": _u3,
+    "U2": lambda phi, lam: _R2 * np.array(
+        [[1, -cmath.exp(1j * lam)],
+         [cmath.exp(1j * phi), cmath.exp(1j * (phi + lam))]]),
+    "CY": lambda: _controlled(GATES["Y"]()),
+    "CR": lambda k: np.diag([1, 1, 1, cmath.exp(2j * math.pi / (1 << k))]),
+    "CU": lambda U, exponent: _controlled(np.linalg.matrix_power(
+        np.asarray(U, dtype=np.complex128), exponent)),
+    "CRX": lambda theta: _controlled(GATES["RX"](theta)),
+    "CRY": lambda theta: _controlled(GATES["RY"](theta)),
+    "CRZ": lambda theta: _controlled(GATES["RZ"](theta)),
+    "RXX": lambda theta: _pauli_pair(theta, GATES["X"]()),
+    "RYY": lambda theta: _pauli_pair(theta, GATES["Y"]()),
+    "FSIM": lambda theta, phi: np.array(
+        [[1, 0, 0, 0],
+         [0, math.cos(theta), -1j * math.sin(theta), 0],
+         [0, -1j * math.sin(theta), math.cos(theta), 0],
+         [0, 0, 0, cmath.exp(-1j * phi)]]),
 }
 
 

@@ -53,7 +53,7 @@ def test_each_cell_reports_its_program_metrics(workload):
     cell, res = traced(workload)
     assert res["correct"] is True and res["failed"] == 0
     names = set(res["metrics"])
-    new_circuit = workload.startswith("qaoa28.")
+    new_circuit = cell.traffic["new_instance"]
     if new_circuit:
         assert {"contract_ms_per_request.new_circuit",
                 "compile_ms_per_request.new_circuit",

@@ -51,7 +51,8 @@ def _same(a, b):
 @pytest.mark.parametrize("cell", [("nonstab28", "zsweep.window"),
                                   ("qaoa28", "energy.window"),
                                   ("nonstab28", "zsweep.fused"),
-                                  ("qaoa28", "shots.window")])
+                                  ("qaoa28", "shots.window"),
+                                  ("nonstab28", "fresh.window")])
 @pytest.mark.parametrize("seed", [0, 7, 2 ** 31 + 17, 2 ** 40 + 3, -5])
 def test_streams_are_fixed_by_the_seed(cell, seed):
     config, traffic = CONFIGS[cell[0]], TRAFFIC[cell[1]]
@@ -66,14 +67,37 @@ def test_streams_are_fixed_by_the_seed(cell, seed):
             qs = r.args["qubits"]
             assert lo <= len(qs) <= hi and len(set(qs)) == len(qs)
             assert all(0 <= q < config["params"]["n"] for q in qs)
+        if not traffic.get("new_instance"):
             assert r.circuit is a[0].circuit
-        else:
+        elif "angles" in config["fresh"]:
             assert len(r.circuit["gates"]) == config["gates"]
     if traffic.get("new_instance"):
+        assert len({json.dumps(r.circuit) for r in a}) == len(a)
+    if "angles" in config.get("fresh", {}) and traffic.get("new_instance"):
         thetas = [tuple(g["params"]["theta"] for g in r.circuit["gates"]
                         if g["gate"] == "RZZ")[::50] for r in a]
         assert len(set(thetas)) == len(a)
         assert all(0 <= t < 3.1416 for th in thetas for t in th)
+
+
+def test_a_fresh_request_is_the_library_s_circuit_for_its_seed():
+    from quantum_simulations_tpu_torch.circuit import library
+
+    config, traffic = CONFIGS["nonstab28"], TRAFFIC["fresh.window"]
+    s = st.Stream(config, traffic, 2 ** 33 + 21)
+    seeds, make = [], s.make
+
+    def spy(**params):
+        seeds.append(params["seed"])
+        return make(**params)
+
+    s.make = spy
+    reqs = [s.next() for _ in range(4)]
+    assert len(set(seeds)) == 4
+    assert all(isinstance(x, int) and 0 <= x < 2 ** 31 for x in seeds)
+    for r, seed in zip(reqs, seeds):
+        assert r.circuit == library.non_stabilizer(28, 4, seed)
+    assert reqs[0].circuit != reqs[1].circuit
 
 
 def test_every_kind_is_found_by_name():
