@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time variants of the tensor-core panels of ``csrc/panels.cu`` on one card.
+"""Time the tensor-core panels of ``csrc/panels.cu`` on one card, with
+the dual kernel's variants.
 
     python3 panel_variants.py        # needs a CUDA card and nvcc
 
@@ -8,31 +9,24 @@ Each variant is the source built with one of its measurement macros
 ``cuda_build`` beside the package's own build (one nvcc each, all started
 together), and called through the same C entries:
 
-- ``base``: no macro, the kernel the package runs;
-- ``nostore`` (``QST_TC_NOSTORE``): the lane / positioned kernel's tile
-  stores are skipped (what the stores cost; the dual is unchanged);
-- ``chained`` (``QST_TC_CHAINED``): every product of an output chained
-  into the tensor cores' accumulator, no float32 add per k8 step (what
-  the promotion costs, and the truncation bias it removes);
-- ``nosplit`` (``QST_TC_NOSPLIT``): the TF32 split replaced by a plain
-  bit copy (lo = 0; wrong digits, the split's cost);
-- ``lean``: ``chained`` and ``nosplit`` together, about the mma.sync
-  issue alone with its operand loads;
-- ``gauss`` (``QST_TC_GAUSS``): Gauss's three real products (nine TF32
-  products a complex multiply-add instead of twelve), its error and time;
+- ``base``: no macro, the kernels the package runs;
+- ``gauss`` (``QST_TC_GAUSS``): the dual's k8 step with Gauss's three
+  real products (nine TF32 products a complex multiply-add instead of
+  twelve), its error and time;
 - ``dualunroll`` / ``dualunroll2`` (``QST_TC_DUAL_UNROLL`` = 4 / 2): the
   dual kernel's four k8 steps a chunk unrolled fully / by 2 (the package
-  runs them as a loop);
-- ``ksloop`` (``QST_TC_KS_LOOP``): the lane / positioned kernel's four k8
-  steps a chunk as a loop (the package unrolls them).
+  runs them as a loop).
 
-They split the kernel's time into its parts, so a redesign of the
-routine (``wgmma`` in place of mma.sync) is measured against them: rerun
-it beside any change to namespace ``tc``.
+The macros change the dual only: the lane / positioned kernel
+(``panel_tc_kernel``, warpgroup MMA) reads the same in every variant.
+Beside its times the script prints the floor of the mma.sync core it
+replaced, measured with the split and the per-step fold both off
+(``lean``, 3.5-3.7 ms at n = 28; PR 6's panel_variants.py, on an H100
+SXM at 700 W).
 
-At n = 28 (the (2^21, 128) lane view, the positioned view at pos 21 and
-11, and the (0, 7) dual panel, which runs the same k8 step) it prints
-each variant's median CUDA-event ms and its ||diff||_2 against the float64
+At n = 28 (the (2^21, 128) lane view, plain and rotated, the positioned
+view at pos 14, 21 and 11, and the (0, 7) dual panel) it prints each
+variant's median CUDA-event ms and its ||diff||_2 against the float64
 twin on a unit-norm state (lane panel and dual), the library call
 ``x @ W.T`` and a copy of both planes (the bytes floor as the card runs
 it), then the card's name, power limit and SM clock.
@@ -45,15 +39,11 @@ import sys
 
 VARIANTS = {
     "base": (),
-    "nostore": ("QST_TC_NOSTORE=1",),
-    "chained": ("QST_TC_CHAINED=1",),
-    "nosplit": ("QST_TC_NOSPLIT=1",),
-    "lean": ("QST_TC_CHAINED=1", "QST_TC_NOSPLIT=1"),
     "gauss": ("QST_TC_GAUSS=1",),
     "dualunroll": ("QST_TC_DUAL_UNROLL=4",),
     "dualunroll2": ("QST_TC_DUAL_UNROLL=2",),
-    "ksloop": ("QST_TC_KS_LOOP=1",),
 }
+LEAN_MS = "3.5-3.7"  # the mma.sync core's floor at n = 28 (PR 6)
 
 
 def ms(fn, reps: int = 10) -> float:
@@ -97,7 +87,9 @@ def main() -> int:
     q, r = np.linalg.qr(rng.standard_normal((128, 128))
                         + 1j * rng.standard_normal((128, 128)))
     W = q * (np.diag(r) / np.abs(np.diag(r)))
-    wr, wi = pk.w_planes(W, dev, torch.float32)
+    w1 = pk.w_planes(W, dev, torch.float32)
+    wr, wi = w1
+    wtc = pk.tc_operand(w1)
     w2r, w2i = pk.w_planes(W.conj(), dev, torch.float32)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     want = pk.lane_panel_plain(re.double(), im.double(), W)
@@ -113,15 +105,15 @@ def main() -> int:
 
     def lane(lib, rotate=0):
         check(lib.qst_lane_panel(re.data_ptr(), im.data_ptr(), wr.data_ptr(),
-                                 wi.data_ptr(), ore.data_ptr(), oim.data_ptr(),
-                                 N // 128, 128, rotate, None, 0, 0, 0, stream),
-              "qst_lane_panel")
+                                 wi.data_ptr(), wtc.data_ptr(), ore.data_ptr(),
+                                 oim.data_ptr(), N // 128, 128, rotate, None,
+                                 0, 0, 0, stream), "qst_lane_panel")
 
     def pos(lib, p):
         check(lib.qst_positioned_panel(
             re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-            ore.data_ptr(), oim.data_ptr(), N >> (7 + p), 128, 1 << p,
-            None, 0, 0, 0, stream), "qst_positioned_panel")
+            wtc.data_ptr(), ore.data_ptr(), oim.data_ptr(), N >> (7 + p),
+            128, 1 << p, None, 0, 0, 0, stream), "qst_positioned_panel")
 
     def dual(lib):
         check(lib.qst_dual_panel(
@@ -138,10 +130,11 @@ def main() -> int:
         torch.cuda.synchronize()
         err2 = l2(want2)
         t = {"lane": ms(lambda: lane(lib)), "rotate": ms(lambda: lane(lib, 1)),
-             "pos21": ms(lambda: pos(lib, 21)), "pos11": ms(lambda: pos(lib, 11)),
-             "dual": ms(lambda: dual(lib))}
+             "pos14": ms(lambda: pos(lib, 14)), "pos21": ms(lambda: pos(lib, 21)),
+             "pos11": ms(lambda: pos(lib, 11)), "dual": ms(lambda: dual(lib))}
         print(f"variant {name:8s} l2_vs_f64={err:.3e} dual_l2_vs_f64={err2:.3e} "
               + " ".join(f"{k}_ms={v:.3f}" for k, v in t.items()), flush=True)
+    print(f"mma.sync panel core's floor (lean, PR 6, quoted) ms={LEAN_MS}")
     xl = torch.complex(re, im).view(-1, 128)
     Wt = torch.as_tensor(W, dtype=torch.complex64, device=dev).T.contiguous()
     print(f"library x @ W.T ms={ms(lambda: xl @ Wt):.3f}")

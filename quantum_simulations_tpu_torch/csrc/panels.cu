@@ -36,30 +36,55 @@
 // (1.28 ms at 3.35 TB/s) and does 2^28 x dim complex multiply-adds.
 //
 // Dim 128, lane_panel and positioned_panel: the tensor cores (namespace
-// tc).  They replace _panel_kernel (:93, with its rotated store :116-118)
-// and _positioned_row_kernel / _positioned_4d_kernel (:553, :605), which
-// ran the panel on the TPU's matrix unit at Precision.HIGHEST (:28-40).
-// The Hopper counterpart is split TF32: each float32 operand x becomes hi
-// = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x - hi), a real product is
-// a_hi b_hi + a_hi b_lo + a_lo b_hi (lo lo dropped).  Bound: the function
-// needs Gauss's three real products a complex multiply-add (the
-// reference's form), 2^28 x 128 x 3 x 3 x 2 = 6.2e14 TF32 flop, 1.25 ms at
-// 495 TFLOP/s, under the 1.28 ms of bytes: the pass is bound by bytes.
-// This kernel takes four real products, as the error budget of the
-// four-product form was fixed first (8.2e14 flop, 1.67 ms by its own
-// operations); Gauss's form (QST_TC_GAUSS below) held the error but was
-// slower on three of four shapes (panel_variants.py): more splits and
-// adds for fewer mma.
-// The design: mma.sync m16n8k8 (TF32 in, float32 accumulators), fragments
-// loaded by the threads from shared memory, so one routine serves the
-// lane layout (r, k) and the positioned (k, c); a persistent block per SM
-// (256 threads, 8 warps of 64 x 32 outputs, 128 accumulators a thread)
-// keeps W in shared memory in fragment order (128 KB, loaded once a
-// block, split as it is read) and streams each tile through a two-stage
-// cp.async ring in k-chunks of 32, so the next chunk (of this tile or the
-// next) loads while this one contracts; each k8 step's products go into
-// a fresh mma accumulator that a float32 add folds into the sum, because
-// the tensor cores truncate when they accumulate.
+// tc, panel_tc_kernel).  They replace _panel_kernel (:93, with its rotated
+// store :116-118) and _positioned_row_kernel / _positioned_4d_kernel
+// (:553, :605), which ran the panel on the TPU's matrix unit at
+// Precision.HIGHEST (:28-40).  The Hopper counterpart is split TF32: each
+// float32 operand x becomes hi = cvt.rna.tf32(x) and lo = cvt.rna.tf32(x -
+// hi), a real product is a_hi b_hi + a_hi b_lo + a_lo b_hi (lo lo
+// dropped), a complex multiply-add four real products, twelve TF32 ones.
+// Bound at n = 28: 2^28 x 16 B = 4.3 GB moved, 1.28 ms at 3.35 TB/s; the
+// four-product form's 2^28 x 128 x 12 x 2 = 8.2e14 TF32 flop take 1.67 ms
+// at 495 TFLOP/s (Gauss's nine would take 1.25), so the pass is bound by
+// its tensor-core operations, a little above its bytes.
+// Design: Hopper's warpgroup MMA (wgmma.mma_async m64n32k8 .tf32) in one
+// persistent block per SM of three warpgroups; blocks walk the tiles
+// blockIdx.x, + gridDim.x, ....
+// - W is split once per pass, on the host side (ops/panel_kernels.py
+//   tc_operand, kept with the schedule's operands): four planes, Re and Im
+//   of hi and lo, each laid out as wgmma's K-major B operand without
+//   swizzle (per k8 step, 16 groups of 8 rows i, each two 128-byte core
+//   matrices of 8 rows by 4 k).  The kernel never splits W.  Its hi planes
+//   stay resident in shared memory (128 KB, one bulk copy per block).
+// - Producer: one warp streams each tile through a four-stage ring, one
+//   k8 step a stage: the step's 128 x 8 slice of the tile (both planes) by
+//   cp.async, W's lo planes of the step (8 KB, from L2) by a bulk copy.
+//   An mbarrier per stage counts the arrivals and the bytes (full); the
+//   consumers release the stage on another (empty).  So the next tile
+//   loads while this one contracts, folds and stores.
+// - Consumers: two warpgroups, each owns 64 rows m of the tile's free axis
+//   (r for the lane panel, c for the positioned one) by all 128 outputs i:
+//   128 float32 sums a thread.  A step: each thread loads its A fragments
+//   of the stage (X as A from registers, m16 x k8 a warp) and splits them,
+//   then for each 32-wide slice of i issues the slice's twelve TF32
+//   products as wgmma into a fresh accumulator pair (re, im; scale-d 0 on
+//   the first product of each), and folds the previous slice's pair into
+//   the float32 sums by a rounded add while this one runs: two fresh pairs
+//   in ping-pong.  The tensor cores truncate when they accumulate (chained
+//   through all 96 products of an output, the error against float64 grew
+//   14-fold under mma.sync), so nothing passes through them beyond one k8
+//   step's six products.
+// - Operand layout: PTX takes .tf32 operands from shared memory K-major
+//   only.  W (i, k) row-major is K-major as B (n = i).  The positioned
+//   tile lies (k, c), M-major, so X goes in as A from registers in both
+//   layouts, read from the stage ([128 m][12] lane, [8 k][136] positioned:
+//   both conflict-free for the fragment pattern).  A ragged or misaligned
+//   tile (fewer than 128 valid rows or columns, planes not 16-byte
+//   aligned) is loaded by the producer element by element into the same
+//   layout, zero outside the view.
+// - Stores go from the accumulators: in the lane panel a warp writes 8
+//   rows of 8 consecutive i (float2), in the positioned and the rotated
+//   store 4 rows of 8 consecutive m: whole 32-byte sectors.
 //
 // dual_panel, both contractions on the tensor cores (namespace tc,
 // dual_tc_kernel: 9.4-9.7 ms at n = 28 on an H100 SXM, where the SIMT form
@@ -69,8 +94,9 @@
 // multiply-add by Gauss in split TF32, 2^28 x 128 x 36 = 1.24e15 TF32
 // flop, 2.50 ms at 495 TFLOP/s at n = 28, over the 1.28 ms of bytes: the
 // pass is bound by operations (6.19 ms in float32 on the SIMT units).
-// Design: the k8 step of the lane / positioned kernel (k8_mma, the same
-// split, four real products, fresh accumulator per step); a persistent
+// Design: mma.sync m16n8k8 on fragments loaded from shared memory (k8_mma:
+// the same split, four real products, each k8 step's products in a fresh
+// accumulator added to the float32 sum by a rounded add); a persistent
 // block per SM (256 threads) keeps the tile (d, l) resident in shared
 // memory (2 x 64 KB, unpadded, swizzled so that both fragment patterns and
 // the write-back are conflict-free) and streams both W's row-major through
@@ -97,7 +123,7 @@
 // rows are whole state rows of 128 lanes (lane panel, positioned pos >= 7,
 // dual) can apply the merged diagonal run that follows it to the tile
 // after its last contraction (and post-straddler), before the store:
-// phase.cuh's arithmetic, on the accumulators (tc::diag_acc: the lane and
+// phase.cuh's arithmetic, on the float32 sums (tc::diag_acc: the lane and
 // positioned panels) or on the tile written back (dual_panel, with the
 // freed W ring as scratch).  It adds no traffic.
 //
@@ -110,10 +136,14 @@
 // top of contract() orders every one of those loads before any thread
 // goes on, and the stores come after the last barrier; each shared-memory
 // store of the load loop consumes its global load, so no load is still in
-// flight when the slab is overwritten.  Tensor cores: the block stores a
-// tile only after the last cp.async group of that tile has landed
-// (wait_group) and been consumed behind a barrier; the groups still in
-// flight belong to its later tiles.
+// flight when the slab is overwritten.  panel_tc_kernel: the consumers
+// store a tile from their sums only after every ring stage of it has
+// landed (its full mbarrier) and been consumed (the wgmma groups that read
+// it waited for); the stages the producer fills meanwhile hold the block's
+// later tiles.  dual_tc_kernel: the block stores a tile only after the
+// last cp.async group of that tile has landed (wait_group) and been
+// consumed behind a barrier; the groups still in flight belong to its
+// later tiles.
 //
 // Each entry point launches on the given stream, allocates nothing and
 // returns cudaGetLastError(); the Python wrapper raises if that is not 0.
@@ -283,90 +313,28 @@ positioned_panel_kernel(typename qst::Io<float, ALIAS>::In re,
   }
 }
 
-// ---- Dim 128 on the tensor cores: lane_panel and positioned_panel. ----
+// ---- Dim 128 on the tensor cores. ----
 //
-// Each tile is one complex GEMM with the output in the input's layout:
-// out(r, i) = sum_k X(r, k) W(i, k) for the lane panel, out(c, i) = sum_k
-// X(k, c) W(i, k) for the positioned one.  A ring stage holds k-chunk of
-// the tile: [128 r][PL] (lane) or [KC k][PP] (positioned).  The pitches
-// keep the fragment loads conflict-free: lane (g, t) of a warp reads g *
-// PL + t (PL = 36 = 4 mod 32) or t * PP + g (PP = 136 = 8 mod 32).
-//
-// Measurement variants, each one change to this routine, built only by
+// Measurement variants of the dual's k8 step, built only by
 // panel_variants.py (-D<name>=1; the package's build sets none):
-// QST_TC_NOSTORE skips the tile stores, QST_TC_CHAINED chains every
-// product of an output through the tensor cores' accumulator,
-// QST_TC_NOSPLIT replaces the split by a bit copy (lo = 0, wrong digits),
 // QST_TC_GAUSS takes Gauss's three real products (nine TF32 products a
 // complex multiply-add instead of twelve), QST_TC_DUAL_UNROLL = 2 or 4
 // unrolls the dual kernel's four k8 steps a chunk by that factor (the
-// package keeps them a loop, 1),
-// QST_TC_KS_LOOP runs the lane / positioned kernel's four as a loop (the
-// package unrolls them).
-#ifndef QST_TC_NOSTORE
-#define QST_TC_NOSTORE 0
-#endif
-#ifndef QST_TC_CHAINED
-#define QST_TC_CHAINED 0
-#endif
-#ifndef QST_TC_NOSPLIT
-#define QST_TC_NOSPLIT 0
-#endif
+// package keeps them a loop, 1).
 #ifndef QST_TC_GAUSS
 #define QST_TC_GAUSS 0
 #endif
 #ifndef QST_TC_DUAL_UNROLL
 #define QST_TC_DUAL_UNROLL 1
 #endif
-#ifndef QST_TC_KS_LOOP
-#define QST_TC_KS_LOOP 0
-#endif
 
 namespace tc {
-
-constexpr int NT = 256;              // 8 warps: 2 along m (64 each), 4 along n (32)
-constexpr int KC = 32;               // k per ring stage
-constexpr int STAGES = 2;
-constexpr int NCHUNK = TILE / KC;
-constexpr int PL = KC + 4;           // lane stage: [128 m][KC k]
-constexpr int PP = TILE + 8;         // positioned stage: [KC k][128 c]
-constexpr int PLANE = TILE * PL > KC * PP ? TILE * PL : KC * PP;
-constexpr int STAGE = 2 * PLANE;     // floats: re plane, im plane
-constexpr int W_FLOATS = 2 * TILE * TILE;
-constexpr int GC = 16;               // diag groups whose row angles are staged at once
-constexpr int SCRATCH = GC * TILE + GC;
-constexpr size_t SMEM = sizeof(float) * (W_FLOATS + STAGES * STAGE + SCRATCH);
-static_assert(SMEM <= 232448, "one block's shared memory on sm_90");
 
 // hi = x rounded to TF32 (nearest, ties away), lo = (x - hi) rounded the
 // same way; x - hi is exact in float32.
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-#if QST_TC_NOSPLIT
-  hi = __float_as_uint(x);
-  lo = 0u;
-#else
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(x));
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
-#endif
-}
-
-// d += a b on one m16n8k8 tile, TF32 inputs, float32 accumulation.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d = a b (a zero accumulator).
-__device__ __forceinline__ void mma0(float (&d)[4], const uint32_t (&a)[4],
-                                     const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f));
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
@@ -403,43 +371,521 @@ __device__ __forceinline__ Tile tile_at(long long t, long long ext,
   }
 }
 
-// Chunk `ch` (k in [ch * KC, ch * KC + KC)) of a tile into a ring stage.
-// A full tile on 16-byte aligned planes goes by cp.async (the caller
-// commits the group); a ragged or misaligned one by plain loads, zero
-// outside the view.
+// ---- lane_panel / positioned_panel: warpgroup MMA (see the head note).
+constexpr int PT = 384;              // threads: producer warpgroup, 2 consumer ones
+constexpr int CT = 256;              // consumer threads
+constexpr int PSTAGES = 4;           // ring stages, one k8 step each
+constexpr int KSTEPS = TILE / 8;     // k8 steps a tile
+constexpr int XL = 12;               // lane stage [128 m][XL]: rows 12 apart (mod 32)
+constexpr int XP = TILE + 8;         // positioned stage [8 k][XP]: rows 8 apart
+constexpr int XPLANE = TILE * XL;    // floats of one X plane of a stage (>= 8 * XP)
+constexpr int WPLANE = TILE * TILE;  // floats of one plane of the split W
+constexpr int WSTEP = TILE * 8;      // floats of one k8 step of a plane
+constexpr int PSTAGE = 2 * WSTEP + 2 * XPLANE;  // Re / Im W lo, then Re / Im X
+constexpr int GC = 16;               // diag groups whose row angles are staged at once
+constexpr int SCRATCH = GC * TILE + GC;
+constexpr int FULL_ARRIVALS = 33;    // the producer's 32 lanes + its expect_tx
+constexpr size_t PANEL_SMEM =
+    sizeof(float) * (2 * WPLANE + PSTAGES * PSTAGE + SCRATCH) +
+    sizeof(uint64_t) * (2 * PSTAGES + 1);  // 221,320 B
+static_assert(8 * XP <= XPLANE, "the positioned stage fits the lane one");
+static_assert((sizeof(float) * (2 * WPLANE + PSTAGES * PSTAGE + SCRATCH)) % 8 == 0,
+              "the mbarriers are 8-byte aligned");
+static_assert(PANEL_SMEM <= 232448, "one block's shared memory on sm_90");
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mb_init(uint32_t b, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(b), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mb_arrive(uint32_t b) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(b) : "memory");
+}
+// Arrive and expect `bytes` more of asynchronous copies in this phase.
+__device__ __forceinline__ void mb_expect(uint32_t b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(b),
+               "r"(bytes)
+               : "memory");
+}
+// Arrive when this thread's cp.async copies so far have landed (counted
+// among the barrier's expected arrivals).
+__device__ __forceinline__ void mb_arrive_cp_async(uint32_t b) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(b)
+               : "memory");
+}
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mb_wait(uint32_t b, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// `bytes` (a multiple of 16) from global to shared memory, counted on b.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const float* src,
+                                          uint32_t bytes, uint32_t b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(b)
+      : "memory");
+}
+// The 256 consumer threads' own barrier (the producer never joins it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;" ::: "memory");
+}
+
+// wgmma's K-major B operand without swizzle at shared address `s`: core
+// matrices of 8 rows by 16 bytes, the two k halves of a k8 step 128 bytes
+// apart (leading byte offset), groups of 8 rows 256 bytes apart (stride
+// byte offset).
+__device__ __forceinline__ uint64_t bdesc(uint32_t s) {
+  return (uint64_t)((s & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+// Descriptor units (16 bytes) of the operand offsets used below.
+constexpr uint64_t D_SLICE = 32 * 8 * 4 / 16;     // 32 rows i: the next slice
+constexpr uint64_t D_STEP = WSTEP * 4 / 16;       // one k8 step of a plane
+constexpr uint64_t D_WPLANE = WPLANE * 4 / 16;    // Re hi -> Im hi
+constexpr uint64_t D_LOPLANE = WSTEP * 4 / 16;    // Re lo -> Im lo in a stage
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving accesses of d across a wgmma wait.
+__device__ __forceinline__ void pin(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d = (ACC ? d : 0) + SA * a b on m64n32k8: a the warpgroup's A fragments
+// (TF32, 64 x 8), b the 8 x 32 B operand at descriptor `b`, SA = +1 or -1.
+// Accumulator element 4 j + c: row g (+ 8 for c >= 2), column 8 j + 2 t
+// + (c & 1) of the warp's 16 rows.
+template <int SA, int ACC>
+__device__ __forceinline__ void wgmma(float (&d)[16], const uint32_t (&a)[4],
+                                      uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, %22, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(ACC),
+        "n"(SA));
+}
+
+// The A fragments of one k8 step, split: hi / lo of Re X and Im X.
+struct XFrag {
+  uint32_t rh[4], rl[4], ih[4], il[4];
+};
+
+// A fresh accumulator pair (re, im) of one 32-wide slice of i.
+typedef float Pair[2][16];
+
+// Slice Q of one k8 step into the fresh pair p: re = Xr Wr - Xi Wi, im =
+// Xr Wi + Xi Wr, each real product lo hi and hi lo first, then hi hi.
+// hi: descriptor of the step's Re W hi (Im W hi D_WPLANE on), lo: of the
+// stage's Re W lo (Im W lo D_LOPLANE on).
+template <int Q>
+__device__ __forceinline__ void slice_mma(Pair& p, const XFrag& x, uint64_t hi,
+                                          uint64_t lo) {
+  const uint64_t hr = hi + Q * D_SLICE, hm = hr + D_WPLANE;
+  const uint64_t lr = lo + Q * D_SLICE, lm = lr + D_LOPLANE;
+  wg_fence();
+  wgmma<1, 0>(p[0], x.rl, hr);
+  wgmma<1, 1>(p[0], x.rh, lr);
+  wgmma<-1, 1>(p[0], x.il, hm);
+  wgmma<-1, 1>(p[0], x.ih, lm);
+  wgmma<1, 1>(p[0], x.rh, hr);
+  wgmma<-1, 1>(p[0], x.ih, hm);
+  wgmma<1, 0>(p[1], x.rl, hm);
+  wgmma<1, 1>(p[1], x.rh, lm);
+  wgmma<1, 1>(p[1], x.il, hr);
+  wgmma<1, 1>(p[1], x.ih, lr);
+  wgmma<1, 1>(p[1], x.rh, hm);
+  wgmma<1, 1>(p[1], x.ih, hr);
+  wg_commit();
+}
+
+// The float32 sums of a consumer thread: acc[j][re / im][c], n8 block j
+// of i, accumulator element c (row g + 8 (c >> 1), column 8 j + 2 t +
+// (c & 1) of the warp's 16 rows m).
+typedef float Sums[16][2][4];
+
+// acc's slice Q += the finished pair p (after a wait for its group).
+template <int Q>
+__device__ __forceinline__ void fold(Sums& acc, Pair& p) {
+  pin(p[0]);
+  pin(p[1]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc[4 * Q + j][0][c] += p[0][4 * j + c];
+      acc[4 * Q + j][1][c] += p[1][4 * j + c];
+    }
+}
+
+// k8 step k0 / 8 of a tile into the stage's X planes xs (Re, then Im
+// XPLANE on): [m][XL] (lane) or [k][XP] (positioned).  A full tile on
+// 16-byte aligned planes goes by cp.async, 16 a lane (the caller arrives
+// on the stage's barrier when they land); a ragged or misaligned one by
+// plain loads, zero outside the view.  The producer warp's 32 lanes call
+// it.
 template <bool POS, typename In>
-__device__ __forceinline__ void load_chunk(In re, In im, const Tile& tl,
-                                           long long C, int ch, float* st,
-                                           bool fast) {
-  const int k0 = ch * KC;
+__device__ __forceinline__ void load_x(In re, In im, const Tile& tl,
+                                       long long C, int k0, float* xs,
+                                       bool fast, int lane) {
   if (fast) {
-    constexpr int PER_PLANE = POS ? KC * (TILE / 4) : TILE * (KC / 4);
-    for (int e = threadIdx.x; e < 2 * PER_PLANE; e += NT) {
-      const int p = e / PER_PLANE, r = e % PER_PLANE;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int e = lane + 32 * i;  // 16-byte pieces: 256 a plane
+      const int p = e >> 8, r = e & 255;
       const float* src = p ? im : re;
-      float* dst = st + p * PLANE;
+      float* dst = xs + p * XPLANE;
       if constexpr (POS) {
-        const int k = r / (TILE / 4), q = r % (TILE / 4);
-        cp_async16(dst + k * PP + 4 * q, src + tl.base + (k0 + k) * C + 4 * q);
+        const int k = r >> 5, q = r & 31;
+        cp_async16(dst + k * XP + 4 * q, src + tl.base + (k0 + k) * C + 4 * q);
       } else {
-        const int m = r / (KC / 4), q = r % (KC / 4);
-        cp_async16(dst + m * PL + 4 * q, src + tl.base + m * TILE + k0 + 4 * q);
+        const int m = r >> 1, h = r & 1;
+        cp_async16(dst + m * XL + 4 * h, src + tl.base + m * TILE + k0 + 4 * h);
       }
     }
   } else {
-    for (int e = threadIdx.x; e < 2 * TILE * KC; e += NT) {
-      const int p = e / (TILE * KC), r = e % (TILE * KC);
+    for (int e = lane; e < 2 * TILE * 8; e += 32) {
+      const int p = e / (TILE * 8), r = e % (TILE * 8);
       const float* src = p ? im : re;
-      float* dst = st + p * PLANE;
+      float* dst = xs + p * XPLANE;
       if constexpr (POS) {
         const int k = r / TILE, c = r % TILE;
-        dst[k * PP + c] = c < tl.nv ? src[tl.base + (k0 + k) * C + c] : 0.f;
+        dst[k * XP + c] = c < tl.nv ? src[tl.base + (k0 + k) * C + c] : 0.f;
       } else {
-        const int m = r / KC, kk = r % KC;
-        dst[m * PL + kk] = m < tl.nv ? src[tl.base + m * TILE + k0 + kk] : 0.f;
+        const int m = r / 8, kk = r % 8;
+        dst[m * XL + kk] = m < tl.nv ? src[tl.base + m * TILE + k0 + kk] : 0.f;
       }
     }
   }
+}
+
+// The diag epilogue on the sums (phase.cuh's arithmetic).  Element (m, n)
+// of the tile (m = mb + g + 8 (c >> 1), n = 8 j + 2 t + (c & 1)) lies in
+// state row row0 + R * row_step at lane L: the positioned panel's (c = m,
+// i = n) at L = m, R = n; the lane panel's (r = m, i = n) at L = n, R = m.
+// Each group's row angle is computed once per tile row into shared
+// scratch, GC groups at a time; a thread sums half of its elements at a
+// time to keep its registers for the sums.  Every consumer thread calls
+// it.  Inlined, so that the kernel holds no call beside its wgmma.
+template <bool POS>
+__device__ __forceinline__ void diag_acc(const qst::Phase& ph, unsigned long long row0,
+                         unsigned long long row_step, uint32_t* scratch,
+                         Sums& acc, int mb, int lane, int ctid) {
+  const uint32_t* lmask = ph.words + qst::PHASE_LANES;
+  const uint32_t* start = lmask + ph.G;
+  const uint32_t* rmask = start + ph.G + 1;
+  const uint32_t* coeff = rmask + ph.T;
+  uint32_t* th = scratch;               // [GC][TILE]
+  uint32_t* lm = scratch + GC * TILE;
+  const int g = lane >> 2, t = lane & 3;
+  auto lane_of = [&](int j, int c) {
+    return POS ? mb + g + 8 * (c >> 1) : 8 * j + 2 * t + (c & 1);
+  };
+  auto row_of = [&](int j, int c) {
+    return POS ? 8 * j + 2 * t + (c & 1) : mb + g + 8 * (c >> 1);
+  };
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t ang[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) ang[j][c] = __ldg(ph.words + lane_of(8 * h + j, c));
+    for (int g0 = 0; g0 < ph.G; g0 += GC) {
+      const int gc = min(GC, ph.G - g0);
+      consumers_sync();  // the previous chunk is consumed
+      for (int e = ctid; e < gc * TILE; e += CT) {
+        const int gi = g0 + e / TILE;
+        const uint32_t row =
+            (uint32_t)(row0 + (unsigned long long)(e % TILE) * row_step);
+        uint32_t a = 0;
+        const int k1 = __ldg(start + gi + 1);
+        for (int k = __ldg(start + gi); k < k1; ++k) {
+          const uint32_t msk = __ldg(rmask + k);
+          a += (row & msk) == msk ? __ldg(coeff + k) : 0u;
+        }
+        th[e] = a;
+      }
+      for (int e = ctid; e < gc; e += CT) lm[e] = __ldg(lmask + g0 + e);
+      consumers_sync();
+      for (int gi = 0; gi < gc; ++gi) {
+        const uint32_t msk = lm[gi];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (((uint32_t)lane_of(8 * h + j, c) & msk) == msk)
+              ang[j][c] += th[gi * TILE + row_of(8 * h + j, c)];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        qst::phase_rotate(acc[8 * h + j][0][c], acc[8 * h + j][1][c], ang[j][c]);
+  }
+}
+
+// One persistent block per SM: warp 0 produces, warps 4..11 (two
+// warpgroups) consume; see the head note.  Job j (the block's k8 steps in
+// order, tile after tile) fills ring stage j % PSTAGES in round
+// j / PSTAGES.  In place (ALIAS) it is hazard-free: a block touches only
+// its own tiles, and the consumers store a tile from their sums only
+// after every stage of that tile has landed (its full barrier) and been
+// consumed (the wgmma groups reading it waited for); the stages the
+// producer fills meanwhile hold the block's later tiles.
+template <bool POS, bool ALIAS, bool ROTATE>
+__global__ void __launch_bounds__(PT, 1)
+panel_tc_kernel(typename qst::Io<float, ALIAS>::In re,
+                typename qst::Io<float, ALIAS>::In im,
+                const float* __restrict__ wtc,
+                typename qst::Io<float, ALIAS>::Out ore,
+                typename qst::Io<float, ALIAS>::Out oim, long long ntiles,
+                long long ext, long long tpa, int vec, qst::Phase ph) {
+  static_assert(!(ROTATE && (ALIAS || POS)), "the rotated store: lane panel, out of place");
+  extern __shared__ float4 tc_smem[];
+  float* const whi = reinterpret_cast<float*>(tc_smem);  // Re W hi, Im W hi
+  float* const ring = whi + 2 * WPLANE;
+  uint32_t* const scratch = reinterpret_cast<uint32_t*>(ring + PSTAGES * PSTAGE);
+  const uint32_t bars = saddr(scratch + SCRATCH);
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (PSTAGES + s); };
+  const uint32_t wbar = bars + 8 * (2 * PSTAGES);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long mine = (long long)blockIdx.x < ntiles
+      ? (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PSTAGES; ++s) {
+      mb_init(full(s), FULL_ARRIVALS);
+      mb_init(empty(s), CT);
+    }
+    mb_init(wbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp < 4) {  // the producer warpgroup: warp 0 loads, 1..3 leave
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (warp != 0 || mine == 0) return;
+    if (lane == 0) {
+      mb_expect(wbar, 2 * WPLANE * sizeof(float));
+      bulk_load(saddr(whi), wtc, WPLANE * sizeof(float), wbar);
+      bulk_load(saddr(whi + WPLANE), wtc + WPLANE, WPLANE * sizeof(float), wbar);
+    }
+    long long job = 0;
+#pragma unroll 1
+    for (long long i = 0; i < mine; ++i) {
+      const Tile tl = tile_at<POS>(blockIdx.x + i * gridDim.x, ext, tpa);
+      const bool fast = vec && tl.nv == TILE;
+#pragma unroll 1
+      for (int s = 0; s < KSTEPS; ++s, ++job) {
+        const int st = (int)(job % PSTAGES);
+        mb_wait(empty(st), ((uint32_t)(job / PSTAGES) & 1) ^ 1);
+        float* const stage = ring + st * PSTAGE;
+        if (lane == 0) {
+          mb_expect(full(st), 2 * WSTEP * sizeof(float));
+          bulk_load(saddr(stage), wtc + 2 * WPLANE + s * WSTEP,
+                    WSTEP * sizeof(float), full(st));
+          bulk_load(saddr(stage + WSTEP), wtc + 3 * WPLANE + s * WSTEP,
+                    WSTEP * sizeof(float), full(st));
+        }
+        load_x<POS>(re, im, tl, ext, 8 * s, stage + 2 * WSTEP, fast, lane);
+        if (fast)
+          mb_arrive_cp_async(full(st));
+        else
+          mb_arrive(full(st));
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+
+  // The consumers.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  if (mine == 0) return;
+  const int ctid = threadIdx.x - 128;
+  const int mb = 16 * (warp - 4);  // the warp's first row m of the tile
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t whi_s = saddr(whi), ring_s = saddr(ring);
+  Sums acc;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][0][c] = acc[j][1][c] = 0.f;
+  Pair p0, p1;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) p0[0][c] = p0[1][c] = p1[0][c] = p1[1][c] = 0.f;
+  mb_wait(wbar, 0);
+
+  long long job = 0;
+#pragma unroll 1
+  for (long long i = 0; i < mine; ++i) {
+    const Tile tl = tile_at<POS>(blockIdx.x + i * gridDim.x, ext, tpa);
+    int prev = 0;
+#pragma unroll 1
+    for (int s = 0; s < KSTEPS; ++s, ++job) {
+      const int st = (int)(job % PSTAGES);
+      // The step's A fragments, a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+      // a3 (g + 8, t + 4), Re then Im, read while the previous step's last
+      // slice still runs.
+      mb_wait(full(st), (uint32_t)(job / PSTAGES) & 1);
+      const float* xs = ring + st * PSTAGE + 2 * WSTEP;
+      float xf[8];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int m = mb + g + 8 * (q & 1), k = t + 4 * (q >> 1);
+        const int o = POS ? k * XP + m : m * XL + k;
+        xf[q] = xs[o];
+        xf[4 + q] = xs[XPLANE + o];
+      }
+      // That slice is done: its stage is free, its A registers may be
+      // overwritten.  The wait is unconditional, so ptxas sees p1
+      // complete on every path to its fold below and does not serialize
+      // the wgmma.
+      wg_wait<0>();
+      if (s > 0) mb_arrive(empty(prev));
+      XFrag x;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        split(xf[q], x.rh[q], x.rl[q]);
+        split(xf[4 + q], x.ih[q], x.il[q]);
+      }
+      const uint64_t hi = bdesc(whi_s) + s * D_STEP;
+      const uint64_t lo = bdesc(ring_s + st * PSTAGE * (int)sizeof(float));
+      slice_mma<0>(p0, x, hi, lo);
+      if (s > 0) fold<3>(acc, p1);
+      slice_mma<1>(p1, x, hi, lo);
+      wg_wait<1>();
+      fold<0>(acc, p0);
+      slice_mma<2>(p0, x, hi, lo);
+      wg_wait<1>();
+      fold<1>(acc, p1);
+      slice_mma<3>(p1, x, hi, lo);
+      wg_wait<1>();
+      fold<2>(acc, p0);
+      prev = st;
+    }
+    wg_wait<0>();
+    mb_arrive(empty(prev));
+    fold<3>(acc, p1);
+
+    if constexpr (!ROTATE) {
+      if (ph.words != nullptr)
+        diag_acc<POS>(ph, POS ? tl.base / TILE : tl.row0, POS ? ext / TILE : 1,
+                      scratch, acc, mb, lane, ctid);
+    }
+    // Stores from the sums: element (m, n) goes to base + m * 128 + n (the
+    // lane panel's (r, i)), or to o0 + n * ext + m (the positioned panel's
+    // (c, i), the rotated store's out[i * R + r]).
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = mb + g + 8 * h, n = 8 * j + 2 * t;
+        if (m < tl.nv) {
+          const float r0 = acc[j][0][2 * h], r1 = acc[j][0][2 * h + 1];
+          const float i0 = acc[j][1][2 * h], i1 = acc[j][1][2 * h + 1];
+          if constexpr (POS || ROTATE) {
+            const long long o = (POS ? tl.base : tl.row0) + n * ext + m;
+            ore[o] = r0;
+            oim[o] = i0;
+            ore[o + ext] = r1;
+            oim[o + ext] = i1;
+          } else {
+            const long long o = tl.base + m * TILE + n;
+            if (vec) {
+              *reinterpret_cast<float2*>(ore + o) = make_float2(r0, r1);
+              *reinterpret_cast<float2*>(oim + o) = make_float2(i0, i1);
+            } else {
+              ore[o] = r0;
+              ore[o + 1] = r1;
+              oim[o] = i0;
+              oim[o + 1] = i1;
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 2 * h; c < 2 * h + 2; ++c) acc[j][0][c] = acc[j][1][c] = 0.f;
+      }
+  }
+}
+
+template <bool POS, bool ALIAS, bool ROTATE>
+cudaError_t launch(const float* re, const float* im, const float* wtc,
+                   float* ore, float* oim, long long ntiles, long long ext,
+                   long long tpa, const qst::Phase& ph, int device,
+                   cudaStream_t st) {
+  // The split operand is read by bulk copies: 16-byte aligned.
+  if (wtc == nullptr || (reinterpret_cast<uintptr_t>(wtc) & 15) != 0)
+    return cudaErrorInvalidValue;
+  auto kernel = panel_tc_kernel<POS, ALIAS, ROTATE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)PANEL_SMEM);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  // cp.async moves 16 bytes, the lane panel's stores 8: the planes must
+  // start on a 16-byte boundary.
+  const int vec = ((reinterpret_cast<uintptr_t>(re) | reinterpret_cast<uintptr_t>(im) |
+                    reinterpret_cast<uintptr_t>(ore) | reinterpret_cast<uintptr_t>(oim)) &
+                   15) == 0;
+  const long long grid = ntiles < sms ? ntiles : sms;
+  kernel<<<(unsigned)grid, PT, PANEL_SMEM, st>>>(re, im, wtc, ore, oim, ntiles,
+                                                 ext, tpa, vec, ph);
+  return cudaGetLastError();
+}
+
+// ---- The dual's k8 step: mma.sync m16n8k8, fragments from shared memory.
+constexpr int NT = 256;              // 8 warps: 2 along m (64 each), 4 along n (32)
+constexpr int KC = 32;               // k per ring stage
+constexpr int STAGES = 2;
+constexpr int NCHUNK = TILE / KC;
+
+// d += a b on one m16n8k8 tile, TF32 inputs, float32 accumulation.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d = a b (a zero accumulator).
+__device__ __forceinline__ void mma0(float (&d)[4], const uint32_t (&a)[4],
+                                     const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
 }
 
 // The warp's 64 x 32 block of the tile: acc[mi][nj][re / im][c], fragment
@@ -449,48 +895,34 @@ typedef float Acc[4][4][2][4];
 // acc[mi][nj] += the complex product of one k8 step: re = Ar Br + An Bi,
 // im = Ar Bi + Ai Br, with An = -Ai, each real product three TF32 products
 // (lo hi and hi lo first, then hi hi).  The tensor cores add into their
-// accumulator by truncation, which biases a long sum toward zero (chained
-// through all 96 products of an output, panel_variants.py's "chained",
-// the error against float64 grows 14-fold).  So the step's
-// six products of a part go into a fresh accumulator and its sum is added
-// to acc by a float32 add, rounded to nearest: at most two truncations
-// touch each hi product.
+// accumulator by truncation, which biases a long sum toward zero.  So the
+// step's six products of a part go into a fresh accumulator and its sum is
+// added to acc by a float32 add, rounded to nearest: at most two
+// truncations touch each hi product.
 __device__ __forceinline__ void cmma(float (&dr)[4], float (&di)[4],
                                      const uint32_t (&arh)[4], const uint32_t (&arl)[4],
                                      const uint32_t (&aih)[4], const uint32_t (&ail)[4],
                                      const uint32_t (&anh)[4], const uint32_t (&anl)[4],
                                      const uint32_t (&brh)[2], const uint32_t (&brl)[2],
                                      const uint32_t (&bih)[2], const uint32_t (&bil)[2]) {
-#if QST_TC_CHAINED
-  float (&tr)[4] = dr;
-  float (&ti)[4] = di;
-  mma(tr, arl, brh);
-#else
   float tr[4], ti[4];
   mma0(tr, arl, brh);
-#endif
   mma(tr, arh, brl);
   mma(tr, anl, bih);
   mma(tr, anh, bil);
   mma(tr, arh, brh);
   mma(tr, anh, bih);
-#if QST_TC_CHAINED
-  mma(ti, arl, bih);
-#else
   mma0(ti, arl, bih);
-#endif
   mma(ti, arh, bil);
   mma(ti, ail, brh);
   mma(ti, aih, brl);
   mma(ti, arh, bih);
   mma(ti, aih, brh);
-#if !QST_TC_CHAINED
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     dr[c] += tr[c];
     di[c] += ti[c];
   }
-#endif
 }
 
 // The QST_TC_GAUSS variant's step: for P the A side and Q the B side, k1 =
@@ -521,8 +953,8 @@ __device__ __forceinline__ void gauss_mma(float (&dr)[4], float (&di)[4],
   }
 }
 
-// acc += one k8 step of the warp's 64 x 32 block, the step both kernels
-// share (lane / positioned and dual).  load_b(nj, br, bi) gives the B
+// acc += one k8 step of the warp's 64 x 32 block (the dual's contractions).
+// load_b(nj, br, bi) gives the B
 // fragment of n8 tile nj: b0 (k = t, n = g), b1 (k = t + 4, n = g);
 // load_a(mi, ar, ai) the A fragment of m16 tile mi: a0 (m = g, k = t), a1
 // (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4); each as re / im planes.
@@ -576,253 +1008,12 @@ __device__ __forceinline__ void k8_mma(LoadA load_a, LoadB load_b, Acc& acc) {
   }
 }
 
-// acc += the chunk's products.  W lies in shared memory in fragment order:
-// for k8 step s and n8 tile j, lane l's float4 is (Re W b0, Re W b1, Im W
-// b0, Im W b1) of B-fragment (s, j): W[8j + g][8s + t] and [8j + g][8s +
-// t + 4].  XA (the positioned panel, the rotated lane panel): X is A (m =
-// the free axis), W is B (n = i).  WA (the lane panel): W is A (m = i; the
-// A fragment of m16 tile mi is the b0 / b1 pair of n8 tiles 2mi, 2mi + 1),
-// X is B (n = r), so the accumulators of a row r hold 8 consecutive i and
-// the store writes whole 32-byte sectors of 4 rows.
-template <bool POS, bool WA>
-__device__ __forceinline__ void chunk_mma(const float* st, const float4* w4,
-                                          int ch, Acc& acc, int wm, int wn,
-                                          int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const float* sr = st;
-  const float* si = st + PLANE;
-#if QST_TC_KS_LOOP
-#pragma unroll 1
-#else
-#pragma unroll
-#endif
-  for (int ks = 0; ks < KC / 8; ++ks) {
-    const int s = ch * (KC / 8) + ks;
-    k8_mma(
-        [&](int mi, float (&ar)[4], float (&ai)[4]) {
-          if constexpr (WA) {
-            const int j = wm * 8 + mi * 2;
-            const float4 w0 = w4[(s * (TILE / 8) + j) * 32 + lane];
-            const float4 w1 = w4[(s * (TILE / 8) + j + 1) * 32 + lane];
-            ar[0] = w0.x, ar[1] = w1.x, ar[2] = w0.y, ar[3] = w1.y;
-            ai[0] = w0.z, ai[1] = w1.z, ai[2] = w0.w, ai[3] = w1.w;
-          } else {
-#pragma unroll
-            for (int q = 0; q < 4; ++q) {
-              const int m = wm * 64 + mi * 16 + g + 8 * (q & 1);
-              const int k = ks * 8 + t + 4 * (q >> 1);
-              const int o = POS ? k * PP + m : m * PL + k;
-              ar[q] = sr[o];
-              ai[q] = si[o];
-            }
-          }
-        },
-        [&](int nj, float (&br)[2], float (&bi)[2]) {
-          if constexpr (WA) {  // X(r, k) with r = n: lane stage [r][k]
-#pragma unroll
-            for (int q = 0; q < 2; ++q) {
-              const int o = (wn * 32 + nj * 8 + g) * PL + ks * 8 + t + 4 * q;
-              br[q] = sr[o];
-              bi[q] = si[o];
-            }
-          } else {
-            const float4 w = w4[(s * (TILE / 8) + wn * 4 + nj) * 32 + lane];
-            br[0] = w.x, br[1] = w.y, bi[0] = w.z, bi[1] = w.w;
-          }
-        },
-        acc);
-  }
-}
-
 // Tile element (m, n) of fragment (mi, nj, c).
 __device__ __forceinline__ int frag_m(int wm, int mi, int c, int lane) {
   return wm * 64 + mi * 16 + (lane >> 2) + 8 * (c >> 1);
 }
 __device__ __forceinline__ int frag_n(int wn, int nj, int c, int lane) {
   return wn * 32 + nj * 8 + 2 * (lane & 3) + (c & 1);
-}
-
-// The diag epilogue on the accumulators (phase.cuh's arithmetic).  With a
-// diag run, tile element (m, n) lies in state row row0 + n * row_step at
-// lane m: the positioned panel's (c, i) and the lane panel's (i, r).  Each
-// group's row angle is computed once per tile row into shared scratch, GC
-// groups at a time; a thread sums its 32 elements of one half (mi pair)
-// at a time to keep its registers for the accumulators.
-__device__ void diag_acc(const qst::Phase& ph, unsigned long long row0,
-                         unsigned long long row_step, uint32_t* scratch,
-                         Acc& acc, int wm, int wn, int lane) {
-  const uint32_t* lmask = ph.words + qst::PHASE_LANES;
-  const uint32_t* start = lmask + ph.G;
-  const uint32_t* rmask = start + ph.G + 1;
-  const uint32_t* coeff = rmask + ph.T;
-  uint32_t* th = scratch;               // [GC][TILE]
-  uint32_t* lm = scratch + GC * TILE;
-#pragma unroll
-  for (int hm = 0; hm < 2; ++hm) {
-    uint32_t ang[2][4][4];
-#pragma unroll
-    for (int li = 0; li < 2; ++li)
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          ang[li][nj][c] = __ldg(ph.words + frag_m(wm, 2 * hm + li, c, lane));
-    for (int g0 = 0; g0 < ph.G; g0 += GC) {
-      const int gc = min(GC, ph.G - g0);
-      __syncthreads();  // the previous chunk is consumed
-      for (int e = threadIdx.x; e < gc * TILE; e += NT) {
-        const int gi = g0 + e / TILE;
-        const uint32_t row =
-            (uint32_t)(row0 + (unsigned long long)(e % TILE) * row_step);
-        uint32_t a = 0;
-        const int k1 = __ldg(start + gi + 1);
-        for (int k = __ldg(start + gi); k < k1; ++k) {
-          const uint32_t msk = __ldg(rmask + k);
-          a += (row & msk) == msk ? __ldg(coeff + k) : 0u;
-        }
-        th[e] = a;
-      }
-      for (int e = threadIdx.x; e < gc; e += NT) lm[e] = __ldg(lmask + g0 + e);
-      __syncthreads();
-      for (int gi = 0; gi < gc; ++gi) {
-        const uint32_t msk = lm[gi];
-#pragma unroll
-        for (int li = 0; li < 2; ++li)
-#pragma unroll
-          for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const uint32_t m = frag_m(wm, 2 * hm + li, c, lane);
-              if ((m & msk) == msk)
-                ang[li][nj][c] += th[gi * TILE + frag_n(wn, nj, c, lane)];
-            }
-      }
-    }
-#pragma unroll
-    for (int li = 0; li < 2; ++li)
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          qst::phase_rotate(acc[2 * hm + li][nj][0][c], acc[2 * hm + li][nj][1][c],
-                            ang[li][nj][c]);
-  }
-}
-
-// A persistent block per SM walks tiles blockIdx.x, + gridDim.x, ...; its
-// jobs are (tile, k-chunk) pairs, loaded STAGES - 1 jobs ahead through the
-// ring, so the next tile loads while this one contracts and stores.  W is
-// loaded once per block.  In place (ALIAS) it is hazard-free: a block
-// touches only its own tiles, and it stores a tile after the last chunk of
-// that tile has landed (cp.async.wait_group) and been consumed; the
-// chunks in flight then belong to its later tiles.
-template <bool POS, bool ALIAS, bool ROTATE>
-__global__ void __launch_bounds__(NT, 1)
-panel_tc_kernel(typename qst::Io<float, ALIAS>::In re,
-                typename qst::Io<float, ALIAS>::In im,
-                const float* __restrict__ wr, const float* __restrict__ wi,
-                typename qst::Io<float, ALIAS>::Out ore,
-                typename qst::Io<float, ALIAS>::Out oim, long long ntiles,
-                long long ext, long long tpa, int vec, qst::Phase ph) {
-  static_assert(!(ROTATE && (ALIAS || POS)), "the rotated store: lane panel, out of place");
-  constexpr bool WA = !POS && !ROTATE;
-  extern __shared__ float4 tc_smem[];
-  float* const sm = reinterpret_cast<float*>(tc_smem);
-  float* const ring = sm + W_FLOATS;
-  uint32_t* const scratch = reinterpret_cast<uint32_t*>(ring + STAGES * STAGE);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-
-  for (int e = threadIdx.x; e < TILE * TILE; e += NT) {  // W, fragment order
-    const int n = e / TILE, k = e % TILE;
-    const int s = k >> 3, kk = k & 7;
-    float* f = sm + ((s * (TILE / 8) + (n >> 3)) * 32 + (n & 7) * 4 + (kk & 3)) * 4;
-    f[kk >> 2] = wr[e];
-    f[2 + (kk >> 2)] = wi[e];
-  }
-
-  const long long mine = (ntiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
-  const long long jobs = mine * NCHUNK;
-  auto issue = [&](long long j) {
-    if (j < jobs) {
-      const Tile tl = tile_at<POS>(blockIdx.x + (j / NCHUNK) * gridDim.x, ext, tpa);
-      load_chunk<POS>(re, im, tl, ext, (int)(j % NCHUNK),
-                      ring + (int)(j % STAGES) * STAGE, vec && tl.nv == TILE);
-    }
-    cp_async_commit();
-  };
-#pragma unroll 1
-  for (int j = 0; j < STAGES - 1; ++j) issue(j);
-
-  Acc acc;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[mi][nj][0][c] = acc[mi][nj][1][c] = 0.f;
-
-#pragma unroll 1
-  for (long long j = 0; j < jobs; ++j) {
-    cp_async_wait<STAGES - 2>();  // job j has landed (this thread's copies)
-    __syncthreads();              // ... everyone's; stage j - 1 is consumed
-    issue(j + STAGES - 1);
-    const int ch = (int)(j % NCHUNK);
-    chunk_mma<POS, WA>(ring + (int)(j % STAGES) * STAGE,
-                       reinterpret_cast<const float4*>(sm), ch, acc, wm, wn, lane);
-    if (ch != NCHUNK - 1) continue;
-
-    const long long t = blockIdx.x + (j / NCHUNK) * gridDim.x;
-    const Tile tl = tile_at<POS>(t, ext, tpa);
-    if constexpr (!ROTATE) {
-      if (ph.words != nullptr)
-        diag_acc(ph, POS ? tl.base / TILE : tl.row0, POS ? ext / TILE : 1,
-                 scratch, acc, wm, wn, lane);
-    }
-    // Stores from the accumulators.  Element (m, n) goes to o0 + n * S + m:
-    // the lane panel's (r = n, i = m), the positioned panel's (c = m,
-    // k = n), the rotated store's out[i * R + r] (n = i, m = r).  For fixed
-    // c a warp's store writes 4 rows x 8 consecutive m: whole 32-byte
-    // sectors.
-    const long long o0 = POS || WA ? tl.base : tl.row0;
-    const long long S = WA ? TILE : ext;
-#pragma unroll
-    for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int m = frag_m(wm, mi, c, lane), n = frag_n(wn, nj, c, lane);
-          // QST_TC_NOSTORE: a test the compiler cannot fold (vec is 0 or 1)
-          if ((WA ? n : m) < tl.nv && !(QST_TC_NOSTORE && vec != 7)) {
-            const long long o = o0 + n * S + m;
-            ore[o] = acc[mi][nj][0][c];
-            oim[o] = acc[mi][nj][1][c];
-          }
-          acc[mi][nj][0][c] = acc[mi][nj][1][c] = 0.f;
-        }
-  }
-  cp_async_wait<0>();
-}
-
-template <bool POS, bool ALIAS, bool ROTATE>
-cudaError_t launch(const float* re, const float* im, const float* wr,
-                   const float* wi, float* ore, float* oim, long long ntiles,
-                   long long ext, long long tpa, const qst::Phase& ph,
-                   int device, cudaStream_t st) {
-  auto kernel = panel_tc_kernel<POS, ALIAS, ROTATE>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
-  if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  // cp.async moves 16 bytes: the planes must start on a 16-byte boundary.
-  const int vec = ((reinterpret_cast<uintptr_t>(re) | reinterpret_cast<uintptr_t>(im)) & 15) == 0;
-  const long long grid = ntiles < sms ? ntiles : sms;
-  kernel<<<(unsigned)grid, NT, SMEM, st>>>(re, im, wr, wi, ore, oim, ntiles,
-                                           ext, tpa, vec, ph);
-  return cudaGetLastError();
 }
 
 // ---- dual_panel on the tensor cores: view (A, 128, 128) = (a, d = bits
@@ -1228,12 +1419,13 @@ const char* qst_error_string(int err) {
 
 // dim in {1, 2, 4, ..., 128}; rows = 2^n / dim.  rotate: the transposed
 // (dim, rows) store, out of place and without a diag epilogue.  Dim 128
-// runs on the tensor cores, dims 1..64 on the SIMT units.  Returns a
-// cudaError_t.
+// runs on the tensor cores from wtc, W's split operand (four planes of 128
+// x 128 floats, 16-byte aligned: ops/panel_kernels.tc_operand), dims 1..64
+// on the SIMT units from (wr, wi) (wtc unused).  Returns a cudaError_t.
 int qst_lane_panel(const float* re, const float* im, const float* wr,
-                   const float* wi, float* ore, float* oim, long long rows,
-                   int dim, int rotate, const void* phase, int G, int T,
-                   int device, void* stream) {
+                   const float* wi, const float* wtc, float* ore, float* oim,
+                   long long rows, int dim, int rotate, const void* phase,
+                   int G, int T, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int alias = qst::alias_mode(re, im, ore, oim);
@@ -1245,10 +1437,10 @@ int qst_lane_panel(const float* re, const float* im, const float* wr,
   if (dim == TILE) {
     const long long tiles = (rows + TILE - 1) / TILE;
     return (int)(rotate
-        ? tc::launch<false, false, true>(re, im, wr, wi, ore, oim, tiles, rows, 1, ph, device, st)
+        ? tc::launch<false, false, true>(re, im, wtc, ore, oim, tiles, rows, 1, ph, device, st)
         : alias
-        ? tc::launch<false, true, false>(re, im, wr, wi, ore, oim, tiles, rows, 1, ph, device, st)
-        : tc::launch<false, false, false>(re, im, wr, wi, ore, oim, tiles, rows, 1, ph, device, st));
+        ? tc::launch<false, true, false>(re, im, wtc, ore, oim, tiles, rows, 1, ph, device, st)
+        : tc::launch<false, false, false>(re, im, wtc, ore, oim, tiles, rows, 1, ph, device, st));
   }
   switch (dim) {
 #define QST_LANE(D)                                                          \
@@ -1266,11 +1458,12 @@ int qst_lane_panel(const float* re, const float* im, const float* wr,
 }
 
 // The view (A, dim, C): C = 2^pos, dim in {1, ..., 128}; dim 128 on the
-// tensor cores, as above.
+// tensor cores from wtc, as above.
 int qst_positioned_panel(const float* re, const float* im, const float* wr,
-                         const float* wi, float* ore, float* oim, long long A,
-                         int dim, long long C, const void* phase, int G, int T,
-                         int device, void* stream) {
+                         const float* wi, const float* wtc, float* ore,
+                         float* oim, long long A, int dim, long long C,
+                         const void* phase, int G, int T, int device,
+                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int alias = qst::alias_mode(re, im, ore, oim);
@@ -1281,8 +1474,8 @@ int qst_positioned_panel(const float* re, const float* im, const float* wr,
   if (dim == TILE) {
     const long long tpa = (C + TILE - 1) / TILE;
     return (int)(alias
-        ? tc::launch<true, true, false>(re, im, wr, wi, ore, oim, A * tpa, C, tpa, ph, device, st)
-        : tc::launch<true, false, false>(re, im, wr, wi, ore, oim, A * tpa, C, tpa, ph, device, st));
+        ? tc::launch<true, true, false>(re, im, wtc, ore, oim, A * tpa, C, tpa, ph, device, st)
+        : tc::launch<true, false, false>(re, im, wtc, ore, oim, A * tpa, C, tpa, ph, device, st));
   }
   switch (dim) {
 #define QST_POS(D)                                                           \

@@ -43,7 +43,9 @@ tensor cores in split TF32 (three TF32 products a real product:
 float32-class accuracy; ``csrc/panels.cu``), narrower panels and the
 dual's straddlers on the float32 SIMT units.  A W is a
 numpy complex matrix or a ``(wr, wi)`` pair of planes from
-:func:`w_planes`.
+:func:`w_planes` (a :class:`WPlanes`, which also keeps the dim-128
+kernels' split operand, :func:`tc_operand`, made once: the schedule's
+operands make it when they are prepared, any other W once a call).
 """
 from __future__ import annotations
 
@@ -92,15 +94,65 @@ def from_planar(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     return torch.complex(re, im)
 
 
-def w_planes(W, device, fdtype) -> tuple[torch.Tensor, torch.Tensor]:
-    """A panel as contiguous (wr, wi) planes of ``fdtype`` on ``device``."""
+class WPlanes(tuple):
+    """A panel's ``(wr, wi)`` planes; ``tc`` caches its split operand
+    (:func:`tc_operand`) once it is made."""
+
+
+def w_planes(W, device, fdtype) -> WPlanes:
+    """A panel as contiguous (wr, wi) planes of ``fdtype`` on ``device``
+    (``W`` itself if it already is)."""
     if isinstance(W, tuple):
-        wr, wi = W
-        return (wr.to(device=device, dtype=fdtype).contiguous(),
-                wi.to(device=device, dtype=fdtype).contiguous())
+        wr, wi = (w.to(device=device, dtype=fdtype).contiguous() for w in W)
+        if isinstance(W, WPlanes) and wr is W[0] and wi is W[1]:
+            return W
+        return WPlanes((wr, wi))
     Wn = np.asarray(W, dtype=np.complex128)
-    return (torch.as_tensor(np.ascontiguousarray(Wn.real), device=device).to(fdtype),
-            torch.as_tensor(np.ascontiguousarray(Wn.imag), device=device).to(fdtype))
+    return WPlanes((
+        torch.as_tensor(np.ascontiguousarray(Wn.real), device=device).to(fdtype),
+        torch.as_tensor(np.ascontiguousarray(Wn.imag), device=device).to(fdtype)))
+
+
+def rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 as ``cvt.rna.tf32.f32``: 10 mantissa bits,
+    to nearest, ties away from zero (adding half a unit of the kept last
+    bit to the magnitude bits rounds both signs away)."""
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+        torch.int32).view(torch.float32)
+
+
+def tc_operand(W: WPlanes) -> torch.Tensor:
+    """The dim-128 tensor-core kernels' split-TF32 operand of a float32 W,
+    made once and kept on ``W``: the four planes Re hi, Im hi, Re lo, Im
+    lo (hi = ``rna_tf32(w)``, lo = ``rna_tf32(w - hi)``), each laid out as
+    wgmma's K-major B operand without swizzle: W[i, k] at (k // 8) * 1024
+    + (i // 8) * 64 + (k // 4 % 2) * 32 + (i % 8) * 4 + k % 4, so a k8
+    step of a plane is 4 KB of 16 groups of 8 rows i, each two 128-byte
+    core matrices (8 rows by 4 k).  256 KB."""
+    op = getattr(W, "tc", None)
+    if op is None:
+        wr, wi = W
+        if wr.shape != (LANES, LANES) or wr.dtype != torch.float32:
+            raise ValueError(f"the split operand is of a float32 W of width "
+                             f"{LANES}, not {tuple(wr.shape)} {wr.dtype}")
+        hi = [rna_tf32(w) for w in (wr, wi)]
+        lo = [rna_tf32(w - h) for w, h in zip((wr, wi), hi)]
+        planes = torch.stack(hi + lo).reshape(4, 16, 8, 16, 2, 4)
+        op = W.tc = planes.permute(0, 3, 1, 4, 2, 5).contiguous().reshape(-1)
+    return op
+
+
+def panel_operand(W, device, fdtype) -> WPlanes:
+    """:func:`w_planes`, with the split operand made now where a kernel
+    will read it (float32, width 128, on the card): the schedule's
+    operands, prepared once."""
+    planes = w_planes(W, device, fdtype)
+    if (planes[0].device.type == "cuda" and fdtype == torch.float32
+            and planes[0].shape[0] == LANES):
+        tc_operand(planes)
+    return planes
 
 
 def _straddle_plan(qb: int, U, npdt):
@@ -353,9 +405,9 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PHASE = [_P, _I, _I]  # the packed DiagTerms operand (or null), G, T
 _SIGNATURES = {
     "qst_error_string": (ctypes.c_char_p, [_I]),
-    "qst_lane_panel": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _I, *_PHASE,
-                            _I, _P]),
-    "qst_positioned_panel": (_I, [_P, _P, _P, _P, _P, _P, _LL, _I, _LL,
+    "qst_lane_panel": (_I, [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                            *_PHASE, _I, _P]),
+    "qst_positioned_panel": (_I, [_P, _P, _P, _P, _P, _P, _P, _LL, _I, _LL,
                                   *_PHASE, _I, _P]),
     "qst_dual_panel": (_I, [_P, _P, _P, _P, _I, _P, _P, _I, _P, _I, _P,
                             _I, _P, _P, _LL, *_PHASE, _I, _P]),
@@ -367,6 +419,11 @@ def variant_library(defines: tuple) -> ctypes.CDLL:
     measurement variants, ``panel_variants.py``), entries typed as the
     wrappers' own."""
     return load("panels", _SIGNATURES, defines)
+
+
+def _tc_ptr(W: WPlanes, dim: int):
+    """The split operand's address for a dim-128 launch (None below)."""
+    return tc_operand(W).data_ptr() if dim == LANES else None
 
 
 def _check_dim(name: str, dim: int, N: int, view: int) -> None:
@@ -389,15 +446,16 @@ def lane_panel(re, im, W, *, diag_terms=None, inplace: bool = False,
     diag_terms = DiagTerms.of(diag_terms)
     if plain or not on_card("lane_panel", re, im):
         return lane_panel_plain(re, im, W, diag_terms, inplace, rotate)
-    wr, wi = w_planes(W, re.device, re.dtype)
+    W = w_planes(W, re.device, re.dtype)
+    wr, wi = W
     dim, N = wr.shape[0], re.numel()
     _check_dim("lane_panel", dim, N, dim)
     fuse = diag_terms if dim == LANES and not rotate else None
     ore, oim = outputs(re, im, inplace)
     launch("panels", _SIGNATURES, "qst_lane_panel", re.device,
            re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-           ore.data_ptr(), oim.data_ptr(), N // dim, dim, int(rotate),
-           *phase_args(fuse, re.device))
+           _tc_ptr(W, dim), ore.data_ptr(), oim.data_ptr(), N // dim, dim,
+           int(rotate), *phase_args(fuse, re.device))
     LAUNCHES["lane_panel+rotate" if rotate
              else _key("lane_panel", fuse, inplace)] += 1
     if diag_terms is not None and fuse is None:
@@ -412,15 +470,16 @@ def positioned_panel(re, im, W, pos: int, *, diag_terms=None,
     diag_terms = DiagTerms.of(diag_terms)
     if plain or not on_card("positioned_panel", re, im):
         return positioned_panel_plain(re, im, W, pos, diag_terms, inplace)
-    wr, wi = w_planes(W, re.device, re.dtype)
+    W = w_planes(W, re.device, re.dtype)
+    wr, wi = W
     dim, N, C = wr.shape[0], re.numel(), 1 << pos
     _check_dim("positioned_panel", dim, N, dim * C)
     fuse = diag_terms if dim == LANES and C >= LANES else None
     ore, oim = outputs(re, im, inplace)
     launch("panels", _SIGNATURES, "qst_positioned_panel", re.device,
            re.data_ptr(), im.data_ptr(), wr.data_ptr(), wi.data_ptr(),
-           ore.data_ptr(), oim.data_ptr(), N // (dim * C), dim, C,
-           *phase_args(fuse, re.device))
+           _tc_ptr(W, dim), ore.data_ptr(), oim.data_ptr(), N // (dim * C),
+           dim, C, *phase_args(fuse, re.device))
     LAUNCHES[_key("positioned_panel", fuse, inplace)] += 1
     if diag_terms is not None and fuse is None:
         return fused_diag(ore, oim, diag_terms, inplace=inplace)

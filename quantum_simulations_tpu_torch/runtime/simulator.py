@@ -300,9 +300,11 @@ def pair_panel_diag(ops, enabled: bool | None = None):
     return out
 
 
-def _prepare(op, device, fdtype):
+def _prepare(op, device, fdtype, split: bool = True):
     """The op with its W planes (and straddler and diag operands) on the
-    device."""
+    device; a window panel's split operand too (``pk.panel_operand``),
+    unless it is half of a dual panel (``split=False``), whose kernel
+    reads the planes."""
     if isinstance(op, DiagOp):
         return dataclasses.replace(
             op, terms=_prepare_terms(_diag_terms(op), device))
@@ -315,7 +317,8 @@ def _prepare(op, device, fdtype):
                        PhysGateOp)):
         return op
     if isinstance(op, WindowPanelOp):
-        return dataclasses.replace(op, W=pk.w_planes(op.W, device, fdtype))
+        make = pk.panel_operand if split else pk.w_planes
+        return dataclasses.replace(op, W=make(op.W, device, fdtype))
     if isinstance(op, DualPanelOp):
         pre = pk.Straddle.of(op.pre_straddle)
         post = pk.Straddle.of(op.post_straddle)
@@ -323,8 +326,8 @@ def _prepare(op, device, fdtype):
             if s is not None and device.type == "cuda":
                 s.operand(device)
         return dataclasses.replace(
-            op, first=_prepare(op.first, device, fdtype),
-            second=_prepare(op.second, device, fdtype),
+            op, first=_prepare(op.first, device, fdtype, split=False),
+            second=_prepare(op.second, device, fdtype, split=False),
             pre_straddle=pre, post_straddle=post)
     raise TypeError(f"no window op {type(op).__name__}")
 
@@ -534,7 +537,7 @@ def apply_panel_op(re, im, op, rotated: bool = False, *, plain: bool = False):
 
 def prepare_passes(items, device, fdtype) -> list:
     """``[(op, flag)]`` with each panel's W planes on ``device``."""
-    return [(dataclasses.replace(op, W=pk.w_planes(op.W, device, fdtype))
+    return [(dataclasses.replace(op, W=pk.panel_operand(op.W, device, fdtype))
              if isinstance(op, (PanelOp, LowPanelOp)) else op, flag)
             for op, flag in items]
 

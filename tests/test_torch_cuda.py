@@ -540,6 +540,63 @@ def test_positioned_panel_ragged_view(dev):
     assert _l2(got, pk.positioned_panel_plain(*x, W, 2)) < TOL_L2
 
 
+def _misaligned(x):
+    """The planes one float off a 16-byte boundary (copies)."""
+    out = []
+    for p in x:
+        buf = torch.empty(p.numel() + 1, dtype=p.dtype, device=p.device)
+        buf[1:].copy_(p)
+        out.append(buf[1:])
+    return tuple(out)
+
+
+# The precision rule of the dim-128 panels: float32 class, at most twice
+# the mma.sync kernel's worst reading (1.4e-7) from the float64 twin.
+TOL_TC_F64 = 2.8e-7
+
+_TC_CASES = {
+    # label: (n, kernel call, twin call); every panel_tc_kernel instance
+    "lane": (16, lambda x, W, **k: pk.lane_panel(*x, W, **k),
+             lambda x, W, **k: pk.lane_panel_plain(*x, W, **k)),
+    "lane rotate": (16, lambda x, W: pk.lane_panel(*x, W, rotate=True),
+                    lambda x, W: pk.lane_panel_plain(*x, W, rotate=True)),
+    "lane inplace": (16, lambda x, W: pk.lane_panel(x[0].clone(), x[1].clone(), W,
+                                                    inplace=True),
+                     lambda x, W: pk.lane_panel_plain(*x, W)),
+    "lane +diag": (16, lambda x, W: pk.lane_panel(*x, W, diag_terms=_terms(16, 40, 4)),
+                   lambda x, W: pk.lane_panel_plain(*x, W, diag_terms=_terms(16, 40, 4))),
+    "lane ragged (R = 64)": (13, lambda x, W: pk.lane_panel(*x, W),
+                             lambda x, W: pk.lane_panel_plain(*x, W)),
+    "lane misaligned": (16, lambda x, W: pk.lane_panel(*_misaligned(x), W),
+                        lambda x, W: pk.lane_panel_plain(*x, W)),
+    **{f"positioned pos{p}": (max(p + 7, 16),
+                              lambda x, W, p=p: pk.positioned_panel(*x, W, p),
+                              lambda x, W, p=p: pk.positioned_panel_plain(*x, W, p))
+       for p in (7, 11, 14, 21)},
+    "positioned inplace": (18, lambda x, W: pk.positioned_panel(
+        x[0].clone(), x[1].clone(), W, 11, inplace=True),
+        lambda x, W: pk.positioned_panel_plain(*x, W, 11)),
+    "positioned +diag": (18, lambda x, W: pk.positioned_panel(
+        *x, W, 9, diag_terms=_terms(18, 40, 9)),
+        lambda x, W: pk.positioned_panel_plain(*x, W, 9, diag_terms=_terms(18, 40, 9))),
+    "positioned misaligned": (16, lambda x, W: pk.positioned_panel(*_misaligned(x), W, 7),
+                              lambda x, W: pk.positioned_panel_plain(*x, W, 7)),
+}
+
+
+@pytest.mark.parametrize("label", list(_TC_CASES))
+def test_panel_tc_instances_against_float64(dev, label):
+    """Each instance of panel_tc_kernel (lane, rotated, positioned, in
+    place, with the diag epilogue; a ragged and a misaligned view) within
+    the precision rule of the float64 twin, and within TOL_L2 of the
+    float32 one."""
+    n, kern, twin = _TC_CASES[label]
+    x, W = _state(n, n + 40, dev), _unitary(128, n + 41)
+    got = kern(x, W)
+    assert _l2(got, twin(_f64(x), W)) <= TOL_TC_F64
+    assert _l2(got, twin(x, W)) < TOL_L2
+
+
 def test_panel_chain_drift_against_float64(dev):
     """24 positioned passes (as nonstab33 and its inverse run) stay within
     1e-5 of the float64 twins."""
@@ -635,9 +692,10 @@ def test_dual_panel_tensor_cores(dev, order, variant):
     assert _l2(got, want) < TOL_L2 and _l2(got, want64) < TOL_L2
 
 
-def test_dual_panel_runs_hmma(dev):
-    """Both instances of the dual kernel (out of place, in place) hold
-    tensor-core instructions (cuobjdump -sass of the built library)."""
+def _tc_sass(kernel: str) -> dict:
+    """{template arguments: {"HGMMA": count, "HMMA": count}} over the
+    instances of ``kernel`` in the built library of csrc/panels.cu
+    (cuobjdump -sass): HGMMA the warpgroup MMA, HMMA mma.sync."""
     import re
     import subprocess
     from pathlib import Path
@@ -653,13 +711,33 @@ def test_dual_panel_runs_hmma(dev):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            d = re.search(r"dual_tc_kernelILb(\d)E", m.group(1))
+            d = re.search(kernel + r"((?:ILb\d)(?:ELb\d)*)E", m.group(1))
             fn = d.group(1) if d else None
             if fn is not None:
-                counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
-    assert set(counts) == {"0", "1"} and all(counts.values()), counts
+                counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in counts[fn]:
+                counts[fn][op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
+
+
+def test_dual_panel_runs_hmma(dev):
+    """Both instances of the dual kernel (out of place, in place) hold
+    tensor-core instructions (cuobjdump -sass of the built library)."""
+    counts = _tc_sass("dual_tc_kernel")
+    assert set(counts) == {"ILb0", "ILb1"}, counts
+    assert all(c["HMMA"] for c in counts.values()), counts
+
+
+def test_panel_tc_runs_hgmma(dev):
+    """Every instance of the lane / positioned kernel (lane, in place,
+    rotated; positioned, in place) runs on the warpgroup MMA: HGMMA, and
+    no mma.sync (HMMA); the dual's two still run mma.sync."""
+    counts = _tc_sass("panel_tc_kernel")
+    assert set(counts) == {"ILb0ELb0ELb0", "ILb0ELb1ELb0", "ILb0ELb0ELb1",
+                           "ILb1ELb0ELb0", "ILb1ELb1ELb0"}, counts
+    assert all(c["HGMMA"] and not c["HMMA"] for c in counts.values()), counts
+    assert all(c["HMMA"] for c in _tc_sass("dual_tc_kernel").values())
 
 
 def _random_involution_src(n, rng):

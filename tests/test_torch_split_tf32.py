@@ -15,8 +15,12 @@ float32 in the tile between them, with its straddlers (float32) before
 and after.  Single-pass TF32 misses 1e-5, which shows the bounds have
 teeth.  The emulation sums in float32 rounded to nearest; the
 tensor cores truncate when they accumulate, so the kernel adds each k8
-step's products into its float32 sum with a rounded add.  The card holds
-the kernels to the same numbers (chip_smoke.py phase 2;
+step's products into its float32 sum with a rounded add.  The lane and
+positioned kernels read W already split (``ops/panel_kernels.tc_operand``,
+made once per pass on the host side, in the layout of wgmma's B operand):
+the last tests hold that operand's rounding and layout to the emulation,
+and the kernel's per-step fold, read through the layout, to the budget.
+The card holds the kernels to the same numbers (chip_smoke.py phase 2;
 tests/test_torch_cuda.py::test_panel_chain_drift_against_float64).
 """
 import numpy as np
@@ -267,3 +271,86 @@ def test_nonstab33_chain_within_budget():
 
 def test_nonstab33_chain_single_pass_tf32_misses_the_budget():
     assert nonstab33_chain(mm1) > TOL_CHAIN
+
+
+# ---------------------------------------------------------------------------
+# The split operand of the lane / positioned kernels (wgmma's B operand)
+# ---------------------------------------------------------------------------
+
+def operand_planes(op: torch.Tensor) -> np.ndarray:
+    """The (4, 128 i, 128 k) planes Re hi, Im hi, Re lo, Im lo of a split
+    operand, read back through its layout: W[i, k] at (k // 8) * 1024 +
+    (i // 8) * 64 + (k // 4 % 2) * 32 + (i % 8) * 4 + k % 4."""
+    i, k = np.meshgrid(np.arange(128), np.arange(128), indexing="ij")
+    at = (k // 8) * 1024 + (i // 8) * 64 + (k // 4 % 2) * 32 + (i % 8) * 4 + k % 4
+    flat = op.numpy().reshape(4, 128 * 128)
+    return np.stack([plane[at] for plane in flat])
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_tc_operand_rounds_as_cvt_rna(seed):
+    """The operand's hi and lo planes are the emulation's split of W,
+    bit for bit, and the torch rounding equals the numpy one on ties and
+    signs too."""
+    W = unitary(seed) * (10.0 ** (seed - 1))
+    planes = pk.w_planes(W, "cpu", torch.float32)
+    got = operand_planes(pk.tc_operand(planes))
+    for p, w in enumerate(planes):
+        hi, lo = split(w.numpy())
+        np.testing.assert_array_equal(got[p], hi)
+        np.testing.assert_array_equal(got[2 + p], lo)
+    x = np.array([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 3 * 2.0 ** -12, -2.5,
+                  0.0, 3.4e38, -1e-38], np.float32)
+    np.testing.assert_array_equal(pk.rna_tf32(torch.from_numpy(x)).numpy(),
+                                  rna_tf32(x))
+
+
+def test_tc_operand_is_made_once():
+    """A WPlanes keeps its operand; w_planes hands the same WPlanes back;
+    panel_operand splits only for a card (the CPU runs the twins)."""
+    planes = pk.w_planes(unitary(5), "cpu", torch.float32)
+    assert pk.w_planes(planes, "cpu", torch.float32) is planes
+    op = pk.tc_operand(planes)
+    assert pk.tc_operand(planes) is op and op.shape == (4 * 128 * 128,)
+    assert getattr(pk.panel_operand(unitary(5), "cpu", torch.float32),
+                   "tc", None) is None
+    with pytest.raises(ValueError):
+        pk.tc_operand(pk.w_planes(unitary(5)[:64, :64], "cpu", torch.float32))
+
+
+def kernel_pass(x: np.ndarray, op: torch.Tensor, layout: str) -> np.ndarray:
+    """One dim-128 pass as the wgmma kernel runs it, W read from its split
+    operand: per k8 step, the six TF32 products of each part (exact in
+    float32, summed there), folded into the float32 sum by a rounded
+    add."""
+    f32 = np.float32
+    whr, whi, wlr, wli = operand_planes(op)
+    xt = x if layout == "lane" else x.T  # (m, k): the free axis by k
+    xrh, xrl = split(xt.real.astype(f32))
+    xih, xil = split(xt.imag.astype(f32))
+    acc_r = np.zeros((128, 128), f32)
+    acc_i = np.zeros((128, 128), f32)
+    for s in range(16):
+        k = slice(8 * s, 8 * s + 8)
+
+        def mm(a, b):  # (m, 8) by (i, 8): (m, i)
+            return (a[:, k] @ b[:, k].T).astype(f32)
+
+        acc_r += (mm(xrl, whr) + mm(xrh, wlr) - mm(xil, whi) - mm(xih, wli)
+                  + mm(xrh, whr) - mm(xih, whi))
+        acc_i += (mm(xrl, whi) + mm(xrh, wli) + mm(xil, whr) + mm(xih, wlr)
+                  + mm(xrh, whi) + mm(xih, whr))
+    out = acc_r + 1j * acc_i.astype(np.float64)
+    return out if layout == "lane" else out.T
+
+
+@pytest.mark.parametrize("layout", ["lane", "positioned"])
+def test_kernel_pass_from_the_operand_within_budget(layout):
+    """The kernel's pass, W read through the operand's layout and folded a
+    k8 step at a time, within the per-pass budget of complex128 for
+    nonstab's and random W's; a wrong layout would miss it by far."""
+    for s, W in enumerate(nonstab_panels()[:3] + [unitary(40)]):
+        x = unit_state(200 + s)
+        op = pk.tc_operand(pk.w_planes(W, "cpu", torch.float32))
+        err = np.linalg.norm(kernel_pass(x, op, layout) - reference(x, W, layout))
+        assert err <= TOL_PASS, (s, err)
